@@ -1,0 +1,649 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It imports ``repro_torch``, torch and numpy only (no JAX), prints one JSON
+object per line, and stops at the first failure with a non-zero exit.
+
+Phases:
+  1. card and build — the card's name and power limit, torch and CUDA
+     versions; builds both CUDA kernels from ``src/repro_torch/kernels/
+     csrc`` with nvcc and prints what ``-Xptxas -v`` reports;
+  2. kernels vs plain at edge shapes (k = 128, ragged N, owners with no
+     candidates, exact ties from duplicated rows, ip, bf16, SQ8 at d =
+     4096 and d = 100): kernel B must be bit-equal to its plain version,
+     kernel A within atol 1e-4·max|d| on values and equal on ids except
+     where the distance is within that tolerance of a neighbour's;
+  3. the main path at SIFT1M shape — ``make_scale_corpus(1_048_576, 128)``
+     indexed with ``VectorMatonConfig(T=10**9, backend="torch",
+     device="cuda")``, 64-request batches of ``SCALE_PATTERNS`` plus one
+     multi-segment LIKE (the residual path), under ``quantize="sq8"`` and
+     ``"none"``; recall 1.0 against a brute-force oracle on the card; both
+     kernels' launch counters must move.  Each kernel is then held
+     against its plain version on the exact inputs the main path gave it
+     and timed (CUDA events, warm) beside its plain version, the dense
+     torch composition (matmul + masked_fill + topk) and its bound;
+  4. graph states, inserts past the upload watermark, deletes and one
+     compaction on ``make_corpus("code")`` with ``T=50, M=8, ef_con=60``:
+     every wave equals the same index run through the port's plain
+     PyTorch path on the CPU (near ties aside), graph-free requests equal
+     the NumPy host oracle, and every answer is a live record that
+     satisfies its predicate at its true distance;
+  5. the ``kernels`` line; 6. the card line and the ``ok`` line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 CUDA-core
+# FLOP/s, int8 tensor-core OP/s.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_INT8 = 1979e12
+K = 10
+
+
+def emit(**obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
+    """Mean milliseconds per call from CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def topk_agree(v_a, i_a, v_b, i_b, tol: float) -> None:
+    """Two (R, k) ascending top-k results agree: the same (+inf, -1)
+    slots, values within ``tol`` slot by slot, and the same ids among
+    those clearly inside the top-k (more than 2·tol below the row's k-th
+    value).  Ids within 2·tol of the k-th value are a near tie and may
+    differ; so may the order of near-equal values inside."""
+    v_a, v_b = np.asarray(v_a, np.float64), np.asarray(v_b, np.float64)
+    i_a, i_b = np.asarray(i_a), np.asarray(i_b)
+    fin = np.isfinite(v_b)
+    check(np.array_equal(np.isfinite(v_a), fin), "(+inf, -1) slots differ")
+    check(np.array_equal(i_a == -1, ~fin), "-1 ids outside +inf slots")
+    check(np.array_equal(i_b == -1, ~fin), "-1 ids outside +inf slots")
+    if not fin.any():
+        return
+    err = np.abs(v_a[fin] - v_b[fin]).max()
+    check(err <= tol, f"values differ by {err} > {tol}")
+    for r in range(v_b.shape[0]):
+        f = fin[r]
+        if not f.any() or np.array_equal(i_a[r][f], i_b[r][f]):
+            continue
+        kth = v_b[r][f][-1]
+        inner_a = set(i_a[r][f][v_a[r][f] < kth - 2 * tol].tolist())
+        inner_b = set(i_b[r][f][v_b[r][f] < kth - 2 * tol].tolist())
+        check(inner_a == inner_b,
+              f"row {r}: ids inside the top-k differ: "
+              f"{sorted(inner_a ^ inner_b)}")
+
+
+def host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+# --------------------------------------------------------------------- #
+# phase 1: card and build
+# --------------------------------------------------------------------- #
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build()
+    build_s = time.perf_counter() - t0
+    log = _build.build_log()
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln
+             or "Compiling entry" in ln]
+    emit(phase="build", seconds=build_s, dir=str(_build.build_dir()),
+         ptxas=ptxas)
+    _build.library()
+
+
+# --------------------------------------------------------------------- #
+# phase 2: kernels vs plain at edge shapes
+# --------------------------------------------------------------------- #
+
+def _seg_case(rng, q, n, d, n_owners, dup=False):
+    x = rng.standard_normal((q, d)).astype(np.float32)
+    y = rng.standard_normal((n, d)).astype(np.float32)
+    if dup:                       # exact ties: every row appears 3 times
+        y = np.repeat(y[: (n + 2) // 3], 3, axis=0)[:n]
+    qseg = rng.integers(-1, n_owners + 2, q).astype(np.int32)
+    cseg = rng.integers(0, n_owners, n).astype(np.int32)
+    cseg[rng.random(n) < 0.05] = -3
+    return x, y, qseg, cseg
+
+
+def check_kernel_a(x, y, qseg, cseg, kp, metric="l2", accum="f32"):
+    """Kernel A vs its plain version on the same CUDA tensors."""
+    from repro_torch.kernels.distance_topk import (segmented_dense_topk,
+                                                   topk_seg_f32)
+    vk, ik = topk_seg_f32(x, y, qseg, cseg, kp, metric=metric, accum=accum)
+    torch.cuda.synchronize()
+    vp, ip = segmented_dense_topk(x, y, qseg, cseg, kp, metric=metric,
+                                  accum=accum)
+    torch.cuda.synchronize()
+    vp_h = host(vp)
+    fin = np.isfinite(vp_h)
+    scale = float(np.abs(vp_h[fin]).max()) if fin.any() else 1.0
+    tol = 1e-4 * max(scale, 1.0)
+    topk_agree(host(vk), host(ik), vp_h, host(ip), tol)
+    err = float(np.abs(host(vk)[fin] - vp_h[fin]).max()) if fin.any() \
+        else 0.0
+    return err, tol
+
+
+def check_kernel_b(xq, yq, sx, x2, sy, y2, qseg, cseg, kqp):
+    """Kernel B vs its plain version: bit-equal values and indices."""
+    from repro_torch.kernels.quant import qtopk_seg_sq8, sq8_dense_segmented
+    vk, ik = qtopk_seg_sq8(xq, yq, sx, x2, sy, y2, qseg, cseg, kqp)
+    torch.cuda.synchronize()
+    vp, ip = sq8_dense_segmented(xq, yq, sx, x2, sy, y2, qseg, cseg, kqp)
+    torch.cuda.synchronize()
+    check(torch.equal(vk, vp), "kernel B values differ from plain")
+    check(torch.equal(ik, ip), "kernel B indices differ from plain")
+    return 0.0
+
+
+def _sq8_inputs(x, y, qseg, cseg, dev):
+    from repro_torch.kernels.quant import quantize_sq8
+    xq, sx, x2 = quantize_sq8(torch.from_numpy(x).to(dev))
+    yq, sy, y2 = quantize_sq8(torch.from_numpy(y).to(dev))
+    return (xq, yq, sx[:, 0].contiguous(), x2[:, 0].contiguous(),
+            sy[:, 0].contiguous(), y2[:, 0].contiguous(),
+            torch.from_numpy(qseg).to(dev), torch.from_numpy(cseg).to(dev))
+
+
+def phase_edges() -> None:
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    cases = [
+        # name, q, n, d, owners, kp, metric, accum, dup
+        ("k128", 100, 5000, 128, 3, 128, "l2", "f32", False),
+        ("ragged_n", 70, 1037, 64, 4, 16, "l2", "f32", False),
+        ("no_owner_rows", 33, 600, 32, 40, 24, "l2", "f32", False),
+        ("ties", 64, 900, 48, 2, 40, "l2", "f32", True),
+        ("ip", 128, 3000, 128, 5, 16, "ip", "f32", False),
+        ("bf16", 128, 3000, 128, 5, 16, "l2", "bf16", False),
+        ("d100", 50, 777, 100, 3, 32, "l2", "f32", False),
+    ]
+    for name, q, n, d, owners, kp, metric, accum, dup in cases:
+        x, y, qseg, cseg = _seg_case(rng, q, n, d, owners, dup)
+        t = [torch.from_numpy(a).to(dev) for a in (x, y, qseg, cseg)]
+        err, tol = check_kernel_a(*t, kp, metric=metric, accum=accum)
+        emit(phase="edges", kernel="topk_seg_f32", case=name,
+             max_abs_err=err, tol=tol)
+    for name, q, n, d, owners, kp, dup in [
+            ("k128", 100, 5000, 128, 3, 128, False),
+            ("ragged_n", 70, 1037, 64, 4, 40, False),
+            ("no_owner_rows", 33, 600, 32, 40, 24, False),
+            ("ties", 64, 900, 48, 2, 40, True),
+            ("d4096", 40, 700, 4096, 3, 40, False),
+            ("d100", 50, 777, 100, 3, 32, False)]:
+        x, y, qseg, cseg = _seg_case(rng, q, n, d, owners, dup)
+        check_kernel_b(*_sq8_inputs(x, y, qseg, cseg, dev), kp)
+        emit(phase="edges", kernel="qtopk_seg_sq8", case=name,
+             max_abs_err=0.0, bit_equal=True)
+
+
+# --------------------------------------------------------------------- #
+# phase 3: main path at SIFT1M shape
+# --------------------------------------------------------------------- #
+
+class Capture:
+    """Record the arguments of the last call of a module-level kernel
+    wrapper (the executor looks it up by name at call time).  The
+    wrapper counts its launches on itself through the same name, so
+    ``launches`` passes through to the wrapped function."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.args = None
+
+    def __call__(self, *args, **kwargs):
+        self.args = (args, kwargs)
+        return self.fn(*args, **kwargs)
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.launches = value
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def matching_rows(seqs, patterns):
+    """Ids whose sequence satisfies each distinct predicate (host scan)."""
+    from repro_torch.core.predicate import Contains, as_predicate
+    out = {}
+    for p in dict.fromkeys(patterns):
+        pred = as_predicate(p)
+        if isinstance(pred, Contains):
+            hit = [i for i, s in enumerate(seqs) if p in s]
+        else:
+            hit = [i for i, s in enumerate(seqs) if pred.matches(s)]
+        out[p] = np.asarray(hit, np.int64)
+    return out
+
+
+def brute_force(vectors_dev, rows_of, queries, patterns, k):
+    """Exact filtered top-k on the card: per distinct predicate, the fp32
+    distance to every matching row, then a stable top-k."""
+    out = [None] * len(patterns)
+    for p, rows in rows_of.items():
+        reqs = [r for r, pp in enumerate(patterns) if pp == p]
+        qd = torch.from_numpy(queries[reqs]).to(vectors_dev.device)
+        if len(rows) == 0:
+            for r in reqs:
+                out[r] = (np.empty(0, np.float32), np.empty(0, np.int64))
+            continue
+        y = vectors_dev[torch.from_numpy(rows).to(vectors_dev.device)]
+        if len(rows) * len(reqs) < 2 ** 22:     # difference form if small
+            dist = ((y[None] - qd[:, None, :]) ** 2).sum(-1)
+        else:
+            dist = ((qd * qd).sum(1, keepdim=True) + (y * y).sum(1)
+                    - 2.0 * qd @ y.T).clamp_min(0.0)
+        kk = min(k, len(rows))
+        pos = torch.argsort(dist, dim=1, stable=True)[:, :kk]
+        dv, di = host(dist.gather(1, pos)), rows[host(pos)]
+        for j, r in enumerate(reqs):
+            out[r] = (dv[j], di[j])
+    return out
+
+
+def recall_check(res, oracle, tol_rel=1e-4):
+    """Recall of ``res`` against ``oracle`` counting a near tie at the
+    k-th place as a hit; both must agree as top-k lists."""
+    hits = total = 0
+    for (d, i), (od, oi) in zip(res, oracle):
+        check(len(i) == len(oi), f"{len(i)} results, oracle {len(oi)}")
+        if not len(oi):
+            continue
+        tol = tol_rel * max(float(np.abs(od).max()), 1.0)
+        topk_agree(d[None], i[None], od[None], oi[None], tol)
+        inner = set(oi[od < od[-1] - 2 * tol].tolist())
+        hits += len(inner & set(i.tolist())) + (len(oi) - len(inner))
+        total += len(oi)
+    return hits / max(total, 1)
+
+
+def _bound(bytes_, ops, peak_ops):
+    t_bytes = bytes_ / PEAK_BYTES * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def _live_pairs(qseg: torch.Tensor, cseg: torch.Tensor):
+    """(matched (row, column) pairs, live columns) of a segmented scan."""
+    owners = torch.unique(qseg[qseg >= 0])
+    rows_per = torch.stack([(qseg == o).sum() for o in owners]) \
+        if len(owners) else torch.zeros(0, device=qseg.device)
+    cols_per = torch.stack([(cseg == o).sum() for o in owners]) \
+        if len(owners) else torch.zeros(0, device=qseg.device)
+    return (int((rows_per.double() * cols_per.double()).sum()),
+            int(cols_per.sum()))
+
+
+def measure_kernel_a(args, kwargs, launches):
+    from repro_torch.kernels.distance_topk import (segmented_dense_topk,
+                                                   topk_seg_f32)
+    x, y, qseg, cseg, kp = args
+    metric, accum = kwargs.get("metric", "l2"), kwargs.get("accum", "f32")
+    err, tol = check_kernel_a(x, y, qseg, cseg, kp, metric=metric,
+                              accum=accum)
+    ms = cuda_ms(lambda: topk_seg_f32(x, y, qseg, cseg, kp, metric=metric,
+                                      accum=accum))
+    plain_ms = cuda_ms(lambda: segmented_dense_topk(
+        x, y, qseg, cseg, kp, metric=metric, accum=accum), reps=3)
+
+    def composition():
+        xy = x @ y.T
+        dist = ((x * x).sum(1, keepdim=True) + (y * y).sum(1) - 2.0 * xy)
+        dist = dist.masked_fill(qseg[:, None] != cseg[None, :],
+                                float("inf"))
+        return torch.topk(dist, kp, dim=1, largest=False)
+
+    comp_ms = cuda_ms(composition, reps=3)
+    pairs, live = _live_pairs(qseg, cseg)
+    q, d = x.shape
+    n = y.shape[0]
+    bytes_ = q * d * 4 + live * d * 4 + (q + n) * 4 + q * kp * 8
+    bound_ms, bound_by = _bound(bytes_, 2 * pairs * d, PEAK_F32)
+    return {"name": "topk_seg_f32", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topk_seg.cu",
+            "replaces": "src/repro/kernels/distance_topk.py:97",
+            "launches": launches, "max_abs_err": err, "tol": tol,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "composition_ms": comp_ms,
+            "shape": {"Qp": q, "N": n, "d": d, "kp": kp,
+                      "matched_pairs": pairs, "live_columns": live}}
+
+
+def measure_kernel_b(args, launches):
+    from repro_torch.kernels.quant import qtopk_seg_sq8, sq8_dense_segmented
+    xq, yq, sx, x2, sy, y2, qseg, cseg, kqp = args
+    err = check_kernel_b(*args)
+    ms = cuda_ms(lambda: qtopk_seg_sq8(*args))
+    plain_ms = cuda_ms(lambda: sq8_dense_segmented(*args), reps=3)
+
+    def composition():
+        dot = xq.float() @ yq.float().T         # exact: d·127² < 2²⁴
+        dist = ((x2[:, None] + y2[None, :])
+                - 2.0 * (dot * sx[:, None]) * sy[None, :])
+        dist = dist.masked_fill(qseg[:, None] != cseg[None, :],
+                                float("inf"))
+        return torch.topk(dist, kqp, dim=1, largest=False)
+
+    comp_ms = cuda_ms(composition, reps=3)
+    pairs, live = _live_pairs(qseg, cseg)
+    q, d = xq.shape
+    n = yq.shape[0]
+    bytes_ = q * (d + 8) + live * (d + 8) + (q + n) * 4 + q * kqp * 8
+    bound_ms, bound_by = _bound(bytes_, 2 * pairs * d, PEAK_INT8)
+    return {"name": "qtopk_seg_sq8", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/qtopk_seg.cu",
+            "replaces": "src/repro/kernels/quant.py:162",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "composition_ms": comp_ms,
+            "shape": {"Qp": q, "N": n, "d": d, "kqp": kqp,
+                      "matched_pairs": pairs, "live_columns": live}}
+
+
+def phase_main_path():
+    from repro_torch.core.vectormaton import VectorMaton, VectorMatonConfig
+    from repro_torch.data.corpora import SCALE_PATTERNS, make_scale_corpus
+    from repro_torch.kernels import distance_topk, ops, quant
+
+    t0 = time.perf_counter()
+    vecs, seqs = make_scale_corpus(1_048_576, 128)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vm = VectorMaton(vecs, seqs, VectorMatonConfig(
+        T=10 ** 9, backend="torch", device="cuda"))
+    rt = vm.runtime
+    rt.to_device()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    emit(phase="main_build", n=len(vecs), d=vecs.shape[1],
+         generate_s=gen_s, build_and_upload_s=build_s,
+         states=rt.stats()["states"], graph_states=len(rt.graphs))
+
+    rng = np.random.default_rng(1)
+    patterns = [SCALE_PATTERNS[i % len(SCALE_PATTERNS)] for i in range(63)]
+    patterns.append("LIKE '%a%c%'")
+    waves = 16
+    qsets = [(vecs[rng.integers(0, len(vecs), 64)]
+              + 0.3 * rng.standard_normal((64, 128))).astype(np.float32)
+             for _ in range(waves)]
+    strategies = dict(vm.plan(patterns, rt).strategies)
+
+    # warm-up wave per mode (first calls load the kernel library)
+    for mode in ("sq8", "none"):
+        rt.quantize = mode
+        vm.query_batch(qsets[0], patterns, K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_stats()
+    distance_topk.topk_seg_f32.launches = 0
+    quant.qtopk_seg_sq8.launches = 0
+    results = {}
+    wave_ms = {"sq8": [], "none": []}
+    host_ms = {}
+    sq8_before = dict(rt.sq8_stats)
+    with Capture(distance_topk, "topk_seg_f32") as cap_a, \
+            Capture(quant, "qtopk_seg_sq8") as cap_b:
+        for mode in ("sq8", "none"):
+            rt.quantize = mode
+            before = dict(rt.wave_times)
+            for w in range(waves):
+                t0 = time.perf_counter()
+                res = vm.query_batch(qsets[w], patterns, K)
+                torch.cuda.synchronize()
+                wave_ms[mode].append((time.perf_counter() - t0) * 1e3)
+                results[(mode, w)] = res
+            host_ms[mode] = {key: (rt.wave_times[key] - before[key]) / waves
+                             for key in before}
+    stats = ops.launch_stats()
+    launches_a = distance_topk.topk_seg_f32.launches
+    launches_b = quant.qtopk_seg_sq8.launches
+    sq8 = {k: rt.sq8_stats[k] - sq8_before[k] for k in rt.sq8_stats}
+    peak = torch.cuda.max_memory_allocated()
+    check(stats.get("sq8_scan", 0) >= 1, f"no sq8_scan launch: {stats}")
+    check(stats.get("desc_scan", 0) >= 1, f"no desc_scan launch: {stats}")
+    check(launches_a > 0, "kernel A never launched on the main path")
+    check(launches_b > 0, "kernel B never launched on the main path")
+
+    dev_vecs = rt.to_device()["vectors"]
+    rows_of = matching_rows(seqs, patterns)
+    recalls = []
+    for w in range(waves):
+        oracle = brute_force(dev_vecs, rows_of, qsets[w], patterns, K)
+        for mode in ("sq8", "none"):
+            rec = recall_check(results[(mode, w)], oracle)
+            check(rec == 1.0, f"recall {rec} < 1.0 ({mode}, wave {w})")
+            recalls.append(rec)
+    emit(phase="main_path", patterns=sorted(set(patterns)),
+         strategies=strategies, k=K, waves_per_mode=waves,
+         recall=min(recalls), launch_stats=stats,
+         kernel_launches={"topk_seg_f32": launches_a,
+                          "qtopk_seg_sq8": launches_b},
+         sq8_stats=sq8,
+         wave_ms_p25_p50_p75={m: np.percentile(v, [25, 50, 75]).tolist()
+                              for m, v in wave_ms.items()},
+         wave_ms=wave_ms, host_ms_per_wave=host_ms,
+         max_memory_allocated=peak)
+    for mode in ("sq8", "none"):
+        rt.quantize = mode
+        rt._sq8_bad_streak = 0      # so the sq8 wave runs the SQ8 scan
+        profile_wave(vm, qsets[0], patterns, mode)
+    return (cap_a.args, launches_a), (cap_b.args, launches_b)
+
+
+def profile_wave(vm, queries, patterns, mode: str) -> None:
+    """One wave under ``torch.profiler``: device time by kernel name and
+    the device's busy share of the wave's wall time.  Run after the
+    counted waves, so its launches count nowhere."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vm.query_batch(queries, patterns, K)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue                # host ops would count their kernels twice
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.key, e.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) if rows else None   # None: no trace
+    emit(phase="profile", mode=mode, wall_ms=wall_ms, device_busy_ms=busy,
+         device_idle_share=None if busy is None else 1 - busy / wall_ms,
+         top=[{"kernel": k[:80], "ms": ms, "count": c}
+              for ms, k, c in rows[:8]])
+
+
+# --------------------------------------------------------------------- #
+# phase 4: graph states, churn and compaction
+# --------------------------------------------------------------------- #
+
+def _graph_free_requests(vm, patterns):
+    plan = vm.plan(patterns)
+    free = set(range(len(patterns))) - set(plan.misses)
+    for e in plan.entries:
+        if any(s.graph_states for s in e.sources):
+            free -= set(e.requests)
+    return sorted(free)
+
+
+def phase_graphs() -> None:
+    from repro_torch.core.predicate import as_predicate
+    from repro_torch.core.vectormaton import VectorMaton, VectorMatonConfig
+    from repro_torch.data.corpora import make_corpus, sample_patterns
+
+    vecs, seqs = make_corpus("code")
+    cfg = dict(T=50, M=8, ef_con=60, auto_compact=False)
+    t0 = time.perf_counter()
+    vms = {"cuda": VectorMaton(vecs, seqs, VectorMatonConfig(
+               device="cuda", **cfg)),
+           "cpu": VectorMaton(vecs, seqs, VectorMatonConfig(
+               device="cpu", **cfg)),
+           "numpy": VectorMaton(vecs, seqs, VectorMatonConfig(
+               backend="numpy", **cfg))}
+    build_s = time.perf_counter() - t0
+    n_graphs = len(vms["cuda"].runtime.graphs)
+    check(n_graphs > 0, "the code corpus built no graph states")
+    rng = np.random.default_rng(2)
+    patterns = (sample_patterns(seqs, 2, 32, seed=1)
+                + sample_patterns(seqs, 1, 32, seed=2))
+    live_seqs = list(seqs)
+
+    def wave(name):
+        q = rng.standard_normal((len(patterns), vecs.shape[1])).astype(
+            np.float32)
+        t0 = time.perf_counter()
+        res = {b: vm.query_batch(q, patterns, K) for b, vm in vms.items()}
+        dt = time.perf_counter() - t0
+        free = _graph_free_requests(vms["cuda"], patterns)
+        table = vms["cuda"].vectors
+        deleted = vms["cuda"].deleted
+        for r, p in enumerate(patterns):
+            (d, i), (dc, ic) = res["cuda"][r], res["cpu"][r]
+            check(len(i) == len(ic), f"{name} {p!r}: {len(i)} vs {len(ic)}")
+            if len(i):
+                topk_agree(d[None], i[None], dc[None], ic[None], 2e-4)
+            if r in free:
+                dn, inp = res["numpy"][r]
+                check(len(i) == len(inp), f"{name} {p!r}: vs numpy")
+                if len(i):
+                    topk_agree(d[None], i[None], dn[None], inp[None], 2e-4)
+            pred = as_predicate(p)
+            for dist, gid in zip(d, i):
+                check(int(gid) not in deleted, f"{name}: deleted id {gid}")
+                check(pred.matches(live_seqs[int(gid)]),
+                      f"{name}: id {gid} fails {p!r}")
+                true = float(((table[gid] - q[r]) ** 2).sum())
+                check(abs(true - float(dist)) <= 2e-4 * max(true, 1.0),
+                      f"{name}: id {gid} distance {dist} vs {true}")
+        emit(phase="graphs", wave=name, requests=len(patterns),
+             graph_free=len(free), deleted=len(deleted),
+             seconds_all_backends=dt)
+
+    wave("frozen")
+    for _ in range(40):                      # past the upload watermark
+        j = int(rng.integers(0, len(seqs)))
+        v = (vecs[j] + 0.1 * rng.standard_normal(vecs.shape[1])).astype(
+            np.float32)
+        for vm in vms.values():
+            vm.insert(v, seqs[j])
+        live_seqs.append(seqs[j])
+    wave("inserts")
+    for gid in rng.choice(len(seqs), 30, replace=False):
+        for vm in vms.values():
+            vm.delete(int(gid))
+    wave("deletes_overfetch")
+    for gid in rng.choice(len(seqs), 120, replace=False):
+        for vm in vms.values():
+            vm.delete(int(gid))
+    wave("deletes_bitmap")
+    for vm in vms.values():
+        vm.compact()
+    wave("compacted")
+    stats = {b: vm.maintenance_stats() for b, vm in vms.items()}
+    check(set(stats["cuda"]) == set(stats["cpu"]) == set(stats["numpy"]),
+          "maintenance_stats keys differ across backends")
+    emit(phase="graphs_done", graph_states=n_graphs, build_s=build_s,
+         compactions=stats["cuda"]["compactions"],
+         launch_graph_fused=stats["cuda"].get("launch_graph_fused", 0),
+         launch_graph_fused_filt=stats["cuda"].get(
+             "launch_graph_fused_filt", 0))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run",
+              file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    emit(phase="card", card=card, torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count())
+    t_start = time.perf_counter()
+    phase_build()
+    phase_edges()
+    (args_a, launches_a), (args_b, launches_b) = phase_main_path()
+    kernels = [measure_kernel_a(*args_a, launches_a),
+               measure_kernel_b(args_b[0], launches_b)]
+    del args_a, args_b
+    torch.cuda.empty_cache()
+    phase_graphs()
+    emit(phase="done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,236 @@
+"""Segmented exact top-k over descriptor-resolved candidates.
+
+Port of ``src/repro/kernels/distance_topk.py`` (the segmented half the
+main path runs).  Candidate sets arrive as ``(seg_start, seg_len,
+owner)`` descriptor triples into the device-resident CSR ``base_ids``
+plus explicit tails; ``expand_descriptors`` and
+``assemble_flat_candidates`` resolve them on the device into one flat
+candidate layout, and ``topk_seg_f32`` ranks every query row against
+the flat columns of its own owner.
+
+``topk_seg_f32`` is the wrapper of kernel A (``csrc/topk_seg.cu``, the
+port of the Pallas ``_topk_seg_kernel``): on a CUDA tensor it launches
+the hand-written kernel, on a CPU tensor it runs the plain PyTorch
+version ``segmented_dense_topk``.  Both honour the same contract: (Q,
+k) ascending distances and flat column indices, lower column first on
+equal distance, ``(+inf, -1)`` where fewer than k columns match.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .tuning import select_splits, select_tiles
+
+_INF = float("inf")
+_METRICS = ("l2", "ip")
+_ACCUMS = ("f32", "bf16")
+
+
+def segmented_dense_topk(x: torch.Tensor, y: torch.Tensor,
+                         qseg: torch.Tensor, owners: torch.Tensor, k: int, *,
+                         metric: str = "l2", accum: str = "f32"):
+    """Plain PyTorch segmented top-k: one dense (Q, N) distance matrix,
+    owner mask, stable sort.  The plain version of kernel A, and the
+    counterpart of the reference's ``segmented_dense_topk`` and of
+    ``_dist_tile`` (``accum="bf16"`` rounds the operands to bf16 and
+    keeps the products, sums and norms in fp32).  Matmuls run in full
+    fp32 only with ``torch.backends.cuda.matmul.allow_tf32`` False (the
+    default).
+
+    ``x`` (Q, d), ``y`` (N, d), ``qseg`` (Q,) owner per query row,
+    ``owners`` (N,) owner per candidate.  Returns (Q, k) ascending
+    distances and positions into ``y``; unfilled slots are (+inf, -1)."""
+    xf, yf = x.float(), y.float()
+    if accum == "bf16":
+        xf = xf.bfloat16().float()
+        yf = yf.bfloat16().float()
+    xy = xf @ yf.T
+    if metric == "l2":
+        x2 = (xf * xf).sum(-1, keepdim=True)
+        y2 = (yf * yf).sum(-1)[None, :]
+        dist = (x2 + y2 - 2.0 * xy).clamp_min(0.0)
+    else:
+        dist = -xy
+    return masked_topk(dist, qseg, owners, k)
+
+
+def masked_topk(dist: torch.Tensor, qseg: torch.Tensor, owners: torch.Tensor,
+                k: int):
+    """The segmented top-k of a dense (Q, N) distance matrix: pairs whose
+    owners differ become +inf, then the first k of a stable sort (lower
+    column first on equal distance, as ``lax.top_k``).  Returns (Q, k)
+    values and columns, (+inf, -1) wherever the value is not finite."""
+    match = qseg.reshape(-1, 1) == owners.reshape(1, -1)
+    dist = torch.where(match, dist, _INF)
+    q, n = dist.shape
+    kk = min(k, n)
+    pos = torch.argsort(dist, dim=1, stable=True)[:, :kk]
+    vals = dist.gather(1, pos)
+    bad = ~torch.isfinite(vals)
+    vals = torch.where(bad, _INF, vals)
+    idx = torch.where(bad, -1, pos).to(torch.int32)
+    if kk < k:
+        vals = torch.cat([vals, vals.new_full((q, k - kk), _INF)], 1)
+        idx = torch.cat([idx, idx.new_full((q, k - kk), -1)], 1)
+    return vals, idx
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_inputs(device: torch.device, specs) -> None:
+    """Raise unless every ``(name, tensor, dtype, shape)`` in ``specs``
+    lies on ``device`` with that dtype and shape, contiguous."""
+    for name, t, dtype, shape in specs:
+        _require(t.device == device, f"{name} on {t.device}, expected "
+                 f"{device}")
+        _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        _require(tuple(t.shape) == shape,
+                 f"{name} shape {tuple(t.shape)}, expected {shape}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+
+
+def topk_seg_f32(x: torch.Tensor, y: torch.Tensor, qseg: torch.Tensor,
+                 cseg: torch.Tensor, kp: int, *, metric: str = "l2",
+                 accum: str = "f32"):
+    """Kernel A: segmented exact fp32 top-kp of ``x`` (Q, d) against the
+    flat candidate rows ``y`` (N, d); query row r ranks only columns c
+    with ``cseg[c] == qseg[r]``.  CPU tensors take the plain version;
+    CUDA tensors launch ``csrc/topk_seg.cu`` (``launches`` counts those
+    launches) or raise — there is no fallback."""
+    _require(metric in _METRICS, f"unknown metric {metric!r}")
+    _require(accum in _ACCUMS, f"unknown accum {accum!r}")
+    _require(1 <= kp <= 128, f"kp={kp} outside the kernel's 1..128")
+    if x.device.type == "cpu":
+        return segmented_dense_topk(x, y, qseg, cseg, kp, metric=metric,
+                                    accum=accum)
+    _require(x.device.type == "cuda", f"unsupported device {x.device}")
+    q, d = x.shape
+    n = y.shape[0]
+    check_inputs(x.device, (("x", x, torch.float32, (q, d)),
+                            ("y", y, torch.float32, (n, d)),
+                            ("qseg", qseg, torch.int32, (q,)),
+                            ("cseg", cseg, torch.int32, (n,))))
+    _require(q > 0 and n > 0 and d > 0, f"empty scan ({q}, {n}, {d})")
+    bq, bn = select_tiles(q, n, k=kp)
+    s = select_splits(q, n, bq, bn)
+    partial = torch.empty(q * s * kp, dtype=torch.int64, device=x.device)
+    vals = torch.empty((q, kp), dtype=torch.float32, device=x.device)
+    idx = torch.empty((q, kp), dtype=torch.int32, device=x.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check("topk_seg_f32", lib.topk_seg_f32(
+        x.data_ptr(), y.data_ptr(), qseg.data_ptr(), cseg.data_ptr(),
+        q, n, d, kp, int(metric == "ip"), int(accum == "bf16"), bq, bn, s,
+        partial.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream))
+    topk_seg_f32.launches += 1
+    return vals, idx
+
+
+topk_seg_f32.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# descriptor mode: candidates resolved against the device-resident CSR
+# --------------------------------------------------------------------- #
+
+def expand_descriptors(base_ids: torch.Tensor, starts: torch.Tensor,
+                       lens: torch.Tensor, owners: torch.Tensor,
+                       n_desc: int):
+    """Expand ``(seg_start, seg_len, owner)`` triples into a flat
+    candidate-id + owner pair of length ``n_desc``, on the device of the
+    inputs.  Descriptor d occupies flat slots [Σ lens[:d], Σ lens[:d+1]);
+    slot i of it resolves to ``base_ids[starts[d] + i]`` with owner
+    ``owners[d]``.  Slots past Σ lens get the unmatchable owner -3 and
+    candidate position 0."""
+    dev = starts.device
+    cum = torch.cumsum(lens.long(), 0)
+    slot = torch.arange(n_desc, dtype=torch.int64, device=dev)
+    d = torch.searchsorted(cum, slot, right=True)
+    dc = d.clamp(max=lens.shape[0] - 1)
+    within = slot - (cum[dc] - lens.long()[dc])
+    valid = slot < cum[-1]
+    pos = torch.where(valid, starts.long()[dc] + within, 0)
+    nb = int(base_ids.shape[0])
+    if nb:
+        cand = base_ids[pos.clamp(0, nb - 1)].to(torch.int32)
+    else:               # JAX reads of an empty table fill with zeros
+        cand = torch.zeros(n_desc, dtype=torch.int32, device=dev)
+    own = torch.where(valid, owners.long()[dc], -3).to(torch.int32)
+    return cand, own
+
+
+def resident_candidates(base_ids, deleted, starts, lens, owners,
+                        tail_res_ids, tail_res_owners, n_desc: int):
+    """The resident half of the flat layout: descriptor expansion then the
+    resident tail, as ``(global ids, owners)`` int32, with tombstoned
+    candidates reassigned to the unmatchable owner -3."""
+    dev = tail_res_ids.device
+    if n_desc:
+        dcand, down = expand_descriptors(base_ids, starts, lens, owners,
+                                         n_desc)
+    else:
+        dcand = torch.empty(0, dtype=torch.int32, device=dev)
+        down = torch.empty(0, dtype=torch.int32, device=dev)
+    cand = torch.cat([dcand, tail_res_ids.to(torch.int32)])
+    own = torch.cat([down, tail_res_owners.to(torch.int32)])
+    dn = int(deleted.shape[0])
+    if dn and cand.shape[0]:
+        dead = deleted[cand.long().clamp(0, dn - 1)]
+        own = torch.where(dead, -3, own).to(torch.int32)
+    return cand, own
+
+
+def assemble_flat_candidates(vectors, base_ids, deleted, starts, lens,
+                             owners, tail_res_ids, tail_res_owners,
+                             tail_ship_ids, tail_ship_owners,
+                             tail_ship_rows, n_desc: int):
+    """Flat candidate layout shared by the fp32 and SQ8 paths:
+
+      [ descriptor region (n_desc) | resident tail | shipped tail ]
+
+    Returns ``(y (N, d) rows, cseg (N,) int32 owners, gid_flat (N,)
+    int32 global ids)``; tombstoned resident candidates get the
+    unmatchable owner -3."""
+    cand_res, own_res = resident_candidates(
+        base_ids, deleted, starts, lens, owners, tail_res_ids,
+        tail_res_owners, n_desc)
+    parts = []
+    if cand_res.shape[0]:
+        parts.append(vectors[cand_res.long()])
+    if tail_ship_rows.shape[0]:
+        parts.append(tail_ship_rows)
+    y = torch.cat(parts, 0) if len(parts) > 1 else parts[0]
+    cseg = torch.cat([own_res, tail_ship_owners.to(torch.int32)])
+    gid_flat = torch.cat([cand_res, tail_ship_ids.to(torch.int32)])
+    return y.contiguous(), cseg.contiguous(), gid_flat
+
+
+def distance_topk_descriptors(vectors, base_ids, deleted, x, qseg, starts,
+                              lens, owners, tail_res_ids, tail_res_owners,
+                              tail_ship_ids, tail_ship_owners,
+                              tail_ship_rows, k: int, *, n_desc: int,
+                              metric: str = "l2", accum: str = "f32"):
+    """Segmented top-k whose candidate sets are descriptors into the
+    device-resident CSR (see ``assemble_flat_candidates``); ranks with
+    kernel A on CUDA and its plain version on the CPU.  ``qseg`` is the
+    (Q,) owner per query row.  Returns ``(vals, gids)`` of shape (Q, k):
+    ascending distances and GLOBAL candidate ids, (+inf, -1) padding."""
+    y, cseg, gid_flat = assemble_flat_candidates(
+        vectors, base_ids, deleted, starts, lens, owners, tail_res_ids,
+        tail_res_owners, tail_ship_ids, tail_ship_owners, tail_ship_rows,
+        n_desc)
+    n = int(y.shape[0])
+    vals, idx = topk_seg_f32(x.contiguous(), y, qseg.contiguous(), cseg, k,
+                             metric=metric, accum=accum)
+    gids = torch.where(idx >= 0, gid_flat[idx.long().clamp(0, n - 1)], -1)
+    return vals, gids.to(torch.int32)
+
+
+__all__ = ["topk_seg_f32", "segmented_dense_topk", "masked_topk",
+           "check_inputs", "expand_descriptors", "resident_candidates",
+           "assemble_flat_candidates", "distance_topk_descriptors"]

@@ -9,3 +9,9 @@ if os.environ.get("REPRO_TEST_DEVICES"):
         os.environ.get("XLA_FLAGS", "")
         + f" --xla_force_host_platform_device_count="
         f"{os.environ['REPRO_TEST_DEVICES']}")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one "
+        "(run on the card with `pytest -m gpu`)")
