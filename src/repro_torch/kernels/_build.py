@@ -36,6 +36,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "topk_seg_f32": [_P] * 4 + [_I] * 9 + [_P] * 4,
     "qtopk_seg_sq8": [_P] * 8 + [_I] * 7 + [_P] * 4,
+    "topk_f32": [_P] * 2 + [_I] * 9 + [_P] * 4,
+    "qtopk_sq8": [_P] * 6 + [_I] * 7 + [_P] * 4,
+    "pairwise_f32": [_P] * 2 + [_I] * 7 + [_P] * 2,
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,10 @@
 // Kernel B: segmented SQ8 (int8) scan to the top-kq quantized distances
-// (`qtopk_seg_sq8`).
+// (`qtopk_seg_sq8`), and its unsegmented instantiation (`qtopk_sq8`).
 //
-// Replaces the TPU kernel `_qtopk_seg_kernel` (src/repro/kernels/quant.py:162,
-// launched by `_quantized_topk_segmented`).  Query row r may take flat
-// candidate column c only when qseg[r] == cseg[c]; the quantized distance is
+// `qtopk_seg_sq8` replaces the TPU kernel `_qtopk_seg_kernel` (src/repro/
+// kernels/quant.py:162, launched by `_quantized_topk_segmented`).  Query row
+// r may take flat candidate column c only when qseg[r] == cseg[c]; the
+// quantized distance is
 //     dot   = sum_i xq[r, i] * yq[c, i]          (exact int32)
 //     cross = (float(dot) * sx[r]) * sy[c]
 //     dist  = max((x2[r] + y2[c]) - 2 * cross, 0)
@@ -12,13 +13,20 @@
 // is bit-identical to the plain PyTorch version in values and indices.
 // Codes are zero-padded by the wrapper to a multiple of 16 bytes per row.
 //
-// What bounds it: at the main-path shape (Qp = 128, N = 2,097,152, d = 128)
-// the int8 codes are 0.27 GB plus 8 bytes of (sy, y2) and 4 of cseg per row,
-// about 0.08 ms at 3.35 TB/s; the all-pairs int8 products are 2·Qp·N·d =
-// 69 G integer operations, which __dp4a on CUDA cores issues at a small
-// fraction of the tensor cores' int8 rate.  So this simple kernel is
-// operation-bound; int8 tensor-core products (mma / wgmma) and skipping tiles
-// whose owner ranges do not meet are left for a later change.
+// `qtopk_sq8` replaces `_qtopk_kernel` (quant.py:86, launched by
+// `quantized_topk`, reached from `topk_sq8_rerank`): the same pass with SEG =
+// false, which reads no owners and folds every column below N, bit-equal to
+// its plain version `sq8_dense` in the same way.
+//
+// What bounds it: at the segmented main-path shape (Qp = 128, N = 2,097,152,
+// d = 128) the int8 codes are 0.27 GB plus 8 bytes of (sy, y2) and 4 of cseg
+// per row, about 0.08 ms at 3.35 TB/s; unsegmented at N = 1,048,576 the 143 MB
+// of codes and scalars take 0.043 ms.  The all-pairs int8 products are
+// 2·Q·N·d = 34-69 G integer operations, which __dp4a on CUDA cores issues at a
+// small fraction of the tensor cores' int8 rate.  So the bound is bytes, but
+// this simple kernel is held back by its operations; int8 tensor-core
+// products (mma / wgmma) and skipping tiles whose owner ranges do not meet
+// are left for a later change.
 //
 // Design: the same split-N pass as kernel A (topk_seg.cu) with the d-chunks
 // staged as packed 4-byte words and reduced with __dp4a, then the same merge.
@@ -26,6 +34,7 @@
 
 namespace {
 
+template <bool SEG>
 __global__ void __launch_bounds__(NT)
 qtopk_seg_pass(const int* __restrict__ xw, const int* __restrict__ yw,
                const float* __restrict__ sx, const float* __restrict__ x2,
@@ -60,7 +69,7 @@ qtopk_seg_pass(const int* __restrict__ xw, const int* __restrict__ yw,
     const int g = row0 + r;
     sxs[r] = g < Q ? sx[g] : 0.f;
     x2s[r] = g < Q ? x2[g] : 0.f;
-    qs[r] = g < Q ? qseg[g] : 0;
+    qs[r] = (SEG && g < Q) ? qseg[g] : 0;
   }
 
   for (int t = t_begin; t < t_end; ++t) {
@@ -99,7 +108,7 @@ qtopk_seg_pass(const int* __restrict__ xw, const int* __restrict__ yw,
       const int g = col0 + tid;
       sys[tid] = g < N ? sy[g] : 0.f;
       y2s[tid] = g < N ? y2[g] : 0.f;
-      cs[tid] = g < N ? cseg[g] : 0;
+      if (SEG) cs[tid] = g < N ? cseg[g] : 0;
     }
     __syncthreads();
 #pragma unroll
@@ -125,7 +134,7 @@ qtopk_seg_pass(const int* __restrict__ xw, const int* __restrict__ yw,
       for (int c0 = 0; c0 < bn; c0 += 32) {
         const int c = c0 + lane, col = col0 + c;
         unsigned long long key = KEY_MASKED;
-        if (c < bn && col < N && cs[c] == q)
+        if (c < bn && col < N && (!SEG || cs[c] == q))
           key = make_key(dist[r * (bn + 1) + c], col);
         warp_fold(L, kp, key, lane);
       }
@@ -136,6 +145,37 @@ qtopk_seg_pass(const int* __restrict__ xw, const int* __restrict__ yw,
     const int r = e / kp, i = e % kp, g = row0 + r;
     if (g < Q) partial[(size_t(g) * S + blockIdx.y) * kp + i] = lists[e];
   }
+}
+
+// The split-N pass, then the merge.
+template <bool SEG>
+int run_qtopk(const void* xq, const void* yq, const void* sx, const void* x2,
+              const void* sy, const void* y2, const void* qseg,
+              const void* cseg, int Q, int N, int Dp, int kp, int bq, int bn,
+              int S, void* partial, void* out_v, void* out_i, void* stream) {
+  if (!scan_shape_ok(Q, N, kp, bq, bn, S) || Dp <= 0 || Dp % 16 != 0 ||
+      S > 65535)
+    return int(cudaErrorInvalidValue);
+  auto* part = static_cast<unsigned long long*>(partial);
+  auto st = static_cast<cudaStream_t>(stream);
+  const size_t smem = scan_smem_bytes(bq, bn, kp);
+  cudaError_t err = cudaFuncSetAttribute(
+      qtopk_seg_pass<SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return int(err);
+  const int n_tiles = (N + bn - 1) / bn;
+  const int tiles_per_split = (n_tiles + S - 1) / S;
+  const dim3 grid((Q + bq - 1) / bq, S);
+  qtopk_seg_pass<SEG><<<grid, NT, smem, st>>>(
+      static_cast<const int*>(xq), static_cast<const int*>(yq),
+      static_cast<const float*>(sx), static_cast<const float*>(x2),
+      static_cast<const float*>(sy), static_cast<const float*>(y2),
+      static_cast<const int*>(qseg), static_cast<const int*>(cseg), Q, N,
+      Dp / 4, kp, bq, bn, tiles_per_split, S, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  return int(launch_merge(part, Q, S, kp, static_cast<float*>(out_v),
+                          static_cast<int*>(out_i), st));
 }
 
 }  // namespace
@@ -150,25 +190,16 @@ extern "C" int qtopk_seg_sq8(const void* xq, const void* yq, const void* sx,
                              int Dp, int kp, int bq, int bn, int S,
                              void* partial, void* out_v, void* out_i,
                              void* stream) {
-  if (!scan_shape_ok(Q, N, kp, bq, bn, S) || Dp <= 0 || Dp % 16 != 0)
-    return int(cudaErrorInvalidValue);
-  auto* part = static_cast<unsigned long long*>(partial);
-  auto st = static_cast<cudaStream_t>(stream);
-  const size_t smem = scan_smem_bytes(bq, bn, kp);
-  cudaError_t err = cudaFuncSetAttribute(
-      qtopk_seg_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const int n_tiles = (N + bn - 1) / bn;
-  const int tiles_per_split = (n_tiles + S - 1) / S;
-  const dim3 grid((Q + bq - 1) / bq, S);
-  qtopk_seg_pass<<<grid, NT, smem, st>>>(
-      static_cast<const int*>(xq), static_cast<const int*>(yq),
-      static_cast<const float*>(sx), static_cast<const float*>(x2),
-      static_cast<const float*>(sy), static_cast<const float*>(y2),
-      static_cast<const int*>(qseg), static_cast<const int*>(cseg), Q, N,
-      Dp / 4, kp, bq, bn, tiles_per_split, S, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  return int(launch_merge(part, Q, S, kp, static_cast<float*>(out_v),
-                          static_cast<int*>(out_i), st));
+  return run_qtopk<true>(xq, yq, sx, x2, sy, y2, qseg, cseg, Q, N, Dp, kp, bq,
+                         bn, S, partial, out_v, out_i, stream);
+}
+
+// The same without owners: every column of yq is a candidate of every row.
+extern "C" int qtopk_sq8(const void* xq, const void* yq, const void* sx,
+                         const void* x2, const void* sy, const void* y2, int Q,
+                         int N, int Dp, int kp, int bq, int bn, int S,
+                         void* partial, void* out_v, void* out_i,
+                         void* stream) {
+  return run_qtopk<false>(xq, yq, sx, x2, sy, y2, nullptr, nullptr, Q, N, Dp,
+                          kp, bq, bn, S, partial, out_v, out_i, stream);
 }

@@ -1,6 +1,6 @@
-// Pieces shared by the segmented top-k kernels (topk_seg.cu, qtopk_seg.cu).
+// Pieces shared by the scan kernels (topk_seg.cu, qtopk_seg.cu, pairwise.cu).
 //
-// Both kernels fold candidates into a running per-row top-k of 64-bit keys
+// The top-k kernels fold candidates into a running per-row top-k of 64-bit keys
 //     key = (order-preserving uint32 of the fp32 distance) << 32 | column
 // so "equal distance -> lower column wins" (the tie rule of lax.top_k in the
 // reference) is plain integer order, keys are unique within a row, and the
@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -22,15 +23,28 @@ constexpr unsigned long long KEY_MASKED = ~0ULL;
 constexpr unsigned int kPosInfBits = 0x7f800000u;
 
 // Dynamic shared memory of one scan block; mirrors tuning.smem_bytes.
+// kp = 0: the pairwise kernel, which keeps no top-k lists.
 inline size_t scan_smem_bytes(int bq, int bn, int kp) {
   return size_t(bq) * kp * 8 + size_t(CW) * (bq + 1 + bn + 1) * 4 +
          size_t(bq) * (bn + 1) * 4 + size_t(bq + bn) * 16;
 }
 
+// Each side of a block tile is 1..4 rows (or columns) of the 16x16 grid.
+inline bool tiles_ok(int bq, int bn) {
+  return bq >= TILE && bq <= 4 * TILE && bq % TILE == 0 && bn >= TILE &&
+         bn <= 4 * TILE && bn % TILE == 0;
+}
+
 inline bool scan_shape_ok(int Q, int N, int kp, int bq, int bn, int S) {
-  return Q > 0 && N > 0 && kp >= 1 && kp <= 128 && bq >= TILE &&
-         bq <= 4 * TILE && bq % TILE == 0 && bn >= TILE && bn <= 4 * TILE &&
-         bn % TILE == 0 && S >= 1;
+  return Q > 0 && N > 0 && kp >= 1 && kp <= 128 && tiles_ok(bq, bn) &&
+         S >= 1;
+}
+
+// An fp32 operand as the kernels multiply it: itself, or rounded to bf16
+// (accum "bf16"; products and sums stay fp32).
+template <bool BF16>
+__device__ __forceinline__ float operand(float v) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
 __device__ __forceinline__ unsigned long long make_key(float v, int col) {

@@ -1,21 +1,29 @@
-// Kernel A: segmented exact fp32 top-k (`topk_seg_f32`).
+// Kernel A: segmented exact fp32 top-k (`topk_seg_f32`), and its
+// unsegmented instantiation (`topk_f32`).
 //
-// Replaces the TPU kernel `_topk_seg_kernel` (src/repro/kernels/
-// distance_topk.py:97, launched by `_seg_pallas_call`).  Query row r may take
-// flat candidate column c only when qseg[r] == cseg[c]; the distance is the
-// GEMM form max(|x|^2 + |y|^2 - 2 x.y, 0) for "l2" and -x.y for "ip", with
-// true fp32 FMAs (accum "f32") or operands rounded to bf16 and fp32
+// `topk_seg_f32` replaces the TPU kernel `_topk_seg_kernel` (src/repro/
+// kernels/distance_topk.py:97, launched by `_seg_pallas_call`).  Query row r
+// may take flat candidate column c only when qseg[r] == cseg[c]; the distance
+// is the GEMM form max(|x|^2 + |y|^2 - 2 x.y, 0) for "l2" and -x.y for "ip",
+// with true fp32 FMAs (accum "f32") or operands rounded to bf16 and fp32
 // accumulation (accum "bf16").  Output: (Q, kp) ascending distances and flat
 // column indices, (+inf, -1) where fewer than kp columns match.
 //
-// What bounds it: at the main-path shape (Qp = 128, N = 2,097,152, d = 128)
-// the flat rows are 1.07 GB, of which about 0.6 GB are live candidates, and
-// the all-pairs products are 2·Qp·N·d = 69 GFLOP of fp32 FMA on CUDA cores
-// (67 TFLOP/s peak): about 1 ms of operations against 0.3 ms of bytes.  Only
-// about one pair in eight has matching owners, so the work the data needs is
-// bandwidth-bound; this kernel still computes every pair.  Skipping tiles
-// whose owner ranges do not meet, and tensor-core products, are left for a
-// later change.
+// `topk_f32` replaces `_topk_kernel` (distance_topk.py:62, launched by
+// `distance_topk`, reached from `ops.topk`): the same pass with SEG = false,
+// which reads no owners and folds every column below N.  Columns >= N never
+// enter the fold, so the caller pads nothing.
+//
+// What bounds it: at the segmented main-path shape (Qp = 128, N = 2,097,152,
+// d = 128) the all-pairs products are 2·Qp·N·d = 69 GFLOP of fp32 FMA on CUDA
+// cores (67 TFLOP/s peak), about 1 ms.  Only 3.5 % of the pairs have matching
+// owners (PERF.md §4), so the work the data needs (query rows, live candidate
+// rows, products of matched pairs) is bound by bytes at 0.186 ms (PERF.md
+// §6); this kernel still computes every pair.  Unsegmented, every pair is
+// live: at Q = 128, N = 1,048,576, d = 128 the 34.4 GFLOP take 0.51 ms at the
+// fp32 peak against 0.16 ms for the 0.54 GB of rows, so `topk_f32` is bound
+// by operations.  Skipping tiles whose owner ranges do not meet, and
+// tensor-core products, are left for a later change.
 //
 // Design: the TPU kernel carries a running top-k across the sequential N grid
 // axis.  Hopper runs blocks in no order, so this is a split-N pass.  Grid
@@ -27,18 +35,11 @@
 // sorted lists of 64-bit (distance, column) keys in shared memory
 // (topk_common.cuh).  The block writes its sorted partial lists to scratch;
 // `merge_partials` folds the S lists of each row.
-#include <cuda_bf16.h>
-
 #include "topk_common.cuh"
 
 namespace {
 
-template <bool BF16>
-__device__ __forceinline__ float operand(float v) {
-  return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-template <bool L2, bool BF16>
+template <bool SEG, bool L2, bool BF16>
 __global__ void __launch_bounds__(NT)
 topk_seg_pass(const float* __restrict__ x, const float* __restrict__ y,
               const int* __restrict__ qseg, const int* __restrict__ cseg,
@@ -74,7 +75,7 @@ topk_seg_pass(const float* __restrict__ x, const float* __restrict__ y,
       }
     }
     x2s[r] = s;
-    qs[r] = g < Q ? qseg[g] : 0;
+    qs[r] = (SEG && g < Q) ? qseg[g] : 0;
   }
 
   for (int t = t_begin; t < t_end; ++t) {
@@ -120,7 +121,7 @@ topk_seg_pass(const float* __restrict__ x, const float* __restrict__ y,
     }
     if (tid < bn) {
       y2s[tid] = y2;
-      cs[tid] = col0 + tid < N ? cseg[col0 + tid] : 0;
+      if (SEG) cs[tid] = col0 + tid < N ? cseg[col0 + tid] : 0;
     }
     __syncthreads();
 #pragma unroll
@@ -143,7 +144,7 @@ topk_seg_pass(const float* __restrict__ x, const float* __restrict__ y,
       for (int c0 = 0; c0 < bn; c0 += 32) {
         const int c = c0 + lane, col = col0 + c;
         unsigned long long key = KEY_MASKED;
-        if (c < bn && col < N && cs[c] == q)
+        if (c < bn && col < N && (!SEG || cs[c] == q))
           key = make_key(dist[r * (bn + 1) + c], col);
         warp_fold(L, kp, key, lane);
       }
@@ -156,22 +157,52 @@ topk_seg_pass(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-template <bool L2, bool BF16>
+template <bool SEG, bool L2, bool BF16>
 cudaError_t launch_pass(const float* x, const float* y, const int* qseg,
                         const int* cseg, int Q, int N, int D, int kp, int bq,
                         int bn, int S, unsigned long long* partial,
                         cudaStream_t stream) {
   const size_t smem = scan_smem_bytes(bq, bn, kp);
   cudaError_t err = cudaFuncSetAttribute(
-      topk_seg_pass<L2, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      topk_seg_pass<SEG, L2, BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const int n_tiles = (N + bn - 1) / bn;
   const int tiles_per_split = (n_tiles + S - 1) / S;
   const dim3 grid((Q + bq - 1) / bq, S);
-  topk_seg_pass<L2, BF16><<<grid, NT, smem, stream>>>(
+  topk_seg_pass<SEG, L2, BF16><<<grid, NT, smem, stream>>>(
       x, y, qseg, cseg, Q, N, D, kp, bq, bn, tiles_per_split, S, partial);
   return cudaGetLastError();
+}
+
+// The split-N pass for one (metric, operand type), then the merge.
+template <bool SEG>
+int run_topk(const void* x, const void* y, const void* qseg, const void* cseg,
+             int Q, int N, int D, int kp, int metric_ip, int bf16, int bq,
+             int bn, int S, void* partial, void* out_v, void* out_i,
+             void* stream) {
+  if (!scan_shape_ok(Q, N, kp, bq, bn, S) || D <= 0 || S > 65535)
+    return int(cudaErrorInvalidValue);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* yf = static_cast<const float*>(y);
+  const auto* qs = static_cast<const int*>(qseg);
+  const auto* cs = static_cast<const int*>(cseg);
+  auto* part = static_cast<unsigned long long*>(partial);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (metric_ip)
+    err = bf16 ? launch_pass<SEG, false, true>(xf, yf, qs, cs, Q, N, D, kp,
+                                               bq, bn, S, part, st)
+               : launch_pass<SEG, false, false>(xf, yf, qs, cs, Q, N, D, kp,
+                                                bq, bn, S, part, st);
+  else
+    err = bf16 ? launch_pass<SEG, true, true>(xf, yf, qs, cs, Q, N, D, kp,
+                                              bq, bn, S, part, st)
+               : launch_pass<SEG, true, false>(xf, yf, qs, cs, Q, N, D, kp,
+                                               bq, bn, S, part, st);
+  if (err != cudaSuccess) return int(err);
+  return int(launch_merge(part, Q, S, kp, static_cast<float*>(out_v),
+                          static_cast<int*>(out_i), st));
 }
 
 }  // namespace
@@ -184,28 +215,17 @@ extern "C" int topk_seg_f32(const void* x, const void* y, const void* qseg,
                             int metric_ip, int bf16, int bq, int bn, int S,
                             void* partial, void* out_v, void* out_i,
                             void* stream) {
-  if (!scan_shape_ok(Q, N, kp, bq, bn, S) || D <= 0)
-    return int(cudaErrorInvalidValue);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* yf = static_cast<const float*>(y);
-  const auto* qs = static_cast<const int*>(qseg);
-  const auto* cs = static_cast<const int*>(cseg);
-  auto* part = static_cast<unsigned long long*>(partial);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (metric_ip)
-    err = bf16 ? launch_pass<false, true>(xf, yf, qs, cs, Q, N, D, kp, bq, bn,
-                                          S, part, st)
-               : launch_pass<false, false>(xf, yf, qs, cs, Q, N, D, kp, bq,
-                                           bn, S, part, st);
-  else
-    err = bf16 ? launch_pass<true, true>(xf, yf, qs, cs, Q, N, D, kp, bq, bn,
-                                         S, part, st)
-               : launch_pass<true, false>(xf, yf, qs, cs, Q, N, D, kp, bq, bn,
-                                          S, part, st);
-  if (err != cudaSuccess) return int(err);
-  return int(launch_merge(part, Q, S, kp, static_cast<float*>(out_v),
-                          static_cast<int*>(out_i), st));
+  return run_topk<true>(x, y, qseg, cseg, Q, N, D, kp, metric_ip, bf16, bq,
+                        bn, S, partial, out_v, out_i, stream);
+}
+
+// The same without owners: every column of y is a candidate of every row.
+extern "C" int topk_f32(const void* x, const void* y, int Q, int N, int D,
+                        int kp, int metric_ip, int bf16, int bq, int bn, int S,
+                        void* partial, void* out_v, void* out_i,
+                        void* stream) {
+  return run_topk<false>(x, y, nullptr, nullptr, Q, N, D, kp, metric_ip, bf16,
+                         bq, bn, S, partial, out_v, out_i, stream);
 }
 
 extern "C" const char* kernels_error_string(int err) {

@@ -1,19 +1,22 @@
-"""Segmented exact top-k over descriptor-resolved candidates.
+"""Exact fp32 top-k: segmented over descriptor-resolved candidates, and
+unsegmented over a whole base.
 
-Port of ``src/repro/kernels/distance_topk.py`` (the segmented half the
-main path runs).  Candidate sets arrive as ``(seg_start, seg_len,
-owner)`` descriptor triples into the device-resident CSR ``base_ids``
-plus explicit tails; ``expand_descriptors`` and
-``assemble_flat_candidates`` resolve them on the device into one flat
-candidate layout, and ``topk_seg_f32`` ranks every query row against
-the flat columns of its own owner.
+Port of ``src/repro/kernels/distance_topk.py``.  Candidate sets arrive
+as ``(seg_start, seg_len, owner)`` descriptor triples into the
+device-resident CSR ``base_ids`` plus explicit tails;
+``expand_descriptors`` and ``assemble_flat_candidates`` resolve them on
+the device into one flat candidate layout, and ``topk_seg_f32`` ranks
+every query row against the flat columns of its own owner.
+``distance_topk`` ranks every query row against every row of the base.
 
 ``topk_seg_f32`` is the wrapper of kernel A (``csrc/topk_seg.cu``, the
-port of the Pallas ``_topk_seg_kernel``): on a CUDA tensor it launches
-the hand-written kernel, on a CPU tensor it runs the plain PyTorch
-version ``segmented_dense_topk``.  Both honour the same contract: (Q,
-k) ascending distances and flat column indices, lower column first on
-equal distance, ``(+inf, -1)`` where fewer than k columns match.
+port of the Pallas ``_topk_seg_kernel``), ``distance_topk`` of its
+unsegmented instantiation ``topk_f32`` (the port of ``_topk_kernel``):
+on a CUDA tensor each launches the hand-written kernel, on a CPU tensor
+it runs its plain PyTorch version (``segmented_dense_topk``,
+``dense_topk``).  Both honour the same contract: (Q, k) ascending
+distances and column indices, lower column first on equal distance,
+``(+inf, -1)`` where fewer than k columns match.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .ref import pairwise_negdot_ref, pairwise_sqdist_ref
 from .tuning import select_splits, select_tiles
 
 _INF = float("inf")
@@ -28,42 +32,54 @@ _METRICS = ("l2", "ip")
 _ACCUMS = ("f32", "bf16")
 
 
+def dense_distance(x: torch.Tensor, y: torch.Tensor, *, metric: str = "l2",
+                   accum: str = "f32") -> torch.Tensor:
+    """The dense (Q, N) GEMM-form distance matrix of ``_dist_tile``:
+    ``accum="bf16"`` rounds the operands to bf16 and keeps the products,
+    sums and norms in fp32.  The plain version of the pairwise kernel, and
+    the distances of every plain top-k here."""
+    if accum == "bf16":
+        x, y = x.float().bfloat16(), y.float().bfloat16()
+    if metric == "l2":
+        return pairwise_sqdist_ref(x, y)
+    return pairwise_negdot_ref(x, y)
+
+
 def segmented_dense_topk(x: torch.Tensor, y: torch.Tensor,
                          qseg: torch.Tensor, owners: torch.Tensor, k: int, *,
                          metric: str = "l2", accum: str = "f32"):
     """Plain PyTorch segmented top-k: one dense (Q, N) distance matrix,
     owner mask, stable sort.  The plain version of kernel A, and the
-    counterpart of the reference's ``segmented_dense_topk`` and of
-    ``_dist_tile`` (``accum="bf16"`` rounds the operands to bf16 and
-    keeps the products, sums and norms in fp32).  Matmuls run in full
-    fp32 only with ``torch.backends.cuda.matmul.allow_tf32`` False (the
-    default).
+    counterpart of the reference's ``segmented_dense_topk``.
 
     ``x`` (Q, d), ``y`` (N, d), ``qseg`` (Q,) owner per query row,
     ``owners`` (N,) owner per candidate.  Returns (Q, k) ascending
     distances and positions into ``y``; unfilled slots are (+inf, -1)."""
-    xf, yf = x.float(), y.float()
-    if accum == "bf16":
-        xf = xf.bfloat16().float()
-        yf = yf.bfloat16().float()
-    xy = xf @ yf.T
-    if metric == "l2":
-        x2 = (xf * xf).sum(-1, keepdim=True)
-        y2 = (yf * yf).sum(-1)[None, :]
-        dist = (x2 + y2 - 2.0 * xy).clamp_min(0.0)
-    else:
-        dist = -xy
-    return masked_topk(dist, qseg, owners, k)
+    return masked_topk(dense_distance(x, y, metric=metric, accum=accum),
+                       qseg, owners, k)
+
+
+def dense_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
+               metric: str = "l2", accum: str = "f32"):
+    """Plain PyTorch unsegmented top-k, the plain version of
+    ``topk_f32``: the distances of ``segmented_dense_topk`` without the
+    owner mask, then the same stable top-k."""
+    return stable_topk(dense_distance(x, y, metric=metric, accum=accum), k)
 
 
 def masked_topk(dist: torch.Tensor, qseg: torch.Tensor, owners: torch.Tensor,
                 k: int):
     """The segmented top-k of a dense (Q, N) distance matrix: pairs whose
-    owners differ become +inf, then the first k of a stable sort (lower
-    column first on equal distance, as ``lax.top_k``).  Returns (Q, k)
-    values and columns, (+inf, -1) wherever the value is not finite."""
+    owners differ become +inf, then ``stable_topk``."""
     match = qseg.reshape(-1, 1) == owners.reshape(1, -1)
-    dist = torch.where(match, dist, _INF)
+    return stable_topk(torch.where(match, dist, _INF), k)
+
+
+def stable_topk(dist: torch.Tensor, k: int):
+    """The first k of a stable sort of each row of ``dist`` (lower column
+    first on equal distance, as ``lax.top_k``).  Returns (Q, k) values
+    and int32 columns, (+inf, -1) wherever the value is not finite or the
+    row has fewer than k columns."""
     q, n = dist.shape
     kk = min(k, n)
     pos = torch.argsort(dist, dim=1, stable=True)[:, :kk]
@@ -94,6 +110,24 @@ def check_inputs(device: torch.device, specs) -> None:
         _require(t.is_contiguous(), f"{name} must be contiguous")
 
 
+def scan_outputs(q: int, n: int, kp: int, device: torch.device):
+    """Tiles, N-splits and fresh buffers of one split-N top-k launch:
+    ``(bq, bn, S, partial (Q·S·kp) int64 scratch, vals (Q, kp) fp32, idx
+    (Q, kp) int32)``."""
+    bq, bn = select_tiles(q, n, k=kp)
+    s = select_splits(q, n, bq, bn)
+    return (bq, bn, s,
+            torch.empty(q * s * kp, dtype=torch.int64, device=device),
+            torch.empty((q, kp), dtype=torch.float32, device=device),
+            torch.empty((q, kp), dtype=torch.int32, device=device))
+
+
+def _check_topk_args(metric: str, accum: str, kp: int) -> None:
+    _require(metric in _METRICS, f"unknown metric {metric!r}")
+    _require(accum in _ACCUMS, f"unknown accum {accum!r}")
+    _require(1 <= kp <= 128, f"kp={kp} outside the kernel's 1..128")
+
+
 def topk_seg_f32(x: torch.Tensor, y: torch.Tensor, qseg: torch.Tensor,
                  cseg: torch.Tensor, kp: int, *, metric: str = "l2",
                  accum: str = "f32"):
@@ -102,9 +136,7 @@ def topk_seg_f32(x: torch.Tensor, y: torch.Tensor, qseg: torch.Tensor,
     with ``cseg[c] == qseg[r]``.  CPU tensors take the plain version;
     CUDA tensors launch ``csrc/topk_seg.cu`` (``launches`` counts those
     launches) or raise — there is no fallback."""
-    _require(metric in _METRICS, f"unknown metric {metric!r}")
-    _require(accum in _ACCUMS, f"unknown accum {accum!r}")
-    _require(1 <= kp <= 128, f"kp={kp} outside the kernel's 1..128")
+    _check_topk_args(metric, accum, kp)
     if x.device.type == "cpu":
         return segmented_dense_topk(x, y, qseg, cseg, kp, metric=metric,
                                     accum=accum)
@@ -116,11 +148,7 @@ def topk_seg_f32(x: torch.Tensor, y: torch.Tensor, qseg: torch.Tensor,
                             ("qseg", qseg, torch.int32, (q,)),
                             ("cseg", cseg, torch.int32, (n,))))
     _require(q > 0 and n > 0 and d > 0, f"empty scan ({q}, {n}, {d})")
-    bq, bn = select_tiles(q, n, k=kp)
-    s = select_splits(q, n, bq, bn)
-    partial = torch.empty(q * s * kp, dtype=torch.int64, device=x.device)
-    vals = torch.empty((q, kp), dtype=torch.float32, device=x.device)
-    idx = torch.empty((q, kp), dtype=torch.int32, device=x.device)
+    bq, bn, s, partial, vals, idx = scan_outputs(q, n, kp, x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check("topk_seg_f32", lib.topk_seg_f32(
@@ -132,6 +160,37 @@ def topk_seg_f32(x: torch.Tensor, y: torch.Tensor, qseg: torch.Tensor,
 
 
 topk_seg_f32.launches = 0
+
+
+def distance_topk(x: torch.Tensor, y: torch.Tensor, kp: int, *,
+                  metric: str = "l2", accum: str = "f32"):
+    """``topk_f32``: exact fp32 top-kp of ``x`` (Q, d) against every row
+    of ``y`` (N, d).  Ragged N is masked in the kernel, so nothing is
+    padded or copied; columns ≥ N never enter the result, and rows with
+    fewer than kp columns end in (+inf, -1).  CPU tensors take the plain
+    version ``dense_topk``; CUDA tensors launch ``csrc/topk_seg.cu``'s
+    unsegmented entry (``launches`` counts those launches) or raise."""
+    _check_topk_args(metric, accum, kp)
+    if x.device.type == "cpu":
+        return dense_topk(x, y, kp, metric=metric, accum=accum)
+    _require(x.device.type == "cuda", f"unsupported device {x.device}")
+    q, d = x.shape
+    n = y.shape[0]
+    check_inputs(x.device, (("x", x, torch.float32, (q, d)),
+                            ("y", y, torch.float32, (n, d))))
+    _require(q > 0 and n > 0 and d > 0, f"empty scan ({q}, {n}, {d})")
+    bq, bn, s, partial, vals, idx = scan_outputs(q, n, kp, x.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check("topk_f32", lib.topk_f32(
+        x.data_ptr(), y.data_ptr(), q, n, d, kp, int(metric == "ip"),
+        int(accum == "bf16"), bq, bn, s, partial.data_ptr(),
+        vals.data_ptr(), idx.data_ptr(), stream))
+    distance_topk.launches += 1
+    return vals, idx
+
+
+distance_topk.launches = 0
 
 
 # --------------------------------------------------------------------- #
@@ -231,6 +290,8 @@ def distance_topk_descriptors(vectors, base_ids, deleted, x, qseg, starts,
     return vals, gids.to(torch.int32)
 
 
-__all__ = ["topk_seg_f32", "segmented_dense_topk", "masked_topk",
-           "check_inputs", "expand_descriptors", "resident_candidates",
-           "assemble_flat_candidates", "distance_topk_descriptors"]
+__all__ = ["topk_seg_f32", "distance_topk", "dense_distance",
+           "segmented_dense_topk", "dense_topk", "masked_topk", "stable_topk",
+           "scan_outputs", "check_inputs", "expand_descriptors",
+           "resident_candidates", "assemble_flat_candidates",
+           "distance_topk_descriptors"]

@@ -1,6 +1,7 @@
 """Executor-facing wrappers around the scan kernels.
 
-Port of ``src/repro/kernels/ops.py`` (the parts the main path runs):
+Port of ``src/repro/kernels/ops.py`` (all but the XLA twins, whose part
+the plain PyTorch versions play):
 
   * **shape buckets** (``bucket``) — every dynamic dimension pads to a
     power-of-two multiple of 128 rows, so the kernels see a bounded set
@@ -13,6 +14,12 @@ Port of ``src/repro/kernels/ops.py`` (the parts the main path runs):
     ``executables`` (distinct keys);
   * the **descriptor launch** ``topk_segmented_desc`` (kernel A on CUDA,
     its plain version on the CPU);
+  * the **unsegmented exact k-NN** entry points ``topk``
+    (``distance_topk.distance_topk``) and ``pairwise_sqdist``
+    (``pairwise.pairwise_distance``), and the host-materialised
+    ``topk_segmented`` over kernel A.  They take tensors and run where
+    the tensors are; ragged Q and N are masked in the kernels, so no
+    operand is padded or copied;
   * the **device merge** ``merge_topk_device`` (plain PyTorch, as it was
     XLA code in the reference);
   * the NumPy host oracle ``topk_numpy`` / ``topk_segmented_numpy``.
@@ -25,7 +32,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .distance_topk import distance_topk_descriptors
+from .distance_topk import (distance_topk, distance_topk_descriptors,
+                            topk_seg_f32)
+from .pairwise import pairwise_distance
 
 _LANE = 128
 
@@ -77,6 +86,56 @@ def reset_launch_stats() -> None:
 
 def _round_up(n: int, mult: int) -> int:
     return ((n + mult - 1) // mult) * mult
+
+
+def _check_k(k: int) -> int:
+    """The kernels' list width kp = round_up(k, 8); raises past 128."""
+    kp = _round_up(k, 8)
+    if kp > _LANE:
+        raise ValueError(f"k={k} exceeds kernel max {_LANE}")
+    return kp
+
+
+# --------------------------------------------------------------------- #
+# unsegmented exact k-NN and the host-materialised segmented API
+# --------------------------------------------------------------------- #
+
+def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor, *, metric: str = "l2",
+                    accum: str = "f32") -> torch.Tensor:
+    """(Q, d) × (N, d) -> (Q, N) distances via the pairwise kernel."""
+    return pairwise_distance(x.float().contiguous(), y.float().contiguous(),
+                             metric=metric, accum=accum)
+
+
+def topk(x: torch.Tensor, y: torch.Tensor, k: int, *, metric: str = "l2",
+         accum: str = "f32") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of every row of ``x`` against every row of ``y``:
+    (Q, k) ascending distances and int32 row indices, lower index first
+    on equal distance.  When k > N the trailing entries are (+inf, -1);
+    no index ≥ N is returned.  k > 128 raises."""
+    kp = _check_k(k)
+    vals, idx = distance_topk(x.float().contiguous(), y.float().contiguous(),
+                              kp, metric=metric, accum=accum)
+    return vals[:, :k], idx[:, :k]
+
+
+def topk_segmented(x: torch.Tensor, y: torch.Tensor, qseg, cseg, k: int, *,
+                   metric: str = "l2", accum: str = "f32"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segmented exact top-k: ONE launch serving many (query, id-set)
+    pairs.  ``qseg`` (Q,) assigns each query row an owner id, ``cseg``
+    (N,) each candidate row; query r ranks only candidates c with
+    ``cseg[c] == qseg[r]``.  Owner ids are ≥ 0; a row with qseg -1
+    matches nothing.  Returns (Q, k) ascending distances and row indices
+    into ``y``; unfilled slots (segment smaller than k, or empty) are
+    (+inf, -1).  k > 128 raises."""
+    kp = _check_k(k)
+    qs = torch.as_tensor(qseg, dtype=torch.int32, device=x.device)
+    cs = torch.as_tensor(cseg, dtype=torch.int32, device=x.device)
+    vals, idx = topk_seg_f32(x.float().contiguous(), y.float().contiguous(),
+                             qs.contiguous(), cs.contiguous(), kp,
+                             metric=metric, accum=accum)
+    return vals[:, :k], idx[:, :k]
 
 
 # --------------------------------------------------------------------- #
@@ -139,9 +198,7 @@ def topk_segmented_desc(vectors: torch.Tensor, base_ids: torch.Tensor,
     ``(vals, gids)`` of shape (Q, k) on the table's device: ascending
     distances and global ids, (+inf, -1) padding."""
     q = x.shape[0]
-    kp = _round_up(k, 8)
-    if kp > _LANE:
-        raise ValueError(f"k={k} exceeds kernel max {_LANE}")
+    kp = _check_k(k)
     args, key = pad_descriptor_batch(
         x, qseg, desc_starts, desc_lens, desc_owners, tail_res_ids,
         tail_res_owners, tail_ship_ids, tail_ship_rows, tail_ship_owners,
@@ -254,5 +311,6 @@ def merge_topk_device(big_d: torch.Tensor, big_i: torch.Tensor,
 
 
 __all__ = ["bucket", "record_launch", "launch_stats", "reset_launch_stats",
+           "pairwise_sqdist", "topk", "topk_segmented",
            "pad_descriptor_batch", "topk_segmented_desc", "topk_numpy",
            "topk_segmented_numpy", "merge_topk_device"]

@@ -9,10 +9,12 @@ whose certificate fails (see the reference module docstring for the
 bound |D − D̂| ≤ sx·sy·(‖x_q‖₁ + ‖y_q‖₁ + d/2)).
 
 ``qtopk_seg_sq8`` is the wrapper of kernel B (``csrc/qtopk_seg.cu``,
-the port of the Pallas ``_qtopk_seg_kernel``): on a CUDA tensor it
-launches the hand-written kernel, on a CPU tensor it runs the plain
-PyTorch version ``sq8_dense_segmented``; given the same inputs the two
-are bit-identical.  The rerank and the certificate are plain PyTorch,
+the port of the Pallas ``_qtopk_seg_kernel``), ``quantized_topk`` of its
+unsegmented instantiation ``qtopk_sq8`` (the port of ``_qtopk_kernel``,
+reached from ``topk_sq8_rerank``): on a CUDA tensor each launches the
+hand-written kernel, on a CPU tensor it runs its plain PyTorch version
+(``sq8_dense_segmented``, ``sq8_dense``); given the same inputs the two
+are bit-identical.  The reranks and the certificate are plain PyTorch,
 as they were XLA code in the reference.
 """
 
@@ -22,8 +24,8 @@ import torch
 
 from . import _build
 from .distance_topk import (_require, check_inputs, masked_topk,
-                            resident_candidates)
-from .tuning import SQ8_DIM_CAP, select_splits, select_tiles
+                            resident_candidates, scan_outputs, stable_topk)
+from .tuning import SQ8_DIM_CAP
 
 _INF = float("inf")
 
@@ -59,18 +61,41 @@ def quantize_sq8_ext(x: torch.Tensor):
     return q, scale, sq, l1
 
 
-def sq8_dense_segmented(xq, yq, sx, x2, sy, y2, qseg, cseg, k: int):
-    """Plain PyTorch version of kernel B.  The int8 dot runs as an fp64
-    matmul of the codes — every partial sum is an integer below 2⁵³, so
-    it is exact — then the kernel's association:
-    ``cross = (float(dot)·sx)·sy``, ``dist = max((x2 + y2) − 2·cross, 0)``.
-    ``sx``, ``x2`` (Q,), ``sy``, ``y2`` (N,).  Returns (Q, k) ascending
-    quantized distances and flat columns, (+inf, -1) padding."""
+def _sq8_dist(xq, sx, x2, yq, sy, y2):
+    """The dense (Q, N) quantized distances of ``qtopk_seg_sq8`` and
+    ``qtopk_sq8``.  The int8 dot runs as an fp64 matmul of the codes —
+    every partial sum is an integer below 2⁵³, so it is exact — then the
+    kernels' association: ``cross = (float(dot)·sx)·sy``,
+    ``dist = max((x2 + y2) − 2·cross, 0)``."""
     dot = (xq.double() @ yq.double().T).float()
     cross = (dot * sx.reshape(-1, 1)) * sy.reshape(1, -1)
-    dist = ((x2.reshape(-1, 1) + y2.reshape(1, -1)) - 2.0 * cross
+    return ((x2.reshape(-1, 1) + y2.reshape(1, -1)) - 2.0 * cross
             ).clamp_min(0.0)
-    return masked_topk(dist, qseg, cseg, k)
+
+
+def sq8_dense_segmented(xq, yq, sx, x2, sy, y2, qseg, cseg, k: int):
+    """Plain PyTorch version of kernel B: ``_sq8_dist`` under the owner
+    mask.  ``sx``, ``x2`` (Q,), ``sy``, ``y2`` (N,).  Returns (Q, k)
+    ascending quantized distances and flat columns, (+inf, -1)
+    padding."""
+    return masked_topk(_sq8_dist(xq, sx, x2, yq, sy, y2), qseg, cseg, k)
+
+
+def sq8_dense(xq, sx, x2, yq, sy, y2, k: int):
+    """Plain PyTorch version of ``qtopk_sq8``: ``_sq8_dist`` over every
+    column, then the stable top-k."""
+    return stable_topk(_sq8_dist(xq, sx, x2, yq, sy, y2), k)
+
+
+def _pad_codes(xq, yq):
+    """Zero-pad the code rows to a multiple of 16 bytes, as the kernels
+    read them; zero codes add nothing to the dot."""
+    d = xq.shape[1]
+    dp = -(-d // 16) * 16
+    if dp != d:
+        xq = torch.nn.functional.pad(xq, (0, dp - d))
+        yq = torch.nn.functional.pad(yq, (0, dp - d))
+    return xq, yq, dp
 
 
 def qtopk_seg_sq8(xq, yq, sx, x2, sy, y2, qseg, cseg, kqp: int):
@@ -95,15 +120,8 @@ def qtopk_seg_sq8(xq, yq, sx, x2, sy, y2, qseg, cseg, kqp: int):
                              ("cseg", cseg, torch.int32, (n,))))
     _require(q > 0 and n > 0 and 0 < d <= SQ8_DIM_CAP,
              f"unsupported scan shape ({q}, {n}, {d})")
-    dp = -(-d // 16) * 16
-    if dp != d:        # zero codes add nothing to the dot
-        xq = torch.nn.functional.pad(xq, (0, dp - d))
-        yq = torch.nn.functional.pad(yq, (0, dp - d))
-    bq, bn = select_tiles(q, n, k=kqp)
-    s = select_splits(q, n, bq, bn)
-    partial = torch.empty(q * s * kqp, dtype=torch.int64, device=xq.device)
-    vals = torch.empty((q, kqp), dtype=torch.float32, device=xq.device)
-    idx = torch.empty((q, kqp), dtype=torch.int32, device=xq.device)
+    xq, yq, dp = _pad_codes(xq, yq)
+    bq, bn, s, partial, vals, idx = scan_outputs(q, n, kqp, xq.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     _build.check("qtopk_seg_sq8", lib.qtopk_seg_sq8(
@@ -116,6 +134,79 @@ def qtopk_seg_sq8(xq, yq, sx, x2, sy, y2, qseg, cseg, kqp: int):
 
 
 qtopk_seg_sq8.launches = 0
+
+
+def quantized_topk(xq, sx, x2, yq, sy, y2, kqp: int):
+    """``qtopk_sq8``: int8 scan of every query row against every code row
+    to the top-kqp quantized distances (argument order of the
+    reference's ``quantized_topk``).  ``xq`` (Q, d), ``yq`` (N, d) int8;
+    ``sx``, ``x2`` (Q,), ``sy``, ``y2`` (N,) fp32.  Ragged N is masked in
+    the kernel, so nothing is padded but the code width.  CPU tensors
+    take the plain version ``sq8_dense``; CUDA tensors launch
+    ``csrc/qtopk_seg.cu``'s unsegmented entry (``launches`` counts those
+    launches) or raise — no fallback."""
+    _require(1 <= kqp <= 128, f"kqp={kqp} outside the kernel's 1..128")
+    if xq.device.type == "cpu":
+        return sq8_dense(xq, sx, x2, yq, sy, y2, kqp)
+    _require(xq.device.type == "cuda", f"unsupported device {xq.device}")
+    q, d = xq.shape
+    n = yq.shape[0]
+    check_inputs(xq.device, (("xq", xq, torch.int8, (q, d)),
+                             ("sx", sx, torch.float32, (q,)),
+                             ("x2", x2, torch.float32, (q,)),
+                             ("yq", yq, torch.int8, (n, d)),
+                             ("sy", sy, torch.float32, (n,)),
+                             ("y2", y2, torch.float32, (n,))))
+    _require(q > 0 and n > 0 and 0 < d <= SQ8_DIM_CAP,
+             f"unsupported scan shape ({q}, {n}, {d})")
+    xq, yq, dp = _pad_codes(xq, yq)
+    bq, bn, s, partial, vals, idx = scan_outputs(q, n, kqp, xq.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    _build.check("qtopk_sq8", lib.qtopk_sq8(
+        xq.data_ptr(), yq.data_ptr(), sx.data_ptr(), x2.data_ptr(),
+        sy.data_ptr(), y2.data_ptr(), q, n, dp, kqp, bq, bn, s,
+        partial.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream))
+    quantized_topk.launches += 1
+    return vals, idx
+
+
+quantized_topk.launches = 0
+
+
+def _check_overfetch(k: int, overfetch: int) -> int:
+    """kq = k·overfetch (at least k); raises past the 128-wide scratch."""
+    kq = max(k * overfetch, k)
+    if kq > 128:
+        raise ValueError(
+            f"k*overfetch={kq} exceeds the quantized kernel's 128-lane "
+            f"scratch budget (k={k}, overfetch={overfetch}); lower k or "
+            f"overfetch (the executor clamps overfetch to 128//k)")
+    return kq
+
+
+def topk_sq8_rerank(x: torch.Tensor, y: torch.Tensor, k: int, *,
+                    overfetch: int = 4):
+    """Top-k at int8 scan bandwidth: the quantized top-(k·overfetch) of
+    every row of ``y`` (``quantized_topk``), then an exact fp32 rerank of
+    those candidates only, in difference form Σ(y − x)² as the
+    reference's ``topk_sq8_rerank``, and a stable top-k.  Both sides are
+    quantized on every call, as in the reference.  Returns (Q, k)
+    ascending distances and int32 row indices; (+inf, -1) where ``y`` has
+    fewer than k rows.  ``k·overfetch > 128`` raises."""
+    n = y.shape[0]
+    kq = _check_overfetch(k, overfetch)
+    xq, sx, x2 = quantize_sq8(x)
+    yq, sy, y2 = quantize_sq8(y)
+    kqp = min(-(-kq // 8) * 8, 128)
+    _, idx = quantized_topk(xq, sx[:, 0], x2[:, 0], yq, sy[:, 0], y2[:, 0],
+                            kqp)
+    idx = idx[:, :kq].long()
+    cand = y[idx.clamp(0, n - 1)].float()               # (Q, kq, d)
+    diff = cand - x.float()[:, None, :]
+    d2 = torch.where(idx >= 0, (diff * diff).sum(-1), _INF)
+    pos = torch.argsort(d2, dim=1, stable=True)[:, :k]
+    return d2.gather(1, pos), idx.gather(1, pos).to(torch.int32)
 
 
 def _sq8_topk_descriptors(vectors, vq, vsc, vsq, vl1, base_ids, deleted, x,
@@ -221,12 +312,7 @@ def topk_sq8_segmented_desc(vectors, quant, base_ids, deleted, x, qseg,
     Returns ``(vals, gids, cert)`` on the table's device."""
     from .ops import _round_up, pad_descriptor_batch, record_launch
     q = x.shape[0]
-    kq = max(k * overfetch, k)
-    if kq > 128:
-        raise ValueError(
-            f"k*overfetch={kq} exceeds the quantized kernel's 128-lane "
-            f"scratch budget (k={k}, overfetch={overfetch}); lower k or "
-            f"overfetch (the executor clamps overfetch to 128//k)")
+    kq = _check_overfetch(k, overfetch)
     args, key = pad_descriptor_batch(
         x, qseg, desc_starts, desc_lens, desc_owners, tail_res_ids,
         tail_res_owners, tail_ship_ids, tail_ship_rows, tail_ship_owners,
@@ -244,5 +330,5 @@ def topk_sq8_segmented_desc(vectors, quant, base_ids, deleted, x, qseg,
 
 
 __all__ = ["SQ8_MAX_K", "sq8_supported", "quantize_sq8", "quantize_sq8_ext",
-           "qtopk_seg_sq8", "sq8_dense_segmented",
-           "topk_sq8_segmented_desc"]
+           "qtopk_seg_sq8", "sq8_dense_segmented", "quantized_topk",
+           "sq8_dense", "topk_sq8_rerank", "topk_sq8_segmented_desc"]

@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import hnsw_torch
 from repro_torch.kernels import distance_topk as tdt
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pairwise as tpw
 from repro_torch.kernels import quant as tq
 from repro_torch.kernels import tuning as ttune
 
@@ -356,6 +357,15 @@ def test_wrappers_reject_other_devices_without_fallback():
                          seg.float(), seg.float(), seg.float(), seg, seg, 8)
     with pytest.raises(ValueError, match="outside the kernel"):
         tdt.topk_seg_f32(x, x, seg, seg, 129)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdt.distance_topk(x, x, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tpw.pairwise_distance(x, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tq.quantized_topk(x.to(torch.int8), seg.float(), seg.float(),
+                          x.to(torch.int8), seg.float(), seg.float(), 8)
+    with pytest.raises(ValueError, match="outside the kernel"):
+        tdt.distance_topk(x, x, 129)
 
 
 # --------------------------------------------------------------------- #
