@@ -11,17 +11,24 @@ Phases:
      csrc`` with nvcc and prints what ``-Xptxas -v`` reports;
   2. kernels vs plain at edge shapes (k = 128, ragged N, N < k, owners
      with no candidates, exact ties from duplicated rows, ip, bf16, d =
-     100, SQ8 at d = 4096, and Q = 1024 × N = 65,536 × d = 768 for the
-     unsegmented kernels): the SQ8 kernels must be bit-equal to their
+     97 (the scalar-load instantiation), d = 100 and 768, Q = 1 and 129,
+     SQ8 at d = 4096, Q = 1024 × N = 65,536 × d = 768 for the unsegmented
+     kernels, and kernel A under every owner layout of its tile skip:
+     owner-sorted descriptor and tail runs, random owners, scattered
+     tombstones, pad rows, an owner with no candidates, negative owners
+     that match, ragged Q): the SQ8 kernels must be bit-equal to their
      plain versions, the fp32 ones within atol 1e-4·max|d| on values and
      equal on ids except where the distance is within that tolerance of a
-     neighbour's;
+     neighbour's; kernel A must compute exactly the (row tile, column
+     tile) pairs that the plain skip rule keeps;
   3. the main path at SIFT1M shape — ``make_scale_corpus(1_048_576, 128)``
      indexed with ``VectorMatonConfig(T=10**9, backend="torch",
      device="cuda")``, 64-request batches of ``SCALE_PATTERNS`` plus one
      multi-segment LIKE (the residual path), under ``quantize="sq8"`` and
      ``"none"``; recall 1.0 against a brute-force oracle on the card; both
-     kernels' launch counters must move.  Each kernel is then held
+     kernels' launch counters must move, and kernel A's tile counter
+     gives the share of (row tile, column tile) pairs it computed.  Each
+     kernel is then held
      against its plain version on the exact inputs the main path gave it
      and timed (CUDA events, warm) beside its plain version, the dense
      torch composition (matmul + masked_fill + topk) and its bound;
@@ -41,6 +48,10 @@ Phases:
      the NumPy host oracle, and every answer is a live record that
      satisfies its predicate at its true distance;
   6. the ``kernels`` line; 7. the card line and the ``ok`` line.
+
+``--phases build`` or ``--phases build,edges`` runs only those phases
+and stops without the ``kernels`` and ``ok`` lines: a short check of new
+kernels on the card.
 """
 
 from __future__ import annotations
@@ -133,17 +144,46 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+KERNEL_NAMES = ("topk_f32_pass", "pairwise_f32_pass", "qtopk_seg_pass",
+                "merge_f32_partials", "merge_partials", "tile_owner_ranges")
+
+
+def ptxas_summary(log: str):
+    """One ``"name<template args>: R regs, S/L spill bytes"`` string per
+    kernel from the ``-Xptxas -v`` log (template flags and ints in
+    declaration order, e.g. ``topk_f32_pass<SEG,L2,BF16,VEC,BQ,BN,TM,TN>``),
+    and the kernels that spill."""
+    import re
+    out, spills, name, spill = [], [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled = m.group(1)
+            base = next((k for k in KERNEL_NAMES if k in mangled), mangled)
+            args = re.findall(r"L[bi](\d+)E", mangled)
+            name = base + (f"<{','.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs, {spill[0]}/{spill[1]} "
+                       "spill bytes")
+            if spill != (0, 0):
+                spills.append(name)
+            name, spill = None, (0, 0)
+    return out, spills
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    log = _build.build_log()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln
-             or "Compiling entry" in ln]
+    ptxas, spills = ptxas_summary(_build.build_log())
     emit(phase="build", seconds=build_s, dir=str(_build.build_dir()),
-         ptxas=ptxas)
+         ptxas=ptxas, spilling_kernels=spills)
     _build.library()
 
 
@@ -232,7 +272,62 @@ def _sq8_inputs(x, y, qseg, cseg, dev):
             torch.from_numpy(qseg).to(dev), torch.from_numpy(cseg).to(dev))
 
 
+def owner_layout(rng, name, q, n, n_owners=6):
+    """(qseg, cseg) int32 of one owner layout of kernel A's tile skip (the
+    CPU tests hold the skip rule to the reference on the same layouts):
+
+    runs       owner-sorted descriptor runs then owner-sorted tail runs,
+               rows sorted by owner, a few -3 tombstones (tiles straddle
+               run boundaries);
+    random     unsorted random owners on both sides;
+    tombstones runs with 30 % of the columns scattered -3;
+    pad_rows   runs, a third of the rows -1 (pad rows meet nothing);
+    empty      runs, some rows owning an owner with no candidates;
+    negative   runs, rows and a stretch of columns owning -5 (negative
+               owners that match);
+    ragged_q   runs with Q not a multiple of the row tile (the caller
+               picks such a q)."""
+    if name == "random":
+        qseg = rng.integers(-1, n_owners + 2, q)
+        cseg = rng.integers(-3, n_owners, n)
+        return qseg.astype(np.int32), cseg.astype(np.int32)
+    cut = n // 2
+    cseg = np.concatenate([np.sort(rng.integers(0, n_owners, cut)),
+                           np.sort(rng.integers(0, n_owners, n - cut))])
+    qseg = np.sort(rng.integers(0, n_owners, q))
+    tomb = 0.3 if name == "tombstones" else 0.02
+    cseg[rng.random(n) < tomb] = -3
+    if name == "pad_rows":
+        qseg[-(q // 3):] = -1
+    if name == "empty":
+        qseg[: q // 4] = n_owners + 7
+    if name == "negative":
+        qseg[: q // 4] = -5
+        cseg[n // 3: n // 3 + n // 10] = -5
+    return qseg.astype(np.int32), cseg.astype(np.int32)
+
+
+OWNER_LAYOUTS = ("runs", "random", "tombstones", "pad_rows", "empty",
+                 "negative", "ragged_q")
+
+
+def check_skip_count(qseg, cseg, stats):
+    """Kernel A computed exactly the (row tile, column tile) pairs that the
+    plain skip rule keeps (``tile_owner_ranges`` + ``tiles_meet``)."""
+    from repro_torch.kernels.distance_topk import (tile_owner_ranges,
+                                                   tiles_meet)
+    from repro_torch.kernels.tuning import select_f32_tiles
+    bq, bn = select_f32_tiles(qseg.shape[0], segmented=True)
+    rows = tile_owner_ranges(qseg[torch.argsort(qseg, stable=True)], bq)
+    keep = tiles_meet(rows, tile_owner_ranges(cseg, bn))
+    check(stats == {"computed": int(keep.sum()), "total": keep.numel()},
+          f"kernel A computed {stats}, the rule keeps {int(keep.sum())} "
+          f"of {keep.numel()}")
+    return stats
+
+
 def phase_edges() -> None:
+    from repro_torch.kernels import distance_topk
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     cases = [
@@ -244,13 +339,32 @@ def phase_edges() -> None:
         ("ip", 128, 3000, 128, 5, 16, "ip", "f32", False),
         ("bf16", 128, 3000, 128, 5, 16, "l2", "bf16", False),
         ("d100", 50, 777, 100, 3, 32, "l2", "f32", False),
+        ("d97", 50, 777, 97, 3, 32, "l2", "f32", False),
+        ("d768", 64, 3000, 768, 3, 16, "l2", "f32", False),
+        ("q1", 1, 3000, 128, 2, 16, "l2", "f32", False),
+        ("q129", 129, 3000, 128, 5, 16, "ip", "f32", False),
     ]
     for name, q, n, d, owners, kp, metric, accum, dup in cases:
         x, y, qseg, cseg = _seg_case(rng, q, n, d, owners, dup)
         t = [torch.from_numpy(a).to(dev) for a in (x, y, qseg, cseg)]
+        distance_topk.reset_tile_stats()
         err, tol = check_kernel_a(*t, kp, metric=metric, accum=accum)
+        tiles = check_skip_count(t[2], t[3], distance_topk.tile_stats())
         emit(phase="edges", kernel="topk_seg_f32", case=name,
-             max_abs_err=err, tol=tol)
+             max_abs_err=err, tol=tol, tiles=tiles)
+    for layout in OWNER_LAYOUTS:
+        for accum, metric in (("f32", "l2"), ("bf16", "ip")):
+            q = 203 if layout == "ragged_q" else 128
+            x = rng.standard_normal((q, 128)).astype(np.float32)
+            y = rng.standard_normal((20_000, 128)).astype(np.float32)
+            qseg, cseg = owner_layout(rng, layout, q, 20_000)
+            t = [torch.from_numpy(a).to(dev) for a in (x, y, qseg, cseg)]
+            distance_topk.reset_tile_stats()
+            err, tol = check_kernel_a(*t, 16, metric=metric, accum=accum)
+            tiles = check_skip_count(t[2], t[3], distance_topk.tile_stats())
+            emit(phase="edges", kernel="topk_seg_f32",
+                 case=f"layout_{layout}_{accum}", max_abs_err=err, tol=tol,
+                 tiles=tiles)
     for name, q, n, d, owners, kp, dup in [
             ("k128", 100, 5000, 128, 3, 128, False),
             ("ragged_n", 70, 1037, 64, 4, 40, False),
@@ -272,20 +386,27 @@ def phase_edges_unsegmented(dev, rng) -> None:
     from repro_torch.kernels.distance_topk import dense_topk, distance_topk
     from repro_torch.kernels.quant import (quantize_sq8, quantized_topk,
                                            sq8_dense)
+    from repro_torch.kernels.tuning import F32_WIDE, select_f32_tiles
 
     def case(q, n, d, dup=False):
         x, y, _, _ = _seg_case(rng, q, n, d, 1, dup)
         return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
 
     big = (1024, 65_536, 768)
+    k_wide = max(k for k in range(1, 129)            # the wide tile's
+                 if select_f32_tiles(128, k=k) == F32_WIDE)   # largest k
     for name, shape, kp, metric, accum, dup in [
             ("k128", (100, 5000, 128), 128, "l2", "f32", False),
+            ("k_wide_max", (128, 5000, 128), k_wide, "l2", "f32", False),
             ("ragged_n", (70, 1037, 64), 16, "l2", "f32", False),
             ("n_below_k", (33, 50, 32), 64, "l2", "f32", False),
             ("ties", (64, 900, 48), 40, "l2", "f32", True),
             ("ip", (128, 3000, 128), 16, "ip", "f32", False),
             ("bf16", (128, 3000, 128), 16, "l2", "bf16", False),
             ("d100", (50, 777, 100), 32, "l2", "f32", False),
+            ("d97", (50, 777, 97), 32, "l2", "f32", False),
+            ("q1", (1, 3000, 128), 16, "l2", "f32", False),
+            ("q129", (129, 3000, 128), 16, "ip", "f32", False),
             ("bench_max", big, 16, "l2", "f32", False)]:
         x, y = case(*shape, dup=dup)
         err, tol = check_close_topk(distance_topk, dense_topk, x, y, kp,
@@ -315,6 +436,9 @@ def phase_edges_unsegmented(dev, rng) -> None:
             ("bf16", (128, 3000, 128), "l2", "bf16"),
             ("ip_bf16", (5, 70, 33), "ip", "bf16"),
             ("d100", (50, 777, 100), "l2", "f32"),
+            ("d97", (50, 777, 97), "l2", "f32"),
+            ("q1", (1, 3000, 128), "ip", "f32"),
+            ("q129", (129, 3001, 128), "l2", "f32"),
             ("bench_max", big, "l2", "f32")]:
         x, y = case(*shape)
         err, tol = check_pairwise(x, y, metric=metric, accum=accum)
@@ -431,15 +555,31 @@ def _live_pairs(qseg: torch.Tensor, cseg: torch.Tensor):
             int(cols_per.sum()))
 
 
-def measure_kernel_a(args, kwargs, launches):
+def measure_kernel_a(args, kwargs, launches, tiles):
+    """``tiles``: the (row tile, column tile) pairs kernel A computed and
+    launched over the main path's run; ``tiles_one_call`` the same for
+    the one call measured here."""
+    from repro_torch.kernels import distance_topk, tuning
     from repro_torch.kernels.distance_topk import (segmented_dense_topk,
                                                    topk_seg_f32)
+    from repro_torch.kernels.tuning import select_f32_tiles
     x, y, qseg, cseg, kp = args
     metric, accum = kwargs.get("metric", "l2"), kwargs.get("accum", "f32")
+    distance_topk.reset_tile_stats()
     err, tol = check_kernel_a(x, y, qseg, cseg, kp, metric=metric,
                               accum=accum)
+    one_call = check_skip_count(qseg, cseg, distance_topk.tile_stats())
     ms = cuda_ms(lambda: topk_seg_f32(x, y, qseg, cseg, kp, metric=metric,
                                       accum=accum))
+    by_split = {}                  # the split policy's choice, against others
+    default = tuning.F32_SEG_TILES_PER_SPLIT
+    try:
+        for per_split in (2, 4, 8):
+            tuning.F32_SEG_TILES_PER_SPLIT = per_split
+            by_split[per_split] = cuda_ms(lambda: topk_seg_f32(
+                x, y, qseg, cseg, kp, metric=metric, accum=accum))
+    finally:
+        tuning.F32_SEG_TILES_PER_SPLIT = default
     plain_ms = cuda_ms(lambda: segmented_dense_topk(
         x, y, qseg, cseg, kp, metric=metric, accum=accum), reps=3)
 
@@ -456,6 +596,8 @@ def measure_kernel_a(args, kwargs, launches):
     n = y.shape[0]
     bytes_ = q * d * 4 + live * d * 4 + (q + n) * 4 + q * kp * 8
     bound_ms, bound_by = _bound(bytes_, 2 * pairs * d, PEAK_F32)
+    bq, bn = select_f32_tiles(q, k=kp, segmented=True)
+    computed_flop = 2 * one_call["computed"] * bq * bn * d
     return {"name": "topk_seg_f32", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_seg.cu",
             "replaces": "src/repro/kernels/distance_topk.py:97",
@@ -463,7 +605,11 @@ def measure_kernel_a(args, kwargs, launches):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "composition_ms": comp_ms,
-            "shape": {"Qp": q, "N": n, "d": d, "kp": kp,
+            "tiles": {**tiles, "share": tiles["computed"] / tiles["total"]},
+            "tiles_one_call": one_call,
+            "ms_by_tiles_per_split": by_split,
+            "computed_tflops": computed_flop / ms / 1e9,
+            "shape": {"Qp": q, "N": n, "d": d, "kp": kp, "bq": bq, "bn": bn,
                       "matched_pairs": pairs, "live_columns": live}}
 
 
@@ -537,6 +683,7 @@ def phase_main_path():
     ops.reset_launch_stats()
     distance_topk.topk_seg_f32.launches = 0
     quant.qtopk_seg_sq8.launches = 0
+    distance_topk.reset_tile_stats()
     results = {}
     wave_ms = {"sq8": [], "none": []}
     host_ms = {}
@@ -555,6 +702,7 @@ def phase_main_path():
             host_ms[mode] = {key: (rt.wave_times[key] - before[key]) / waves
                              for key in before}
     stats = ops.launch_stats()
+    tiles_a = distance_topk.tile_stats()
     launches_a = distance_topk.topk_seg_f32.launches
     launches_b = quant.qtopk_seg_sq8.launches
     sq8 = {k: rt.sq8_stats[k] - sq8_before[k] for k in rt.sq8_stats}
@@ -562,6 +710,8 @@ def phase_main_path():
     check(stats.get("sq8_scan", 0) >= 1, f"no sq8_scan launch: {stats}")
     check(stats.get("desc_scan", 0) >= 1, f"no desc_scan launch: {stats}")
     check(launches_a > 0, "kernel A never launched on the main path")
+    check(0 < tiles_a["computed"] <= tiles_a["total"],
+          f"kernel A tile counts {tiles_a}")
     check(launches_b > 0, "kernel B never launched on the main path")
 
     dev_vecs = rt.to_device()["vectors"]
@@ -578,6 +728,7 @@ def phase_main_path():
          recall=min(recalls), launch_stats=stats,
          kernel_launches={"topk_seg_f32": launches_a,
                           "qtopk_seg_sq8": launches_b},
+         kernel_a_tiles=tiles_a,
          sq8_stats=sq8,
          wave_ms_p25_p50_p75={m: np.percentile(v, [25, 50, 75]).tolist()
                               for m, v in wave_ms.items()},
@@ -587,7 +738,8 @@ def phase_main_path():
         rt.quantize = mode
         rt._sq8_bad_streak = 0      # so the sq8 wave runs the SQ8 scan
         profile_wave(vm, qsets[0], patterns, mode)
-    return (cap_a.args, launches_a), (cap_b.args, launches_b), dev_vecs
+    return (cap_a.args, launches_a, tiles_a), (cap_b.args, launches_b), \
+        dev_vecs
 
 
 # --------------------------------------------------------------------- #
@@ -703,6 +855,7 @@ def measure_topk_f32(args, kwargs, launches):
             "bound_by": bound_by, "library_ms": None,
             "library_note": "no single PyTorch call ranks distances",
             "composition_ms": comp_ms,
+            "tflops": 2 * q * n * d / ms / 1e9,
             "shape": {"Q": q, "N": n, "d": d, "kp": kp, **kwargs}}
 
 
@@ -772,6 +925,8 @@ def measure_pairwise_f32(args, kwargs, launches):
             "library_ms": library_ms,
             "library_call": "torch.addmm(out, x, y.T, beta=0, alpha=-1)",
             "composition_ms": None, "l2": out["l2"],
+            "tflops": 2 * q * n * d / out["ip"]["ms"] / 1e9,
+            "library_tflops": 2 * q * n * d / library_ms / 1e9,
             "shape": {"Q": q, "N": n, "d": d, "accum": kwargs.get(
                 "accum", "f32")}}
 
@@ -915,9 +1070,16 @@ def main() -> int:
          count=torch.cuda.device_count())
     t_start = time.perf_counter()
     phase_build()
+    if PHASES is not None:
+        if "edges" in PHASES:
+            phase_edges()
+        emit(phase="done", partial=sorted(PHASES),
+             seconds=time.perf_counter() - t_start)
+        return 0
     phase_edges()
-    (args_a, launches_a), (args_b, launches_b), table = phase_main_path()
-    kernels = [measure_kernel_a(*args_a, launches_a),
+    (args_a, launches_a, tiles_a), (args_b, launches_b), table = \
+        phase_main_path()
+    kernels = [measure_kernel_a(*args_a, launches_a, tiles_a),
                measure_kernel_b(args_b[0], launches_b)]
     del args_a, args_b
     torch.cuda.empty_cache()
@@ -934,5 +1096,13 @@ def main() -> int:
     return 0
 
 
+PHASES = None           # None: every phase; else a subset (see --phases)
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--phases":
+        PHASES = set(sys.argv[2].split(","))
+        check(PHASES <= {"build", "edges"},
+              f"--phases takes build and edges, not {sorted(PHASES)}")
+    elif len(sys.argv) != 1:
+        sys.exit("usage: chip_smoke.py [--phases build,edges]")
     sys.exit(main())

@@ -11,142 +11,137 @@
 // What bounds it: at Q = 128, N = 1,048,576, d = 128 the products are
 // 2·Q·N·d = 34.4 GFLOP of fp32 FMA, 0.51 ms at the 67 TFLOP/s CUDA-core peak;
 // the bytes are the 0.54 GB of y, the queries and the 0.54 GB (Q·N·4) of
-// output, 1.07 GB or 0.32 ms at 3.35 TB/s.  So it is bound by operations,
-// and the output is the larger half of its bytes: every tile is staged in
-// shared memory and written row by row, so that a warp stores 32 contiguous
-// columns of one row (128 bytes) instead of the 16-strided columns of the
-// register tile.  Tensor-core products are left for a later change.
+// output, 1.07 GB or 0.32 ms at 3.35 TB/s.  So it is bound by operations.
+// Tensor-core products would change the numbers (TF32 keeps 10 mantissa
+// bits), so accum "f32" stays on CUDA cores.
 //
 // Design: grid (ceil(N / bn), ceil(Q / bq)), one bq x bn output tile per
-// block; the same 256-thread 16x16 register tiling and 32-word d-chunks
-// staged through shared memory as kernels A and B (topk_seg.cu).  Threads
-// 0..bq-1 and 128..128+bn-1 accumulate the row and column norms from the
-// staged chunks, so each operand is read from device memory once per block.
+// block, computed by the fp32 product loop of topk_common.cuh: the wide tile
+// (128 x 128, 8x8 outputs per thread) when Q > 32, else the narrow one (32 x
+// 256, 8x4), so a small Q does not multiply 96 empty rows.  Both norms are
+// summed from the staged chunks (XNORM), so each operand is read from device
+// memory once per block.  The epilogue stores straight from registers: each
+// thread holds groups of 4 adjacent columns of a row, written as one float4
+// (a warp covers 256 or 512 contiguous bytes of a row), with scalar stores
+// at the ragged column edge or when N % 4 != 0.  Stores are streaming
+// (st.global.cs): the output is not read again by this kernel.
 #include "topk_common.cuh"
 
 namespace {
 
-constexpr int NORM_Y0 = NT / 2;  // first thread that sums a column norm
+// Dynamic shared memory of one block; mirrors tuning.f32_smem_bytes(k = 0).
+inline size_t f32_pairwise_smem_bytes(int bq, int bn) {
+  return f32_stage_floats(bq, bn) * 4 + size_t(2 * bq + bn) * 4;
+}
 
-template <bool L2, bool BF16>
-__global__ void __launch_bounds__(NT)
-pairwise_pass(const float* __restrict__ x, const float* __restrict__ y,
-              int Q, int N, int D, int bq, int bn, float* __restrict__ out) {
+template <bool L2, bool BF16, bool VEC, int BQ, int BN, int TM, int TN>
+__global__ void __launch_bounds__(NT, 2)
+pairwise_f32_pass(const float* __restrict__ x, const float* __restrict__ y,
+                  int Q, int N, int D, float* __restrict__ out) {
+  using T = F32Tile<BQ, BN, TM, TN>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // [CW][bq + 1]
-  float* ys = xs + CW * (bq + 1);             // [CW][bn + 1]
-  float* dist = ys + CW * (bn + 1);           // [bq][bn + 1]
-  float* x2s = dist + bq * (bn + 1);          // [bq]
-  float* y2s = x2s + bq;                      // [bn]
+  float* stage = reinterpret_cast<float*>(smem);
+  float* x2s = stage + 2 * F32_KC * (BQ + BN);  // [BQ]
+  float* y2s = x2s + BQ;                        // [BN]
+  int* xrow = reinterpret_cast<int*>(y2s + BN);  // [BQ]
 
   const int tid = threadIdx.x;
-  const int tx = tid % TILE, ty = tid / TILE;
-  const int mq = bq / TILE, mn = bn / TILE;
-  const int col0 = blockIdx.x * bn;
-  const int row0 = blockIdx.y * bq;
-  const bool x_norm = L2 && tid < bq;
-  const bool y_norm = L2 && tid >= NORM_Y0 && tid < NORM_Y0 + bn;
-
-  float acc[4][4];
+  const int tx = tid % T::TX, ty = tid / T::TX;
+  const int col0 = blockIdx.x * BN;
+  const int row0 = blockIdx.y * BQ;
+  for (int r = tid; r < BQ; r += NT) xrow[r] = row0 + r < Q ? row0 + r : -1;
+  // f32_tile_product starts with a barrier
+  float acc[TM][TN];
+  f32_tile_product<BQ, BN, TM, TN, VEC, BF16, L2, true>(
+      x, xrow, y, col0, N, D, stage, acc, y2s, x2s);
+  if (L2) __syncthreads();  // the norms
+  const bool vec_out = (N & 3) == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i) {
+    const int r = T::row_of(i, ty), g = row0 + r;
+    if (g >= Q) continue;
+    const float xr = L2 ? x2s[r] : 0.f;
+    float* orow = out + size_t(g) * N;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float norm = 0.f;
-  for (int d0 = 0; d0 < D; d0 += CW) {
-    __syncthreads();  // the previous chunk is done
-    for (int e = tid; e < CW * bq; e += NT) {
-      const int r = e / CW, w = e % CW, g = row0 + r, d = d0 + w;
-      xs[w * (bq + 1) + r] =
-          (g < Q && d < D) ? operand<BF16>(x[size_t(g) * D + d]) : 0.f;
-    }
-    for (int e = tid; e < CW * bn; e += NT) {
-      const int c = e / CW, w = e % CW, g = col0 + c, d = d0 + w;
-      ys[w * (bn + 1) + c] =
-          (g < N && d < D) ? operand<BF16>(y[size_t(g) * D + d]) : 0.f;
-    }
-    __syncthreads();
-    if (x_norm) {
-      for (int w = 0; w < CW; ++w) {
-        const float v = xs[w * (bq + 1) + tid];
-        norm = fmaf(v, v, norm);
+    for (int j4 = 0; j4 < TN / 4; ++j4) {
+      const int c = T::col_of(4 * j4, tx), col = col0 + c;
+      float v[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float p = acc[i][4 * j4 + jj];
+        v[jj] = L2 ? fmaxf(xr + y2s[c + jj] - 2.f * p, 0.f) : -p;
       }
-    } else if (y_norm) {
-      for (int w = 0; w < CW; ++w) {
-        const float v = ys[w * (bn + 1) + tid - NORM_Y0];
-        norm = fmaf(v, v, norm);
+      if (vec_out && col + 3 < N) {
+        __stcs(reinterpret_cast<float4*>(orow + col),
+               make_float4(v[0], v[1], v[2], v[3]));
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          if (col + jj < N) __stcs(orow + col + jj, v[jj]);
       }
     }
-    for (int w = 0; w < CW; ++w) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = i < mq ? xs[w * (bq + 1) + ty + TILE * i] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = j < mn ? ys[w * (bn + 1) + tx + TILE * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-  if (x_norm) x2s[tid] = norm;
-  if (y_norm) y2s[tid - NORM_Y0] = norm;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (i < mq && j < mn) {
-        const int r = ty + TILE * i, c = tx + TILE * j;
-        dist[r * (bn + 1) + c] =
-            L2 ? fmaxf(x2s[r] + y2s[c] - 2.f * acc[i][j], 0.f) : -acc[i][j];
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < bq * bn; e += NT) {
-    const int r = e / bn, c = e % bn, g = row0 + r, col = col0 + c;
-    if (g < Q && col < N) out[size_t(g) * N + col] = dist[r * (bn + 1) + c];
   }
 }
 
-template <bool L2, bool BF16>
+template <bool L2, bool BF16, bool VEC, int BQ, int BN, int TM, int TN>
 cudaError_t launch_pairwise(const float* x, const float* y, int Q, int N,
-                            int D, int bq, int bn, float* out,
-                            cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(bq, bn, 0);
+                            int D, float* out, cudaStream_t stream) {
+  const size_t smem = f32_pairwise_smem_bytes(BQ, BN);
+  auto kernel = pairwise_f32_pass<L2, BF16, VEC, BQ, BN, TM, TN>;
   cudaError_t err = cudaFuncSetAttribute(
-      pairwise_pass<L2, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + bn - 1) / bn, (Q + bq - 1) / bq);
-  pairwise_pass<L2, BF16><<<grid, NT, smem, stream>>>(x, y, Q, N, D, bq, bn,
-                                                     out);
+  const dim3 grid((N + BN - 1) / BN, (Q + BQ - 1) / BQ);
+  kernel<<<grid, NT, smem, stream>>>(x, y, Q, N, D, out);
   return cudaGetLastError();
+}
+
+template <int BQ, int BN, int TM, int TN>
+cudaError_t dispatch_pairwise(bool l2, bool bf16, bool vec, const float* x,
+                              const float* y, int Q, int N, int D, float* o,
+                              cudaStream_t st) {
+  if (l2) {
+    if (bf16)
+      return vec ? launch_pairwise<true, true, true, BQ, BN, TM, TN>(
+                       x, y, Q, N, D, o, st)
+                 : launch_pairwise<true, true, false, BQ, BN, TM, TN>(
+                       x, y, Q, N, D, o, st);
+    return vec ? launch_pairwise<true, false, true, BQ, BN, TM, TN>(
+                     x, y, Q, N, D, o, st)
+               : launch_pairwise<true, false, false, BQ, BN, TM, TN>(
+                     x, y, Q, N, D, o, st);
+  }
+  if (bf16)
+    return vec ? launch_pairwise<false, true, true, BQ, BN, TM, TN>(
+                     x, y, Q, N, D, o, st)
+               : launch_pairwise<false, true, false, BQ, BN, TM, TN>(
+                     x, y, Q, N, D, o, st);
+  return vec ? launch_pairwise<false, false, true, BQ, BN, TM, TN>(
+                   x, y, Q, N, D, o, st)
+             : launch_pairwise<false, false, false, BQ, BN, TM, TN>(
+                   x, y, Q, N, D, o, st);
 }
 
 }  // namespace
 
-// x (Q, D) and y (N, D) fp32, contiguous on the device; out (Q, N) fp32.
-// Returns cudaGetLastError() after the launch.
+// x (Q, D) and y (N, D) fp32, contiguous on the device; out (Q, N) fp32;
+// vec: D % 4 == 0 and x, y 16-byte aligned; (bq, bn) = (128, 128) or (32,
+// 256).  Returns cudaGetLastError() after the launch.
 extern "C" int pairwise_f32(const void* x, const void* y, int Q, int N, int D,
-                            int metric_ip, int bf16, int bq, int bn,
+                            int metric_ip, int bf16, int vec, int bq, int bn,
                             void* out, void* stream) {
-  if (Q <= 0 || N <= 0 || D <= 0 || !tiles_ok(bq, bn) ||
+  const bool wide = bq == F32_WIDE_BQ && bn == F32_WIDE_BN;
+  const bool narrow = bq == F32_NARROW_BQ && bn == F32_NARROW_BN;
+  if (Q <= 0 || N <= 0 || D <= 0 || !(wide || narrow) ||
       (Q + bq - 1) / bq > 65535)
     return int(cudaErrorInvalidValue);
   const auto* xf = static_cast<const float*>(x);
   const auto* yf = static_cast<const float*>(y);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (metric_ip)
-    err = bf16 ? launch_pairwise<false, true>(xf, yf, Q, N, D, bq, bn, o, st)
-               : launch_pairwise<false, false>(xf, yf, Q, N, D, bq, bn, o, st);
-  else
-    err = bf16 ? launch_pairwise<true, true>(xf, yf, Q, N, D, bq, bn, o, st)
-               : launch_pairwise<true, false>(xf, yf, Q, N, D, bq, bn, o, st);
-  return int(err);
+  const bool l2 = !metric_ip;
+  return int(wide ? dispatch_pairwise<F32_WIDE_BQ, F32_WIDE_BN, 8, 8>(
+                        l2, bf16, vec, xf, yf, Q, N, D, o, st)
+                  : dispatch_pairwise<F32_NARROW_BQ, F32_NARROW_BN, 8, 4>(
+                        l2, bf16, vec, xf, yf, Q, N, D, o, st));
 }

@@ -15,217 +15,556 @@
 // enter the fold, so the caller pads nothing.
 //
 // What bounds it: at the segmented main-path shape (Qp = 128, N = 2,097,152,
-// d = 128) the all-pairs products are 2·Qp·N·d = 69 GFLOP of fp32 FMA on CUDA
-// cores (67 TFLOP/s peak), about 1 ms.  Only 3.5 % of the pairs have matching
-// owners (PERF.md §4), so the work the data needs (query rows, live candidate
-// rows, products of matched pairs) is bound by bytes at 0.186 ms (PERF.md
-// §6); this kernel still computes every pair.  Unsegmented, every pair is
-// live: at Q = 128, N = 1,048,576, d = 128 the 34.4 GFLOP take 0.51 ms at the
-// fp32 peak against 0.16 ms for the 0.54 GB of rows, so `topk_f32` is bound
-// by operations.  Skipping tiles whose owner ranges do not meet, and
-// tensor-core products, are left for a later change.
+// d = 128) all pairs would be 2·Qp·N·d = 69 GFLOP of fp32 FMA, but only 3.5 %
+// of the pairs have matching owners (PERF.md §4), so the work the data needs
+// (query rows, live candidate rows, products of matched pairs) is bound by
+// bytes at 0.186 ms.  Unsegmented, every pair is live: at Q = 128, N =
+// 1,048,576, d = 128 the 34.4 GFLOP take 0.51 ms at the 67 TFLOP/s fp32 peak
+// against 0.16 ms for the 0.54 GB of rows, so `topk_f32` is bound by
+// operations.
 //
-// Design: the TPU kernel carries a running top-k across the sequential N grid
-// axis.  Hopper runs blocks in no order, so this is a split-N pass.  Grid
-// (ceil(Q / bq), S): each block loads one bq-row query tile and walks its
-// N-split in bn-column tiles; for each tile it computes the bq x bn distances
-// in 32-word d-chunks staged through shared memory (each of the 256 threads
-// owns a (bq/16) x (bn/16) register tile, strided by 16 so shared loads are
-// conflict-free), then each warp folds its rows' distances into per-row
-// sorted lists of 64-bit (distance, column) keys in shared memory
-// (topk_common.cuh).  The block writes its sorted partial lists to scratch;
-// `merge_partials` folds the S lists of each row.
+// Design.  A split-N pass, then a merge: Hopper runs blocks in no order, so
+// the running top-k the TPU kernel carries across its sequential N axis
+// becomes S sorted partial lists per row, folded by `merge_f32_partials`.
+// Grid (row tiles, S); each block walks its split of column tiles, computes
+// each bq x bn distance tile with the fp32 product loop of topk_common.cuh
+// (8x8 or 8x4 outputs per thread from float4 shared loads, double-buffered
+// 16-word d-chunks) and writes it to shared memory over the stages.  In the
+// epilogue each thread compares its distances with its rows' current k-th
+// distance, kept in shared memory, and lists per row the columns at or below
+// it (up to CAND).  One warp per row then folds the listed columns (a row
+// with more than CAND scans its whole tile row) into a sorted list of 64-bit
+// (distance, column) keys held in registers while the warp inserts (RegList),
+// so the lower column wins ties and the result does not depend on the split.
+// Once a row's list is full, few columns of a tile make the cut, so most rows
+// cost one fold or nothing.
+//
+// The owner skip (SEG).  The wrapper passes `perm`, a stable argsort of qseg,
+// and the pass works on rows in that order: row tile t holds rows perm[t·bq
+// .. t·bq + bq).  The flat candidate layout is grouped by owner (descriptors,
+// resident tail, shipped tail, each ascending), so a row tile covers a few
+// owners whose columns sit in a few contiguous stretches of N.  A pre-pass
+// (`tile_owner_ranges`) writes for each column tile, and for each row tile
+// of the sorted rows, two ranges: [min, max] over owners >= 0 and over
+// owners < 0.  Equal owners have the same sign, so a (row tile,
+// column tile) pair can hold a match only if a range of one meets the range
+// of the same sign of the other; otherwise the block skips the tile without
+// reading y.  Tombstones (-3) never widen a live range, pad rows (-1) meet
+// only negative columns, and the rule holds for any qseg, sorted or not.
+// The exact per-pair mask stays in the fold.
+//
+// Load balance: the work of a row tile sits in a few stretches of N, so the
+// segmented policy (tuning.select_f32_splits) uses a small row tile (32 rows)
+// and many short splits (about 4 column tiles each: on the main path 4 beat 8
+// and 2, chip_smoke.py's `ms_by_tiles_per_split`).  A block whose split meets
+// nothing exits after reading its ranges, with no barrier and no shared
+// memory touched, so the scheduler backfills the SMs with blocks that have
+// work.  Each block writes a flag saying whether it wrote partial lists; the
+// merge folds flagged lists only.  `counter` (optional) adds the number of
+// tiles computed, one atomic per block, so a run can show how many pairs of
+// tiles the rule skipped.
+#include <climits>
+
 #include "topk_common.cuh"
 
 namespace {
 
-template <bool SEG, bool L2, bool BF16>
+constexpr int MERGE_F32_WARPS = 8;
+
+__device__ __forceinline__ bool ranges_meet(int4 a, int4 b) {
+  return max(a.x, b.x) <= min(a.y, b.y) || max(a.z, b.z) <= min(a.w, b.w);
+}
+
+// Per tile of `block` entries of seg (taken in the order perm, when
+// given): (min, max) over owners >= 0, then over owners < 0; an empty range
+// is (INT_MAX, INT_MIN).  One warp per tile.
 __global__ void __launch_bounds__(NT)
-topk_seg_pass(const float* __restrict__ x, const float* __restrict__ y,
-              const int* __restrict__ qseg, const int* __restrict__ cseg,
-              int Q, int N, int D, int kp, int bq, int bn, int tiles_per_split,
-              int S, unsigned long long* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned long long* lists = reinterpret_cast<unsigned long long*>(smem);
-  float* xs = reinterpret_cast<float*>(lists + bq * kp);  // [CW][bq + 1]
-  float* ys = xs + CW * (bq + 1);                          // [CW][bn + 1]
-  float* dist = ys + CW * (bn + 1);                        // [bq][bn + 1]
-  float* x2s = dist + bq * (bn + 1);                       // [bq]
-  float* y2s = x2s + bq;                                   // [bn]
-  int* qs = reinterpret_cast<int*>(y2s + bn);              // [bq]
-  int* cs = qs + bq;                                       // [bn]
+tile_owner_ranges(const int* __restrict__ seg, const int* __restrict__ perm,
+                  int n, int block, int n_tiles, int4* __restrict__ ranges) {
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  if (t >= n_tiles) return;  // whole warp
+  int pmin = INT_MAX, pmax = INT_MIN, nmin = INT_MAX, nmax = INT_MIN;
+  const int end = min(n, (t + 1) * block);
+  for (int c = t * block + lane; c < end; c += 32) {
+    const int o = seg[perm != nullptr ? perm[c] : c];
+    if (o >= 0) {
+      pmin = min(pmin, o);
+      pmax = max(pmax, o);
+    } else {
+      nmin = min(nmin, o);
+      nmax = max(nmax, o);
+    }
+  }
+  pmin = __reduce_min_sync(FULL, pmin);
+  pmax = __reduce_max_sync(FULL, pmax);
+  nmin = __reduce_min_sync(FULL, nmin);
+  nmax = __reduce_max_sync(FULL, nmax);
+  if (lane == 0) ranges[t] = make_int4(pmin, pmax, nmin, nmax);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid % TILE, ty = tid / TILE;
-  const int mq = bq / TILE, mn = bn / TILE;
-  const int row0 = blockIdx.x * bq;
-  const int n_tiles = (N + bn - 1) / bn;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  const int rows_per_warp = bq / 8;
+// A row's running top-kp (ascending keys) held in registers while a warp
+// folds into it: lane l holds element l + 32j in R[j], j < NS = ceil(kp /
+// 32) (NS = 1 for kp <= 32, else 4).  An insert is two ballots and a
+// shuffle of each R[j] one place up, with no shared memory round trip.
+template <int NS>
+struct RegList {
+  unsigned long long R[NS];
+  unsigned long long kth;  // element kp - 1 (KEY_MASKED while not full)
 
-  for (int i = tid; i < bq * kp; i += NT) lists[i] = KEY_MASKED;
-  for (int r = tid; r < bq; r += NT) {
-    const int g = row0 + r;
-    float s = 0.f;
-    if (L2 && g < Q) {
-      for (int d = 0; d < D; ++d) {
-        const float v = operand<BF16>(x[size_t(g) * D + d]);
-        s = fmaf(v, v, s);
+  __device__ __forceinline__ void refresh_kth(int kp) {
+    const int jk = (kp - 1) >> 5;
+    unsigned long long v = R[0];
+#pragma unroll
+    for (int j = 1; j < NS; ++j)
+      if (j == jk) v = R[j];
+    kth = __shfl_sync(FULL, v, (kp - 1) & 31);
+  }
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) R[j] = KEY_MASKED;
+    kth = KEY_MASKED;
+  }
+  __device__ __forceinline__ void load(const unsigned long long* L, int kp,
+                                       int lane) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int i = lane + 32 * j;
+      R[j] = i < kp ? L[i] : KEY_MASKED;
+    }
+    refresh_kth(kp);
+  }
+  __device__ __forceinline__ void store(unsigned long long* L, int kp,
+                                        int lane) const {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int i = lane + 32 * j;
+      if (i < kp) L[i] = R[j];
+    }
+  }
+  // Insert `key` (< kth, so its place is below kp).
+  __device__ __forceinline__ void insert(unsigned long long key, int kp,
+                                         int lane) {
+    int pos = 0;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      pos += __popc(__ballot_sync(FULL, lane + 32 * j < kp && R[j] < key));
+    unsigned long long prev[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const unsigned long long up = __shfl_up_sync(FULL, R[j], 1);
+      const unsigned long long carry =
+          j > 0 ? __shfl_sync(FULL, R[j > 0 ? j - 1 : 0], 31) : 0ULL;
+      prev[j] = lane == 0 ? carry : up;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int i = lane + 32 * j;
+      if (i > pos) R[j] = prev[j];
+      else if (i == pos) R[j] = key;
+    }
+    refresh_kth(kp);
+  }
+  // Fold one candidate key per lane.
+  __device__ __forceinline__ void fold(unsigned long long mine, int kp,
+                                       int lane) {
+    unsigned ball = __ballot_sync(FULL, mine < kth);
+    while (ball) {
+      const int src = __ffs(ball) - 1;
+      insert(__shfl_sync(FULL, mine, src), kp, lane);
+      ball &= ball - 1;
+      ball &= __ballot_sync(FULL, mine < kth);
+    }
+  }
+};
+
+struct PassArgs {
+  const float* x;
+  const float* y;
+  const int* qseg;
+  const int* cseg;
+  const int* perm;         // row order (SEG), or nullptr: rows in order
+  const int4* ranges;      // per column tile (SEG)
+  const int4* row_ranges;  // per row tile of the sorted rows (SEG)
+  int Q, N, D, kp, tiles_per_split, S;
+  unsigned long long* partial;  // (Q, S, kp) keys, row = sorted position
+  int* flags;                   // (row tiles, S): 1 where the lists exist
+  unsigned long long* counter;  // tiles computed, or nullptr
+};
+
+// Candidate slots per row and tile: the columns at or below the row's k-th
+// distance, found in the epilogue; a row with more is folded by a full scan.
+constexpr int CAND = 32;
+
+// Dynamic shared memory of one pass block; mirrors tuning.f32_smem_bytes.
+inline size_t f32_topk_smem_bytes(int bq, int bn, int kp) {
+  const size_t stages = f32_stage_floats(bq, bn);
+  const size_t dist = size_t(bq) * (bn + 4);
+  return (stages > dist ? stages : dist) * 4 + size_t(5 * bq + 2 * bn) * 4 +
+         size_t(bq) * CAND + size_t(bq) * kp * 8;
+}
+
+// The fold of one distance tile: warp w takes rows w, w + 8, ...; a row
+// with listed candidates folds just those, a row with more than CAND scans
+// its whole tile row; then the row's k-th distance is republished.
+template <int NS, bool SEG, int BN, int DS>
+__device__ __forceinline__ void fold_rows(
+    unsigned long long* lists, int kp, const float* dist, const int* cnt,
+    const unsigned char* cand, const int* cs, const int* qs, float* kthv,
+    int col0, int warp, int lane, int bq) {
+  for (int r = warp; r < bq; r += NT / 32) {
+    const int n = cnt[r];  // warp-uniform
+    if (n == 0) continue;
+    unsigned long long* L = lists + r * kp;
+    RegList<NS> rl;
+    rl.load(L, kp, lane);
+    if (n <= CAND) {  // fold only the candidates (order does not matter)
+      unsigned long long key = KEY_MASKED;
+      if (lane < n) {
+        const int c = cand[r * CAND + lane];
+        key = make_key(dist[r * DS + c], col0 + c);
+      }
+      rl.fold(key, kp, lane);
+    } else {  // many candidates: scan the whole row
+      const int q = qs[r];
+      const float kv = kthv[r];
+      for (int c0 = 0; c0 < BN; c0 += 32) {
+        const int c = c0 + lane, o = cs[c];
+        const float v = dist[r * DS + c];
+        unsigned long long key = KEY_MASKED;
+        if (o != INT_MIN && (!SEG || o == q) && !(v > kv))
+          key = make_key(v, col0 + c);
+        rl.fold(key, kp, lane);
       }
     }
-    x2s[r] = s;
-    qs[r] = (SEG && g < Q) ? qseg[g] : 0;
+    rl.store(L, kp, lane);
+    if (lane == 0)
+      kthv[r] = rl.kth == KEY_MASKED ? __uint_as_float(kPosInfBits)
+                                     : key_value(rl.kth);
+  }
+}
+
+template <bool SEG, bool L2, bool BF16, bool VEC, int BQ, int BN, int TM,
+          int TN>
+__global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
+  using T = F32Tile<BQ, BN, TM, TN>;
+  constexpr int DS = BN + 4;  // row stride of the distance tile
+  constexpr size_t STAGE = size_t(2) * F32_KC * (BQ + BN);
+  constexpr size_t BUF = STAGE > size_t(BQ) * DS ? STAGE : size_t(BQ) * DS;
+  // Every array but the lists has a compile-time offset (the lists, sized
+  // by the runtime kp, come last), so their addresses take no registers.
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* buf = reinterpret_cast<float*>(smem);  // stages | distance tile
+  float* x2s = buf + BUF;   // [BQ]
+  float* kthv = x2s + BQ;   // [BQ] value of each row's current k-th key
+  float* y2s = kthv + BQ;   // [BN]
+  int* xrow = reinterpret_cast<int*>(y2s + BN);  // [BQ] global row or -1
+  int* qs = xrow + BQ;      // [BQ]
+  int* cnt = qs + BQ;       // [BQ] candidates of the tile per row
+  int* cs = cnt + BQ;       // [BN]
+  unsigned char* cand = reinterpret_cast<unsigned char*>(cs + BN);
+                            // [BQ][CAND] their columns in the tile
+  unsigned long long* lists =
+      reinterpret_cast<unsigned long long*>(cand + BQ * CAND);  // [BQ][kp]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid % T::TX, ty = tid / T::TX;
+  const int row0 = blockIdx.x * BQ;
+  const int n_tiles = (a.N + BN - 1) / BN;
+  const int t_begin = blockIdx.y * a.tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + a.tiles_per_split);
+
+  int4 rr = make_int4(0, 0, 0, 0);
+  if (SEG) {  // every thread reaches the same verdict: no barrier needed
+    rr = a.row_ranges[blockIdx.x];
+    bool any = false;
+    for (int t = t_begin; t < t_end && !any; ++t)
+      any = ranges_meet(rr, a.ranges[t]);
+    if (!any) {  // nothing in this split can match
+      if (tid == 0) a.flags[blockIdx.x * a.S + blockIdx.y] = 0;
+      return;
+    }
+  }
+  for (int r = tid; r < BQ; r += NT) {
+    const int p = row0 + r;
+    const int g = p < a.Q ? (a.perm != nullptr ? a.perm[p] : p) : -1;
+    xrow[r] = g;
+    qs[r] = (SEG && g >= 0) ? a.qseg[g] : 0;
+  }
+  __syncthreads();
+  for (int i = tid; i < BQ * a.kp; i += NT) lists[i] = KEY_MASKED;
+  for (int r = tid; r < BQ; r += NT) kthv[r] = __uint_as_float(kPosInfBits);
+  if (L2) {  // row norms, once per block: one warp per row
+    for (int r = warp; r < BQ; r += NT / 32) {
+      const int g = xrow[r];
+      float s = 0.f;
+      if (g >= 0)
+        for (int d = lane; d < a.D; d += 32) {
+          const float v = operand<BF16>(__ldg(a.x + size_t(g) * a.D + d));
+          s = fmaf(v, v, s);
+        }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(FULL, s, off);
+      if (lane == 0) x2s[r] = s;
+    }
   }
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int col0 = t * bn;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float y2 = 0.f;
-    for (int d0 = 0; d0 < D; d0 += CW) {
-      __syncthreads();  // the previous chunk (or tile fold) is done
-      for (int e = tid; e < CW * bq; e += NT) {
-        const int r = e / CW, w = e % CW, g = row0 + r, d = d0 + w;
-        xs[w * (bq + 1) + r] =
-            (g < Q && d < D) ? operand<BF16>(x[size_t(g) * D + d]) : 0.f;
-      }
-      for (int e = tid; e < CW * bn; e += NT) {
-        const int c = e / CW, w = e % CW, g = col0 + c, d = d0 + w;
-        ys[w * (bn + 1) + c] =
-            (g < N && d < D) ? operand<BF16>(y[size_t(g) * D + d]) : 0.f;
-      }
-      __syncthreads();
-      if (L2 && tid < bn) {
-        for (int w = 0; w < CW; ++w) {
-          const float v = ys[w * (bn + 1) + tid];
-          y2 = fmaf(v, v, y2);
-        }
-      }
-      for (int w = 0; w < CW; ++w) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = i < mq ? xs[w * (bq + 1) + ty + TILE * i] : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          b[j] = j < mn ? ys[w * (bn + 1) + tx + TILE * j] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
+    if (SEG && !ranges_meet(rr, a.ranges[t])) continue;  // block-uniform
+    const int col0 = t * BN;
+    float acc[TM][TN];
+    f32_tile_product<BQ, BN, TM, TN, VEC, BF16, L2, false>(
+        a.x, xrow, a.y, col0, a.N, a.D, buf, acc, y2s, nullptr);
+    // The previous tile's fold read cs and cnt before the product's first
+    // barrier, so they are free now.
+    for (int c = tid; c < BN; c += NT) {
+      const int col = col0 + c;
+      cs[c] = col < a.N ? (SEG ? a.cseg[col] : 0) : INT_MIN;
     }
-    if (tid < bn) {
-      y2s[tid] = y2;
-      if (SEG) cs[tid] = col0 + tid < N ? cseg[col0 + tid] : 0;
-    }
-    __syncthreads();
+    for (int r = tid; r < BQ; r += NT) cnt[r] = 0;
+    __syncthreads();  // y2s, cs, cnt
+    // Epilogue: distances into the tile (over the stages), and per row the
+    // columns at or below its current k-th distance: each thread reserves
+    // slots for its own with one shared atomic per row.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (i < mq && j < mn) {
-          const int r = ty + TILE * i, c = tx + TILE * j;
-          dist[r * (bn + 1) + c] =
-              L2 ? fmaxf(x2s[r] + y2s[c] - 2.f * acc[i][j], 0.f) : -acc[i][j];
-        }
-      }
-    }
-    __syncthreads();
-    for (int rr = 0; rr < rows_per_warp; ++rr) {
-      const int r = warp * rows_per_warp + rr;
-      if (row0 + r >= Q) break;  // warp-uniform
+    for (int i = 0; i < TM; ++i) {
+      const int r = T::row_of(i, ty);
+      const float kv = kthv[r], xr = L2 ? x2s[r] : 0.f;
       const int q = qs[r];
-      unsigned long long* L = lists + r * kp;
-      for (int c0 = 0; c0 < bn; c0 += 32) {
-        const int c = c0 + lane, col = col0 + c;
-        unsigned long long key = KEY_MASKED;
-        if (c < bn && col < N && (!SEG || cs[c] == q))
-          key = make_key(dist[r * (bn + 1) + c], col);
-        warp_fold(L, kp, key, lane);
+      unsigned pass = 0;  // bit j: output j is a candidate
+#pragma unroll
+      for (int j4 = 0; j4 < TN / 4; ++j4) {
+        const int c = T::col_of(4 * j4, tx);
+        float v[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float p = acc[i][4 * j4 + jj];
+          v[jj] = L2 ? fmaxf(xr + y2s[c + jj] - 2.f * p, 0.f) : -p;
+          const int o = cs[c + jj];
+          const bool ok = o != INT_MIN && (!SEG || o == q);
+          if (ok && !(v[jj] > kv)) pass |= 1u << (4 * j4 + jj);
+        }
+        *reinterpret_cast<float4*>(buf + r * DS + c) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+      if (pass != 0 && xrow[r] >= 0) {
+        int pos = atomicAdd(cnt + r, __popc(pass));
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          if ((pass >> j) & 1u) {
+            if (pos < CAND)
+              cand[r * CAND + pos] =
+                  static_cast<unsigned char>(T::col_of(j, tx));
+            ++pos;
+          }
       }
     }
+    __syncthreads();
+    if (a.kp <= 32)
+      fold_rows<1, SEG, BN, DS>(lists, a.kp, buf, cnt, cand, cs, qs, kthv,
+                                col0, warp, lane, BQ);
+    else
+      fold_rows<4, SEG, BN, DS>(lists, a.kp, buf, cnt, cand, cs, qs, kthv,
+                                col0, warp, lane, BQ);
+    // the next tile's f32_tile_product starts with a barrier
   }
   __syncthreads();
-  for (int e = tid; e < bq * kp; e += NT) {
-    const int r = e / kp, i = e % kp, g = row0 + r;
-    if (g < Q) partial[(size_t(g) * S + blockIdx.y) * kp + i] = lists[e];
+  for (int e = tid; e < BQ * a.kp; e += NT) {
+    const int r = e / a.kp, i = e % a.kp, p = row0 + r;
+    if (p < a.Q) a.partial[(size_t(p) * a.S + blockIdx.y) * a.kp + i] =
+        lists[e];
+  }
+  if (tid == 0) {
+    a.flags[blockIdx.x * a.S + blockIdx.y] = 1;
+    if (a.counter != nullptr) {  // the tiles computed above, counted again
+      int computed = 0;          // here so no counter lives across the loop
+      for (int t = t_begin; t < t_end; ++t)
+        computed += !SEG || ranges_meet(rr, a.ranges[t]);
+      atomicAdd(a.counter, static_cast<unsigned long long>(computed));
+    }
   }
 }
 
-template <bool SEG, bool L2, bool BF16>
-cudaError_t launch_pass(const float* x, const float* y, const int* qseg,
-                        const int* cseg, int Q, int N, int D, int kp, int bq,
-                        int bn, int S, unsigned long long* partial,
-                        cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(bq, bn, kp);
+// Merge the flagged partial lists of each (sorted) row into its top-kp and
+// write it to output row perm[r] (or r).  One block of MERGE_F32_WARPS warps
+// per row: warp w folds splits w, w + W, ... into its own list, then warp 0
+// folds the other lists into its own.  An empty slot, or a distance of +inf,
+// is emitted as (+inf, -1).
+template <int NS>
+__device__ __forceinline__ void merge_row(
+    const unsigned long long* __restrict__ partial, const int* f, int S,
+    int kp, int r, const int* __restrict__ perm, float* __restrict__ out_v,
+    int* __restrict__ out_i, unsigned long long* mlists) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  RegList<NS> rl;
+  rl.clear();
+  const unsigned long long* src = partial + size_t(r) * S * kp;
+  for (int s0 = warp * 32; s0 < S; s0 += MERGE_F32_WARPS * 32) {
+    const int s = s0 + lane;
+    unsigned ball = __ballot_sync(FULL, s < S && f[s] != 0);
+    while (ball) {
+      const int ss = s0 + __ffs(ball) - 1;
+      ball &= ball - 1;
+      for (int i0 = 0; i0 < kp; i0 += 32) {
+        const int i = i0 + lane;
+        rl.fold(i < kp ? src[size_t(ss) * kp + i] : KEY_MASKED, kp, lane);
+      }
+    }
+  }
+  rl.store(mlists + warp * kp, kp, lane);
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < MERGE_F32_WARPS; ++w)
+    for (int i0 = 0; i0 < kp; i0 += 32) {
+      const int i = i0 + lane;
+      rl.fold(i < kp ? mlists[w * kp + i] : KEY_MASKED, kp, lane);
+    }
+  rl.store(mlists, kp, lane);
+  __syncwarp();
+  const int g = perm != nullptr ? perm[r] : r;
+  for (int i = lane; i < kp; i += 32) {
+    const unsigned long long key = mlists[i];
+    const float v = key_value(key);
+    const bool empty =
+        key == KEY_MASKED || __float_as_uint(v) == kPosInfBits;
+    out_v[size_t(g) * kp + i] = empty ? __uint_as_float(kPosInfBits) : v;
+    out_i[size_t(g) * kp + i] =
+        empty ? -1 : static_cast<int>(key & 0xffffffffULL);
+  }
+}
+
+__global__ void __launch_bounds__(MERGE_F32_WARPS * 32)
+merge_f32_partials(const unsigned long long* __restrict__ partial,
+                   const int* __restrict__ flags, const int* __restrict__ perm,
+                   int Q, int S, int kp, int bq, float* __restrict__ out_v,
+                   int* __restrict__ out_i) {
+  extern __shared__ unsigned long long mlists[];
+  const int r = blockIdx.x;
+  const int* f = flags + (r / bq) * S;
+  if (kp <= 32)
+    merge_row<1>(partial, f, S, kp, r, perm, out_v, out_i, mlists);
+  else
+    merge_row<4>(partial, f, S, kp, r, perm, out_v, out_i, mlists);
+}
+
+template <bool SEG, bool L2, bool BF16, bool VEC, int BQ, int BN, int TM,
+          int TN>
+cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
+  const size_t smem = f32_topk_smem_bytes(BQ, BN, a.kp);
+  auto kernel = topk_f32_pass<SEG, L2, BF16, VEC, BQ, BN, TM, TN>;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_seg_pass<SEG, L2, BF16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const int n_tiles = (N + bn - 1) / bn;
-  const int tiles_per_split = (n_tiles + S - 1) / S;
-  const dim3 grid((Q + bq - 1) / bq, S);
-  topk_seg_pass<SEG, L2, BF16><<<grid, NT, smem, stream>>>(
-      x, y, qseg, cseg, Q, N, D, kp, bq, bn, tiles_per_split, S, partial);
+  const dim3 grid((a.Q + BQ - 1) / BQ, a.S);
+  kernel<<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The split-N pass for one (metric, operand type), then the merge.
+template <bool SEG, int BQ, int BN, int TM, int TN>
+cudaError_t dispatch_pass(bool l2, bool bf16, bool vec, const PassArgs& a,
+                          cudaStream_t st) {
+  if (l2) {
+    if (bf16)
+      return vec ? launch_pass<SEG, true, true, true, BQ, BN, TM, TN>(a, st)
+                 : launch_pass<SEG, true, true, false, BQ, BN, TM, TN>(a, st);
+    return vec ? launch_pass<SEG, true, false, true, BQ, BN, TM, TN>(a, st)
+               : launch_pass<SEG, true, false, false, BQ, BN, TM, TN>(a, st);
+  }
+  if (bf16)
+    return vec ? launch_pass<SEG, false, true, true, BQ, BN, TM, TN>(a, st)
+               : launch_pass<SEG, false, true, false, BQ, BN, TM, TN>(a, st);
+  return vec ? launch_pass<SEG, false, false, true, BQ, BN, TM, TN>(a, st)
+             : launch_pass<SEG, false, false, false, BQ, BN, TM, TN>(a, st);
+}
+
+// The range pre-pass (SEG), the split-N pass for one (metric, operand type,
+// load width, tile), then the merge.
 template <bool SEG>
-int run_topk(const void* x, const void* y, const void* qseg, const void* cseg,
-             int Q, int N, int D, int kp, int metric_ip, int bf16, int bq,
-             int bn, int S, void* partial, void* out_v, void* out_i,
-             void* stream) {
-  if (!scan_shape_ok(Q, N, kp, bq, bn, S) || D <= 0 || S > 65535)
+int run_topk(PassArgs a, int metric_ip, int bf16, int vec, int bq, int bn,
+             float* out_v, int* out_i, cudaStream_t st) {
+  const bool wide = bq == F32_WIDE_BQ && bn == F32_WIDE_BN;
+  const bool narrow = bq == F32_NARROW_BQ && bn == F32_NARROW_BN;
+  // kernel A runs the narrow tile only (a small row tile for the skip)
+  if (a.Q <= 0 || a.N <= 0 || a.D <= 0 || a.kp < 1 || a.kp > 128 ||
+      a.S < 1 || a.S > 65535 || !(narrow || (!SEG && wide)) ||
+      f32_topk_smem_bytes(bq, bn, a.kp) > 232448 ||
+      (SEG && (a.perm == nullptr || a.ranges == nullptr ||
+               a.row_ranges == nullptr)))
     return int(cudaErrorInvalidValue);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* yf = static_cast<const float*>(y);
-  const auto* qs = static_cast<const int*>(qseg);
-  const auto* cs = static_cast<const int*>(cseg);
-  auto* part = static_cast<unsigned long long*>(partial);
-  auto st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (a.N + bn - 1) / bn;
+  const int q_tiles = (a.Q + bq - 1) / bq;
+  a.tiles_per_split = (n_tiles + a.S - 1) / a.S;
   cudaError_t err;
-  if (metric_ip)
-    err = bf16 ? launch_pass<SEG, false, true>(xf, yf, qs, cs, Q, N, D, kp,
-                                               bq, bn, S, part, st)
-               : launch_pass<SEG, false, false>(xf, yf, qs, cs, Q, N, D, kp,
-                                                bq, bn, S, part, st);
+  if (SEG) {
+    constexpr int W = NT / 32;
+    tile_owner_ranges<<<(n_tiles + W - 1) / W, NT, 0, st>>>(
+        a.cseg, nullptr, a.N, bn, n_tiles, const_cast<int4*>(a.ranges));
+    tile_owner_ranges<<<(q_tiles + W - 1) / W, NT, 0, st>>>(
+        a.qseg, a.perm, a.Q, bq, q_tiles, const_cast<int4*>(a.row_ranges));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
+  const bool l2 = !metric_ip;
+  if constexpr (SEG)
+    err = dispatch_pass<SEG, F32_NARROW_BQ, F32_NARROW_BN, 8, 4>(l2, bf16,
+                                                                 vec, a, st);
   else
-    err = bf16 ? launch_pass<SEG, true, true>(xf, yf, qs, cs, Q, N, D, kp,
-                                              bq, bn, S, part, st)
-               : launch_pass<SEG, true, false>(xf, yf, qs, cs, Q, N, D, kp,
-                                               bq, bn, S, part, st);
+    err = narrow ? dispatch_pass<SEG, F32_NARROW_BQ, F32_NARROW_BN, 8, 4>(
+                       l2, bf16, vec, a, st)
+                 : dispatch_pass<SEG, F32_WIDE_BQ, F32_WIDE_BN, 8, 8>(
+                       l2, bf16, vec, a, st);
   if (err != cudaSuccess) return int(err);
-  return int(launch_merge(part, Q, S, kp, static_cast<float*>(out_v),
-                          static_cast<int*>(out_i), st));
+  merge_f32_partials<<<a.Q, MERGE_F32_WARPS * 32,
+                       size_t(MERGE_F32_WARPS) * a.kp * 8, st>>>(
+      a.partial, a.flags, a.perm, a.Q, a.S, a.kp, bq, out_v, out_i);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (Q, D) fp32, y (N, D) fp32, qseg (Q,) and cseg (N,) int32, all
-// contiguous on the device; partial: Q * S * kp 64-bit scratch; out_v (Q, kp)
-// fp32, out_i (Q, kp) int32.  Returns cudaGetLastError() after the launches.
+// x (Q, D) fp32, y (N, D) fp32, qseg (Q,) and cseg (N,) int32, perm (Q,)
+// int32 (a permutation of the rows, in practice the stable argsort of
+// qseg), all contiguous on the device; ranges: ceil(N / bn) + ceil(Q / bq)
+// int4 scratch (column tiles, then row tiles); flags: ceil(Q / bq) * S int32
+// scratch; counter: one uint64 that the pass
+// adds its computed tiles to (or null); vec: D % 4 == 0 and x, y 16-byte
+// aligned; (bq, bn) = (32, 256); partial: Q * S * kp 64-bit scratch; out_v
+// (Q, kp) fp32, out_i (Q, kp) int32.  Returns cudaGetLastError() after the
+// launches.
 extern "C" int topk_seg_f32(const void* x, const void* y, const void* qseg,
-                            const void* cseg, int Q, int N, int D, int kp,
-                            int metric_ip, int bf16, int bq, int bn, int S,
-                            void* partial, void* out_v, void* out_i,
-                            void* stream) {
-  return run_topk<true>(x, y, qseg, cseg, Q, N, D, kp, metric_ip, bf16, bq,
-                        bn, S, partial, out_v, out_i, stream);
+                            const void* cseg, const void* perm, void* ranges,
+                            void* flags, void* counter, int Q, int N, int D,
+                            int kp, int metric_ip, int bf16, int vec, int bq,
+                            int bn, int S, void* partial, void* out_v,
+                            void* out_i, void* stream) {
+  const int4* col_ranges = static_cast<const int4*>(ranges);
+  PassArgs a{static_cast<const float*>(x), static_cast<const float*>(y),
+             static_cast<const int*>(qseg), static_cast<const int*>(cseg),
+             static_cast<const int*>(perm), col_ranges,
+             bn > 0 ? col_ranges + (N + bn - 1) / bn : nullptr,
+             Q, N, D, kp, 0, S,
+             static_cast<unsigned long long*>(partial),
+             static_cast<int*>(flags),
+             static_cast<unsigned long long*>(counter)};
+  return run_topk<true>(a, metric_ip, bf16, vec, bq, bn,
+                        static_cast<float*>(out_v), static_cast<int*>(out_i),
+                        static_cast<cudaStream_t>(stream));
 }
 
-// The same without owners: every column of y is a candidate of every row.
-extern "C" int topk_f32(const void* x, const void* y, int Q, int N, int D,
-                        int kp, int metric_ip, int bf16, int bq, int bn, int S,
-                        void* partial, void* out_v, void* out_i,
-                        void* stream) {
-  return run_topk<false>(x, y, nullptr, nullptr, Q, N, D, kp, metric_ip, bf16,
-                         bq, bn, S, partial, out_v, out_i, stream);
+// The same without owners: every column of y is a candidate of every row,
+// rows in order; (bq, bn) = (128, 128) or (32, 256).
+extern "C" int topk_f32(const void* x, const void* y, void* flags, int Q,
+                        int N, int D, int kp, int metric_ip, int bf16, int vec,
+                        int bq, int bn, int S, void* partial, void* out_v,
+                        void* out_i, void* stream) {
+  PassArgs a{static_cast<const float*>(x), static_cast<const float*>(y),
+             nullptr, nullptr, nullptr, nullptr, nullptr, Q, N, D, kp, 0, S,
+             static_cast<unsigned long long*>(partial),
+             static_cast<int*>(flags), nullptr};
+  return run_topk<false>(a, metric_ip, bf16, vec, bq, bn,
+                         static_cast<float*>(out_v), static_cast<int*>(out_i),
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* kernels_error_string(int err) {

@@ -17,6 +17,13 @@ it runs its plain PyTorch version (``segmented_dense_topk``,
 ``dense_topk``).  Both honour the same contract: (Q, k) ascending
 distances and column indices, lower column first on equal distance,
 ``(+inf, -1)`` where fewer than k columns match.
+
+Kernel A skips (row tile, column tile) pairs whose owners cannot meet:
+rows are taken in the order of a stable argsort of ``qseg``, and a pair
+is computed only if the two-sign owner ranges of its row tile and column
+tile meet (``tile_owner_ranges``, ``tiles_meet``: the plain versions of
+the kernel's pre-pass and of its per-tile test).  ``tile_stats`` reads
+how many pairs the launches since ``reset_tile_stats`` computed.
 """
 
 from __future__ import annotations
@@ -25,9 +32,11 @@ import torch
 
 from . import _build
 from .ref import pairwise_negdot_ref, pairwise_sqdist_ref
-from .tuning import select_splits, select_tiles
+from .tuning import (select_f32_splits, select_f32_tiles, select_splits,
+                     select_tiles)
 
 _INF = float("inf")
+_I32_MAX, _I32_MIN = 2 ** 31 - 1, -2 ** 31
 _METRICS = ("l2", "ip")
 _ACCUMS = ("f32", "bf16")
 
@@ -111,7 +120,7 @@ def check_inputs(device: torch.device, specs) -> None:
 
 
 def scan_outputs(q: int, n: int, kp: int, device: torch.device):
-    """Tiles, N-splits and fresh buffers of one split-N top-k launch:
+    """Tiles, N-splits and fresh buffers of one split-N SQ8 top-k launch:
     ``(bq, bn, S, partial (Q·S·kp) int64 scratch, vals (Q, kp) fp32, idx
     (Q, kp) int32)``."""
     bq, bn = select_tiles(q, n, k=kp)
@@ -120,6 +129,99 @@ def scan_outputs(q: int, n: int, kp: int, device: torch.device):
             torch.empty(q * s * kp, dtype=torch.int64, device=device),
             torch.empty((q, kp), dtype=torch.float32, device=device),
             torch.empty((q, kp), dtype=torch.int32, device=device))
+
+
+def f32_scan_buffers(q: int, n: int, kp: int, device: torch.device, *,
+                     segmented: bool):
+    """Tiles, N-splits and fresh buffers of one fp32 split-N top-k
+    launch: ``(bq, bn, S, flags ((Q/bq)·S) int32, partial (Q·S·kp) int64
+    scratch, vals (Q, kp) fp32, idx (Q, kp) int32)``."""
+    bq, bn = select_f32_tiles(q, k=kp, segmented=segmented)
+    s = select_f32_splits(q, n, bq, bn, k=kp, segmented=segmented)
+    return (bq, bn, s,
+            torch.empty(-(-q // bq) * s, dtype=torch.int32, device=device),
+            torch.empty(q * s * kp, dtype=torch.int64, device=device),
+            torch.empty((q, kp), dtype=torch.float32, device=device),
+            torch.empty((q, kp), dtype=torch.int32, device=device))
+
+
+def vec_loads_ok(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether the fp32 kernels may load both operands as 16-byte
+    vectors: d a multiple of 4 and both bases 16-byte aligned.  Otherwise
+    the wrapper launches the scalar-load instantiation of the same
+    kernel."""
+    return (x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+            and y.data_ptr() % 16 == 0)
+
+
+# --------------------------------------------------------------------- #
+# kernel A's owner skip: the plain versions of its pre-pass and tile test
+# --------------------------------------------------------------------- #
+
+def tile_owner_ranges(owners: torch.Tensor, block: int) -> torch.Tensor:
+    """Per tile of ``block`` consecutive entries of ``owners`` (the last
+    tile ragged): ``(min, max)`` over owners ≥ 0, then over owners < 0,
+    as a (tiles, 4) int32 tensor; an empty range is (INT32_MAX,
+    INT32_MIN).  The plain version of kernel A's ``tile_owner_ranges``
+    pre-pass (column tiles) and of its per-block row-tile ranges (row
+    tiles of the owner-sorted rows)."""
+    n = int(owners.shape[0])
+    t = max(1, -(-n // block))
+    o = torch.full((t * block,), 0, dtype=torch.int64, device=owners.device)
+    valid = torch.zeros(t * block, dtype=torch.bool, device=owners.device)
+    o[:n] = owners.long()
+    valid[:n] = True
+    o, valid = o.reshape(t, block), valid.reshape(t, block)
+    pos, neg = valid & (o >= 0), valid & (o < 0)
+    return torch.stack([torch.where(pos, o, _I32_MAX).amin(1),
+                        torch.where(pos, o, _I32_MIN).amax(1),
+                        torch.where(neg, o, _I32_MAX).amin(1),
+                        torch.where(neg, o, _I32_MIN).amax(1)],
+                       1).to(torch.int32)
+
+
+def tiles_meet(row_ranges: torch.Tensor,
+               col_ranges: torch.Tensor) -> torch.Tensor:
+    """(R, T) bool: whether row tile r and column tile t can hold a pair
+    of equal owners, from their two-sign ranges (``tile_owner_ranges``):
+    equal owners share a sign, so the pair is kept exactly when the
+    ranges of one sign meet."""
+    a = row_ranges.long()[:, None, :]
+    b = col_ranges.long()[None, :, :]
+    pos = torch.maximum(a[..., 0], b[..., 0]) <= torch.minimum(a[..., 1],
+                                                               b[..., 1])
+    neg = torch.maximum(a[..., 2], b[..., 2]) <= torch.minimum(a[..., 3],
+                                                               b[..., 3])
+    return pos | neg
+
+
+_tile_counters: dict = {}       # device -> (1,) int64 tiles computed
+_tiles_launched = [0]           # (row tile, column tile) pairs in the grids
+
+
+def reset_tile_stats() -> None:
+    """Zero kernel A's counts of computed and launched tile pairs."""
+    for c in _tile_counters.values():
+        c.zero_()
+    _tiles_launched[0] = 0
+
+
+def tile_stats() -> dict:
+    """Kernel A's (row tile, column tile) pairs since the last
+    ``reset_tile_stats``: ``computed`` (counted by the kernel on the
+    device; reading it synchronises) and ``total`` (in the grids
+    launched)."""
+    return {"computed": int(sum(int(c.item())
+                                for c in _tile_counters.values())),
+            "total": _tiles_launched[0]}
+
+
+def _tile_counter(device: torch.device) -> torch.Tensor:
+    c = _tile_counters.get(device)
+    if c is None:
+        c = _tile_counters[device] = torch.zeros(1, dtype=torch.int64,
+                                                 device=device)
+    return c
 
 
 def _check_topk_args(metric: str, accum: str, kp: int) -> None:
@@ -148,14 +250,23 @@ def topk_seg_f32(x: torch.Tensor, y: torch.Tensor, qseg: torch.Tensor,
                             ("qseg", qseg, torch.int32, (q,)),
                             ("cseg", cseg, torch.int32, (n,))))
     _require(q > 0 and n > 0 and d > 0, f"empty scan ({q}, {n}, {d})")
-    bq, bn, s, partial, vals, idx = scan_outputs(q, n, kp, x.device)
+    bq, bn, s, flags, partial, vals, idx = f32_scan_buffers(
+        q, n, kp, x.device, segmented=True)
+    n_tiles = -(-n // bn)
+    perm = torch.argsort(qseg, stable=True).to(torch.int32)
+    ranges = torch.empty((n_tiles + -(-q // bq), 4), dtype=torch.int32,
+                         device=x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check("topk_seg_f32", lib.topk_seg_f32(
         x.data_ptr(), y.data_ptr(), qseg.data_ptr(), cseg.data_ptr(),
-        q, n, d, kp, int(metric == "ip"), int(accum == "bf16"), bq, bn, s,
-        partial.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream))
+        perm.data_ptr(), ranges.data_ptr(), flags.data_ptr(),
+        _tile_counter(x.device).data_ptr(), q, n, d, kp,
+        int(metric == "ip"), int(accum == "bf16"), int(vec_loads_ok(x, y)),
+        bq, bn, s, partial.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        stream))
     topk_seg_f32.launches += 1
+    _tiles_launched[0] += -(-q // bq) * n_tiles
     return vals, idx
 
 
@@ -179,13 +290,15 @@ def distance_topk(x: torch.Tensor, y: torch.Tensor, kp: int, *,
     check_inputs(x.device, (("x", x, torch.float32, (q, d)),
                             ("y", y, torch.float32, (n, d))))
     _require(q > 0 and n > 0 and d > 0, f"empty scan ({q}, {n}, {d})")
-    bq, bn, s, partial, vals, idx = scan_outputs(q, n, kp, x.device)
+    bq, bn, s, flags, partial, vals, idx = f32_scan_buffers(
+        q, n, kp, x.device, segmented=False)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check("topk_f32", lib.topk_f32(
-        x.data_ptr(), y.data_ptr(), q, n, d, kp, int(metric == "ip"),
-        int(accum == "bf16"), bq, bn, s, partial.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), stream))
+        x.data_ptr(), y.data_ptr(), flags.data_ptr(), q, n, d, kp,
+        int(metric == "ip"), int(accum == "bf16"), int(vec_loads_ok(x, y)),
+        bq, bn, s, partial.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        stream))
     distance_topk.launches += 1
     return vals, idx
 
@@ -292,6 +405,8 @@ def distance_topk_descriptors(vectors, base_ids, deleted, x, qseg, starts,
 
 __all__ = ["topk_seg_f32", "distance_topk", "dense_distance",
            "segmented_dense_topk", "dense_topk", "masked_topk", "stable_topk",
-           "scan_outputs", "check_inputs", "expand_descriptors",
+           "scan_outputs", "f32_scan_buffers", "vec_loads_ok",
+           "tile_owner_ranges", "tiles_meet", "tile_stats",
+           "reset_tile_stats", "check_inputs", "expand_descriptors",
            "resident_candidates", "assemble_flat_candidates",
            "distance_topk_descriptors"]

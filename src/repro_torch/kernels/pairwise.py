@@ -6,7 +6,8 @@ wrapper of kernel C (``csrc/pairwise.cu``, the port of the Pallas
 kernel, on a CPU tensor it runs the plain PyTorch version
 ``distance_topk.dense_distance``, the same distances every plain top-k
 of this package ranks.  d is taken whole at any width (the kernel walks
-it in 32-word chunks); the reference has no chunked fallback either.
+it in 16-word chunks, with 16-byte loads when d % 4 == 0 and scalar
+loads otherwise); the reference has no chunked fallback either.
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ import torch
 
 from . import _build
 from .distance_topk import (_ACCUMS, _METRICS, _require, check_inputs,
-                            dense_distance)
-from .tuning import select_tiles
+                            dense_distance, vec_loads_ok)
+from .tuning import select_f32_tiles
 
 
 def pairwise_distance(x: torch.Tensor, y: torch.Tensor, *,
@@ -36,13 +37,14 @@ def pairwise_distance(x: torch.Tensor, y: torch.Tensor, *,
     check_inputs(x.device, (("x", x, torch.float32, (q, d)),
                             ("y", y, torch.float32, (n, d))))
     _require(q > 0 and n > 0 and d > 0, f"empty product ({q}, {n}, {d})")
-    bq, bn = select_tiles(q, n)
+    bq, bn = select_f32_tiles(q)
     out = torch.empty((q, n), dtype=torch.float32, device=x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check("pairwise_f32", lib.pairwise_f32(
         x.data_ptr(), y.data_ptr(), q, n, d, int(metric == "ip"),
-        int(accum == "bf16"), bq, bn, out.data_ptr(), stream))
+        int(accum == "bf16"), int(vec_loads_ok(x, y)), bq, bn,
+        out.data_ptr(), stream))
     pairwise_distance.launches += 1
     return out
 
