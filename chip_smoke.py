@@ -12,26 +12,32 @@ Phases:
   2. kernels vs plain at edge shapes (k = 128, ragged N, N < k, owners
      with no candidates, exact ties from duplicated rows, ip, bf16, d =
      97 (the scalar-load instantiation), d = 100 and 768, Q = 1 and 129,
-     SQ8 at d = 4096, Q = 1024 × N = 65,536 × d = 768 for the unsegmented
-     kernels, and kernel A under every owner layout of its tile skip:
+     SQ8 at d = 4096, 8 and 130, Q = 1024 × N = 65,536 × d = 768 for the
+     unsegmented kernels, and kernels A and B (B at kqp = 8, 40 and 128)
+     under every owner layout of their tile skip:
      owner-sorted descriptor and tail runs, random owners, scattered
      tombstones, pad rows, an owner with no candidates, negative owners
      that match, ragged Q): the SQ8 kernels must be bit-equal to their
      plain versions, the fp32 ones within atol 1e-4·max|d| on values and
      equal on ids except where the distance is within that tolerance of a
-     neighbour's; kernel A must compute exactly the (row tile, column
-     tile) pairs that the plain skip rule keeps;
+     neighbour's; kernels A and B must compute exactly the (row tile,
+     column tile) pairs that the plain skip rule keeps;
   3. the main path at SIFT1M shape — ``make_scale_corpus(1_048_576, 128)``
      indexed with ``VectorMatonConfig(T=10**9, backend="torch",
      device="cuda")``, 64-request batches of ``SCALE_PATTERNS`` plus one
      multi-segment LIKE (the residual path), under ``quantize="sq8"`` and
      ``"none"``; recall 1.0 against a brute-force oracle on the card; both
-     kernels' launch counters must move, and kernel A's tile counter
-     gives the share of (row tile, column tile) pairs it computed.  Each
+     kernels' launch counters must move, and their tile counters give
+     the share of (row tile, column tile) pairs each computed.  Each
      kernel is then held
      against its plain version on the exact inputs the main path gave it
      and timed (CUDA events, warm) beside its plain version, the dense
-     torch composition (matmul + masked_fill + topk) and its bound;
+     torch composition (matmul + masked_fill + topk), kernel B also
+     beside ``torch._int_mm`` (its products alone), and its bound; then
+     one direct ``quant.topk_sq8_segmented_desc`` call on the main path's
+     last SQ8 inputs (the ``sq8_call`` line: kernel B and the
+     certificate's owner maxima inside it, the latter beside the two
+     ``scatter_reduce`` it replaced, bit-equal);
   4. unfiltered — the same resident 1,048,576 × 128 table through the
      unsegmented exact k-NN entry points, Q = 128 queries, k = 10:
      ``ops.topk`` (recall 1.0 against an fp64 brute force on the card),
@@ -145,7 +151,7 @@ def card_line() -> str:
 
 
 KERNEL_NAMES = ("topk_f32_pass", "pairwise_f32_pass", "qtopk_seg_pass",
-                "merge_f32_partials", "merge_partials", "tile_owner_ranges")
+                "merge_flagged_partials", "tile_owner_ranges")
 
 
 def ptxas_summary(log: str):
@@ -311,17 +317,22 @@ OWNER_LAYOUTS = ("runs", "random", "tombstones", "pad_rows", "empty",
                  "negative", "ragged_q")
 
 
-def check_skip_count(qseg, cseg, stats):
-    """Kernel A computed exactly the (row tile, column tile) pairs that the
-    plain skip rule keeps (``tile_owner_ranges`` + ``tiles_meet``)."""
+def check_skip_count(qseg, cseg, kernel="topk_seg_f32"):
+    """Kernel A (or B) computed exactly the (row tile, column tile) pairs
+    that the plain skip rule keeps (``tile_owner_ranges`` + ``tiles_meet``)
+    at its tiles, over the launches since ``reset_tile_stats``."""
     from repro_torch.kernels.distance_topk import (tile_owner_ranges,
-                                                   tiles_meet)
-    from repro_torch.kernels.tuning import select_f32_tiles
-    bq, bn = select_f32_tiles(qseg.shape[0], segmented=True)
+                                                   tile_stats, tiles_meet)
+    from repro_torch.kernels.tuning import SQ8_TILE, select_f32_tiles
+    if kernel == "topk_seg_f32":
+        bq, bn = select_f32_tiles(qseg.shape[0], segmented=True)
+    else:
+        bq, bn = SQ8_TILE
     rows = tile_owner_ranges(qseg[torch.argsort(qseg, stable=True)], bq)
     keep = tiles_meet(rows, tile_owner_ranges(cseg, bn))
+    stats = tile_stats(kernel)
     check(stats == {"computed": int(keep.sum()), "total": keep.numel()},
-          f"kernel A computed {stats}, the rule keeps {int(keep.sum())} "
+          f"{kernel} computed {stats}, the rule keeps {int(keep.sum())} "
           f"of {keep.numel()}")
     return stats
 
@@ -349,7 +360,7 @@ def phase_edges() -> None:
         t = [torch.from_numpy(a).to(dev) for a in (x, y, qseg, cseg)]
         distance_topk.reset_tile_stats()
         err, tol = check_kernel_a(*t, kp, metric=metric, accum=accum)
-        tiles = check_skip_count(t[2], t[3], distance_topk.tile_stats())
+        tiles = check_skip_count(t[2], t[3])
         emit(phase="edges", kernel="topk_seg_f32", case=name,
              max_abs_err=err, tol=tol, tiles=tiles)
     for layout in OWNER_LAYOUTS:
@@ -361,7 +372,7 @@ def phase_edges() -> None:
             t = [torch.from_numpy(a).to(dev) for a in (x, y, qseg, cseg)]
             distance_topk.reset_tile_stats()
             err, tol = check_kernel_a(*t, 16, metric=metric, accum=accum)
-            tiles = check_skip_count(t[2], t[3], distance_topk.tile_stats())
+            tiles = check_skip_count(t[2], t[3])
             emit(phase="edges", kernel="topk_seg_f32",
                  case=f"layout_{layout}_{accum}", max_abs_err=err, tol=tol,
                  tiles=tiles)
@@ -371,11 +382,30 @@ def phase_edges() -> None:
             ("no_owner_rows", 33, 600, 32, 40, 24, False),
             ("ties", 64, 900, 48, 2, 40, True),
             ("d4096", 40, 700, 4096, 3, 40, False),
-            ("d100", 50, 777, 100, 3, 32, False)]:
+            ("d100", 50, 777, 100, 3, 32, False),
+            ("d8_k8", 37, 2049, 8, 3, 8, False),
+            ("d130_q129", 129, 3001, 130, 5, 40, False),
+            ("q1", 1, 3000, 128, 2, 40, False)]:
         x, y, qseg, cseg = _seg_case(rng, q, n, d, owners, dup)
-        check_kernel_b(*_sq8_inputs(x, y, qseg, cseg, dev), kp)
+        t = _sq8_inputs(x, y, qseg, cseg, dev)
+        distance_topk.reset_tile_stats()
+        check_kernel_b(*t, kp)
+        tiles = check_skip_count(t[6], t[7], "qtopk_seg_sq8")
         emit(phase="edges", kernel="qtopk_seg_sq8", case=name,
-             max_abs_err=0.0, bit_equal=True)
+             max_abs_err=0.0, bit_equal=True, tiles=tiles)
+    for layout in OWNER_LAYOUTS:
+        for kp in (8, 40, 128):
+            q = 203 if layout == "ragged_q" else 128
+            x = rng.standard_normal((q, 128)).astype(np.float32)
+            y = rng.standard_normal((20_000, 128)).astype(np.float32)
+            qseg, cseg = owner_layout(rng, layout, q, 20_000)
+            t = _sq8_inputs(x, y, qseg, cseg, dev)
+            distance_topk.reset_tile_stats()
+            check_kernel_b(*t, kp)
+            tiles = check_skip_count(t[6], t[7], "qtopk_seg_sq8")
+            emit(phase="edges", kernel="qtopk_seg_sq8",
+                 case=f"layout_{layout}_k{kp}", max_abs_err=0.0,
+                 bit_equal=True, tiles=tiles)
     phase_edges_unsegmented(dev, rng)
 
 
@@ -420,6 +450,10 @@ def phase_edges_unsegmented(dev, rng) -> None:
             ("ties", (64, 900, 48), 40, True),
             ("d4096", (40, 700, 4096), 40, False),
             ("d100", (50, 777, 100), 32, False),
+            ("q128_k40", (128, 4097, 128), 40, False),
+            ("d130_q129_k8", (129, 2049, 130), 8, False),
+            ("d8", (33, 3000, 8), 8, False),
+            ("q1", (1, 3000, 128), 40, False),
             ("bench_max", big, 40, False)]:
         x, y = case(*shape, dup=dup)
         xq, sx, x2 = quantize_sq8(x)
@@ -568,7 +602,7 @@ def measure_kernel_a(args, kwargs, launches, tiles):
     distance_topk.reset_tile_stats()
     err, tol = check_kernel_a(x, y, qseg, cseg, kp, metric=metric,
                               accum=accum)
-    one_call = check_skip_count(qseg, cseg, distance_topk.tile_stats())
+    one_call = check_skip_count(qseg, cseg)
     ms = cuda_ms(lambda: topk_seg_f32(x, y, qseg, cseg, kp, metric=metric,
                                       accum=accum))
     by_split = {}                  # the split policy's choice, against others
@@ -613,11 +647,35 @@ def measure_kernel_a(args, kwargs, launches, tiles):
                       "matched_pairs": pairs, "live_columns": live}}
 
 
-def measure_kernel_b(args, launches):
+def int_mm_ms(xq, yq):
+    """``torch._int_mm(xq, yq.T)`` alone (cuBLASLt int8 products to an
+    int32 matrix, no distance or top-k): a yardstick for the products,
+    timed here and never called by the port; None where its shape rules
+    (rows > 16, d a multiple of 8) refuse the inputs."""
+    if xq.shape[0] <= 16 or xq.shape[1] % 8:
+        return None
+    return cuda_ms(lambda: torch._int_mm(xq, yq.T), reps=3)
+
+
+def measure_kernel_b(args, launches, tiles):
+    """``tiles``: the (row tile, column tile) pairs kernel B computed and
+    launched over the main path's run; ``tiles_one_call`` the same for
+    the one call measured here."""
+    from repro_torch.kernels import distance_topk, tuning
     from repro_torch.kernels.quant import qtopk_seg_sq8, sq8_dense_segmented
     xq, yq, sx, x2, sy, y2, qseg, cseg, kqp = args
+    distance_topk.reset_tile_stats()
     err = check_kernel_b(*args)
+    one_call = check_skip_count(qseg, cseg, "qtopk_seg_sq8")
     ms = cuda_ms(lambda: qtopk_seg_sq8(*args))
+    by_split = {}                  # the split policy's choice, against others
+    default = tuning.SQ8_SEG_TILES_PER_SPLIT
+    try:
+        for per_split in (10, 20, 40):
+            tuning.SQ8_SEG_TILES_PER_SPLIT = per_split
+            by_split[per_split] = cuda_ms(lambda: qtopk_seg_sq8(*args))
+    finally:
+        tuning.SQ8_SEG_TILES_PER_SPLIT = default
     plain_ms = cuda_ms(lambda: sq8_dense_segmented(*args), reps=3)
 
     def composition():
@@ -629,25 +687,77 @@ def measure_kernel_b(args, launches):
         return torch.topk(dist, kqp, dim=1, largest=False)
 
     comp_ms = cuda_ms(composition, reps=3)
+    mm_ms = int_mm_ms(xq, yq)
+    torch.cuda.empty_cache()
     pairs, live = _live_pairs(qseg, cseg)
     q, d = xq.shape
     n = yq.shape[0]
     bytes_ = q * (d + 8) + live * (d + 8) + (q + n) * 4 + q * kqp * 8
     bound_ms, bound_by = _bound(bytes_, 2 * pairs * d, PEAK_INT8)
+    bq, bn = tuning.SQ8_TILE
+    computed_ops = 2 * one_call["computed"] * bq * bn * d
     return {"name": "qtopk_seg_sq8", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/qtopk_seg.cu",
             "replaces": "src/repro/kernels/quant.py:162",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "composition_ms": comp_ms,
-            "shape": {"Qp": q, "N": n, "d": d, "kqp": kqp,
-                      "matched_pairs": pairs, "live_columns": live}}
+            "library_note": "no single PyTorch call ranks distances",
+            "composition_ms": comp_ms, "int_mm_ms": mm_ms,
+            "achieved_gbps": bytes_ / ms / 1e6,
+            "computed_tops": computed_ops / ms / 1e9,
+            "tiles": {**tiles, "share": tiles["computed"] / tiles["total"]},
+            "tiles_one_call": one_call,
+            "ms_by_tiles_per_split": by_split,
+            "shape": {"Qp": q, "N": n, "d": d, "kqp": kqp, "bq": bq,
+                      "bn": bn, "matched_pairs": pairs,
+                      "live_columns": live}}
+
+
+def measure_sq8_call(call):
+    """One direct ``quant.topk_sq8_segmented_desc`` call on the inputs the
+    main path's last SQ8 wave gave it (gathers + kernel B + rerank +
+    certificate): its time, kernel B's and the certificate's owner
+    maxima (``quant.owner_max``) on the call's own inputs beside the two
+    ``scatter_reduce(amax)`` they replace (bit-equal), and the call's
+    device profile."""
+    from repro_torch.kernels import quant
+    args, kwargs = call
+    fn = quant.topk_sq8_segmented_desc
+    with Capture(quant, "owner_max") as cap_om, \
+            Capture(quant, "qtopk_seg_sq8") as cap_b:
+        fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    call_ms = cuda_ms(lambda: fn(*args, **kwargs))
+    kernel_b_ms = cuda_ms(lambda: quant.qtopk_seg_sq8(*cap_b.args[0]))
+    own, vals, n_owners = cap_om.args[0]
+    om_ms = cuda_ms(lambda: quant.owner_max(own, vals, n_owners))
+
+    def scatter_pair():
+        return torch.stack([torch.zeros(n_owners, device=own.device)
+                            .scatter_reduce(0, own, vals[:, c].contiguous(),
+                                            "amax")
+                            for c in range(vals.shape[1])], 1)
+
+    check(torch.equal(quant.owner_max(own, vals, n_owners), scatter_pair()),
+          "owner_max differs from scatter_reduce(amax)")
+    sr_ms = cuda_ms(scatter_pair, reps=3)
+    wall_ms, busy, top = device_profile(lambda: fn(*args, **kwargs))
+    out = {"call_ms": call_ms, "kernel_b_ms": kernel_b_ms,
+           "owner_max_ms": om_ms, "scatter_reduce_pair_ms": sr_ms,
+           "owner_max_share_of_call": om_ms / call_ms,
+           "owner_max_below_kernel_b": om_ms < kernel_b_ms,
+           "candidates": int(own.shape[0]), "owners": n_owners,
+           "profiled_wall_ms": wall_ms, "profiled_device_busy_ms": busy,
+           "profiled_top": top}
+    emit(phase="sq8_call", **out)
+    return out
 
 
 def phase_main_path():
     from repro_torch.core.vectormaton import VectorMaton, VectorMatonConfig
     from repro_torch.data.corpora import SCALE_PATTERNS, make_scale_corpus
+    from repro_torch.core import packed
     from repro_torch.kernels import distance_topk, ops, quant
 
     t0 = time.perf_counter()
@@ -689,7 +799,8 @@ def phase_main_path():
     host_ms = {}
     sq8_before = dict(rt.sq8_stats)
     with Capture(distance_topk, "topk_seg_f32") as cap_a, \
-            Capture(quant, "qtopk_seg_sq8") as cap_b:
+            Capture(quant, "qtopk_seg_sq8") as cap_b, \
+            Capture(packed, "topk_sq8_segmented_desc") as cap_call:
         for mode in ("sq8", "none"):
             rt.quantize = mode
             before = dict(rt.wave_times)
@@ -703,6 +814,7 @@ def phase_main_path():
                              for key in before}
     stats = ops.launch_stats()
     tiles_a = distance_topk.tile_stats()
+    tiles_b = distance_topk.tile_stats("qtopk_seg_sq8")
     launches_a = distance_topk.topk_seg_f32.launches
     launches_b = quant.qtopk_seg_sq8.launches
     sq8 = {k: rt.sq8_stats[k] - sq8_before[k] for k in rt.sq8_stats}
@@ -713,6 +825,8 @@ def phase_main_path():
     check(0 < tiles_a["computed"] <= tiles_a["total"],
           f"kernel A tile counts {tiles_a}")
     check(launches_b > 0, "kernel B never launched on the main path")
+    check(0 < tiles_b["computed"] <= tiles_b["total"],
+          f"kernel B tile counts {tiles_b}")
 
     dev_vecs = rt.to_device()["vectors"]
     rows_of = matching_rows(seqs, patterns)
@@ -728,7 +842,7 @@ def phase_main_path():
          recall=min(recalls), launch_stats=stats,
          kernel_launches={"topk_seg_f32": launches_a,
                           "qtopk_seg_sq8": launches_b},
-         kernel_a_tiles=tiles_a,
+         kernel_a_tiles=tiles_a, kernel_b_tiles=tiles_b,
          sq8_stats=sq8,
          wave_ms_p25_p50_p75={m: np.percentile(v, [25, 50, 75]).tolist()
                               for m, v in wave_ms.items()},
@@ -738,8 +852,8 @@ def phase_main_path():
         rt.quantize = mode
         rt._sq8_bad_streak = 0      # so the sq8 wave runs the SQ8 scan
         profile_wave(vm, qsets[0], patterns, mode)
-    return (cap_a.args, launches_a, tiles_a), (cap_b.args, launches_b), \
-        dev_vecs
+    return (cap_a.args, launches_a, tiles_a), \
+        (cap_b.args, launches_b, tiles_b), cap_call.args, dev_vecs
 
 
 # --------------------------------------------------------------------- #
@@ -861,6 +975,7 @@ def measure_topk_f32(args, kwargs, launches):
 
 def measure_qtopk_sq8(args, launches, call_ms):
     from repro_torch.kernels.quant import quantized_topk, sq8_dense
+    from repro_torch.kernels.tuning import SQ8_TILE, select_sq8_splits
     xq, sx, x2, yq, sy, y2, kqp = args
     err = check_bit_equal(quantized_topk, sq8_dense, *args)
     ms = cuda_ms(lambda: quantized_topk(*args))
@@ -873,10 +988,11 @@ def measure_qtopk_sq8(args, launches, call_ms):
         return torch.topk(dist.clamp_min(0.0), kqp, dim=1, largest=False)
 
     comp_ms = cuda_ms(composition, reps=3)
+    mm_ms = int_mm_ms(xq, yq)
     q, d = xq.shape
     n = yq.shape[0]
-    bound_ms, bound_by = _bound((q + n) * (d + 8) + q * kqp * 8,
-                                2 * q * n * d, PEAK_INT8)
+    bytes_ = (q + n) * (d + 8) + q * kqp * 8
+    bound_ms, bound_by = _bound(bytes_, 2 * q * n * d, PEAK_INT8)
     return {"name": "qtopk_sq8", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/qtopk_seg.cu",
             "replaces": "src/repro/kernels/quant.py:86",
@@ -884,9 +1000,13 @@ def measure_qtopk_sq8(args, launches, call_ms):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "library_note": "no single PyTorch call ranks distances",
-            "composition_ms": comp_ms,
+            "composition_ms": comp_ms, "int_mm_ms": mm_ms,
+            "achieved_gbps": bytes_ / ms / 1e6,
+            "computed_tops": 2 * q * n * d / ms / 1e9,
             "topk_sq8_rerank_call_ms": call_ms,
-            "shape": {"Q": q, "N": n, "d": d, "kqp": kqp}}
+            "shape": {"Q": q, "N": n, "d": d, "kqp": kqp,
+                      "tiles": SQ8_TILE,
+                      "splits": select_sq8_splits(q, n, *SQ8_TILE, k=kqp)}}
 
 
 def measure_pairwise_f32(args, kwargs, launches):
@@ -931,16 +1051,16 @@ def measure_pairwise_f32(args, kwargs, launches):
                 "accum", "f32")}}
 
 
-def profile_wave(vm, queries, patterns, mode: str) -> None:
-    """One wave under ``torch.profiler``: device time by kernel name and
-    the device's busy share of the wave's wall time.  Run after the
-    counted waves, so its launches count nowhere."""
+def device_profile(fn):
+    """``fn()`` once under ``torch.profiler``: (wall ms, device busy ms or
+    None when the trace holds no device time, the top 8 device kernels
+    by time)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        vm.query_batch(queries, patterns, K)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -954,10 +1074,19 @@ def profile_wave(vm, queries, patterns, mode: str) -> None:
             rows.append((dev_us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) if rows else None   # None: no trace
+    return wall_ms, busy, [{"kernel": k[:80], "ms": ms, "count": c}
+                           for ms, k, c in rows[:8]]
+
+
+def profile_wave(vm, queries, patterns, mode: str) -> None:
+    """One wave under ``torch.profiler``: device time by kernel name and
+    the device's busy share of the wave's wall time.  Run after the
+    counted waves, so its launches count nowhere."""
+    wall_ms, busy, top = device_profile(
+        lambda: vm.query_batch(queries, patterns, K))
     emit(phase="profile", mode=mode, wall_ms=wall_ms, device_busy_ms=busy,
          device_idle_share=None if busy is None else 1 - busy / wall_ms,
-         top=[{"kernel": k[:80], "ms": ms, "count": c}
-              for ms, k, c in rows[:8]])
+         top=top)
 
 
 # --------------------------------------------------------------------- #
@@ -1077,11 +1206,14 @@ def main() -> int:
              seconds=time.perf_counter() - t_start)
         return 0
     phase_edges()
-    (args_a, launches_a, tiles_a), (args_b, launches_b), table = \
-        phase_main_path()
+    (args_a, launches_a, tiles_a), (args_b, launches_b, tiles_b), call, \
+        table = phase_main_path()
     kernels = [measure_kernel_a(*args_a, launches_a, tiles_a),
-               measure_kernel_b(args_b[0], launches_b)]
+               measure_kernel_b(args_b[0], launches_b, tiles_b)]
     del args_a, args_b
+    torch.cuda.empty_cache()
+    kernels[1]["sq8_call"] = measure_sq8_call(call)
+    del call
     torch.cuda.empty_cache()
     kernels += phase_unfiltered(table)
     del table

@@ -1,50 +1,36 @@
 // Pieces shared by the scan kernels (topk_seg.cu, qtopk_seg.cu, pairwise.cu).
 //
-// Two product loops live here.  Kernel B (qtopk_seg.cu) uses the first: a
-// 16x16 thread grid with 4x4 register tiles (NT, TILE, CW, scan_smem_bytes).
-// The fp32 kernels (topk_seg.cu, pairwise.cu) use the second, at the end of
-// this file: 8-row by 8- or 4-column register tiles fed by float4 shared
-// loads from a double-buffered, swizzled stage (F32_KC, f32_tile_product).
-//
 // The top-k kernels fold candidates into a running per-row top-k of 64-bit keys
 //     key = (order-preserving uint32 of the fp32 distance) << 32 | column
 // so "equal distance -> lower column wins" (the tie rule of lax.top_k in the
 // reference) is plain integer order, keys are unique within a row, and the
 // result does not depend on how the N axis is split or in which order the
 // blocks run.  Masked (row, column) pairs get KEY_MASKED and are never kept.
+//
+// Both top-k passes (kernel A and kernel B, and their unsegmented
+// instantiations) share, from this file:
+//   - the owner skip: `tile_owner_ranges` (the range pre-pass) and
+//     `ranges_meet` (the per-tile test), launched by `launch_owner_ranges`;
+//   - the fold: each pass lists, per row and tile, the columns at or below
+//     the row's current k-th distance, and `fold_rows` folds them into the
+//     row's list held in registers (`RegList`);
+//   - the merge of the flagged partial lists (`merge_flagged_partials`).
+// The fp32 product loop (F32_KC, f32_tile_product) follows them; the int8
+// tensor-core loop lives in qtopk_seg.cu, its only user.
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int NT = 256;    // threads per scan block, a 16x16 grid
-constexpr int TILE = 16;   // rows (or columns) per side of that grid
-constexpr int CW = 32;     // 32-bit words in one operand d-chunk
-constexpr int MERGE_WARPS = 4;
+constexpr int NT = 256;          // threads per scan block
+constexpr int MERGE_WARPS = 8;   // warps per row of the merge
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned long long KEY_MASKED = ~0ULL;
 constexpr unsigned int kPosInfBits = 0x7f800000u;
-
-// Dynamic shared memory of one scan block; mirrors tuning.smem_bytes.
-// kp = 0: the pairwise kernel, which keeps no top-k lists.
-inline size_t scan_smem_bytes(int bq, int bn, int kp) {
-  return size_t(bq) * kp * 8 + size_t(CW) * (bq + 1 + bn + 1) * 4 +
-         size_t(bq) * (bn + 1) * 4 + size_t(bq + bn) * 16;
-}
-
-// Each side of a block tile is 1..4 rows (or columns) of the 16x16 grid.
-inline bool tiles_ok(int bq, int bn) {
-  return bq >= TILE && bq <= 4 * TILE && bq % TILE == 0 && bn >= TILE &&
-         bn <= 4 * TILE && bn % TILE == 0;
-}
-
-inline bool scan_shape_ok(int Q, int N, int kp, int bq, int bn, int S) {
-  return Q > 0 && N > 0 && kp >= 1 && kp <= 128 && tiles_ok(bq, bn) &&
-         S >= 1;
-}
 
 // An fp32 operand as the kernels multiply it: itself, or rounded to bf16
 // (accum "bf16"; products and sums stay fp32).
@@ -67,84 +53,305 @@ __device__ __forceinline__ float key_value(unsigned long long key) {
   return __uint_as_float(b);
 }
 
-// Insert `key` into the ascending list L[0, kp) in shared memory; one warp,
-// kp <= 128 (four slots per lane).  The caller guarantees key < L[kp - 1], so
-// the insert position (the count of smaller keys) is below kp.
-__device__ __forceinline__ void warp_insert(unsigned long long* L, int kp,
-                                            unsigned long long key, int lane) {
-  unsigned long long old[4];
-  int pos = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int i = lane + 32 * j;
-    old[j] = (i < kp) ? L[i] : KEY_MASKED;
-    pos += __popc(__ballot_sync(FULL, i < kp && old[j] < key));
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int i = lane + 32 * j;
-    if (i >= pos && i < kp - 1) L[i + 1] = old[j];
-  }
-  if (lane == 0) L[pos] = key;
-  __syncwarp();
+// --------------------------------------------------------------------- //
+// The owner skip
+// --------------------------------------------------------------------- //
+//
+// The wrapper passes `perm`, a stable argsort of qseg, and a segmented pass
+// works on rows in that order: row tile t holds rows perm[t·bq .. t·bq + bq).
+// The flat candidate layout is grouped by owner (descriptors, resident
+// tail, shipped tail, each ascending), so a row tile covers a few owners
+// whose columns sit in a few contiguous stretches of N.  The pre-pass writes
+// for each column tile, and for each row tile of the sorted rows, two
+// ranges: [min, max] over owners >= 0 and over owners < 0.  Equal owners
+// have the same sign, so a (row tile, column tile) pair can hold a match
+// only if a range of one meets the range of the same sign of the other;
+// otherwise the pass skips the tile without reading its operands.
+// Tombstones (-3) never widen a live range, pad rows (-1) meet only
+// negative columns, and the rule holds for any qseg, sorted or not.  The
+// exact per-pair mask stays in the fold.
+
+__device__ __forceinline__ bool ranges_meet(int4 a, int4 b) {
+  return max(a.x, b.x) <= min(a.y, b.y) || max(a.z, b.z) <= min(a.w, b.w);
 }
 
-// Fold one candidate key per lane into the running list L (one warp).
-__device__ __forceinline__ void warp_fold(unsigned long long* L, int kp,
-                                          unsigned long long mine, int lane) {
-  unsigned long long kth = L[kp - 1];
-  unsigned ball = __ballot_sync(FULL, mine < kth);
-  while (ball) {
-    const int src = __ffs(ball) - 1;
-    const unsigned long long key = __shfl_sync(FULL, mine, src);
-    warp_insert(L, kp, key, lane);
-    kth = L[kp - 1];
-    ball &= ball - 1;
-    ball &= __ballot_sync(FULL, mine < kth);
+// Per tile of `block` entries of seg (taken in the order perm, when
+// given): (min, max) over owners >= 0, then over owners < 0; an empty range
+// is (INT_MAX, INT_MIN).  One warp per tile.
+__global__ void __launch_bounds__(NT)
+tile_owner_ranges(const int* __restrict__ seg, const int* __restrict__ perm,
+                  int n, int block, int n_tiles, int4* __restrict__ ranges) {
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  if (t >= n_tiles) return;  // whole warp
+  int pmin = INT_MAX, pmax = INT_MIN, nmin = INT_MAX, nmax = INT_MIN;
+  const int end = min(n, (t + 1) * block);
+  for (int c = t * block + lane; c < end; c += 32) {
+    const int o = seg[perm != nullptr ? perm[c] : c];
+    if (o >= 0) {
+      pmin = min(pmin, o);
+      pmax = max(pmax, o);
+    } else {
+      nmin = min(nmin, o);
+      nmax = max(nmax, o);
+    }
+  }
+  pmin = __reduce_min_sync(FULL, pmin);
+  pmax = __reduce_max_sync(FULL, pmax);
+  nmin = __reduce_min_sync(FULL, nmin);
+  nmax = __reduce_max_sync(FULL, nmax);
+  if (lane == 0) ranges[t] = make_int4(pmin, pmax, nmin, nmax);
+}
+
+// The pre-pass of a segmented launch: ranges of the ceil(N / bn) column
+// tiles of cseg into `ranges`, then of the ceil(Q / bq) row tiles of qseg
+// taken in the order perm into `ranges + ceil(N / bn)`.
+inline cudaError_t launch_owner_ranges(const int* cseg, const int* qseg,
+                                       const int* perm, int Q, int N, int bq,
+                                       int bn, int4* ranges,
+                                       cudaStream_t st) {
+  constexpr int W = NT / 32;
+  const int n_tiles = (N + bn - 1) / bn, q_tiles = (Q + bq - 1) / bq;
+  tile_owner_ranges<<<(n_tiles + W - 1) / W, NT, 0, st>>>(
+      cseg, nullptr, N, bn, n_tiles, ranges);
+  tile_owner_ranges<<<(q_tiles + W - 1) / W, NT, 0, st>>>(
+      qseg, perm, Q, bq, q_tiles, ranges + n_tiles);
+  return cudaGetLastError();
+}
+
+// Whether the split [t_begin, t_end) of column tiles holds a tile that meets
+// the row tile's ranges.  Every thread reaches the same verdict, so a block
+// that meets nothing exits with no barrier and no shared memory touched.
+__device__ __forceinline__ bool split_meets(int4 rr, const int4* ranges,
+                                            int t_begin, int t_end) {
+  for (int t = t_begin; t < t_end; ++t)
+    if (ranges_meet(rr, ranges[t])) return true;
+  return false;
+}
+
+// --------------------------------------------------------------------- //
+// The fold
+// --------------------------------------------------------------------- //
+
+// A row's running top-kp (ascending keys) held in registers while a warp
+// folds into it: lane l holds element l + 32j in R[j], j < NS = ceil(kp /
+// 32) (NS = 1, 2 or 4).  An insert is two ballots and a
+// shuffle of each R[j] one place up, with no shared memory round trip.
+template <int NS>
+struct RegList {
+  unsigned long long R[NS];
+  unsigned long long kth;  // element kp - 1 (KEY_MASKED while not full)
+
+  __device__ __forceinline__ void refresh_kth(int kp) {
+    const int jk = (kp - 1) >> 5;
+    unsigned long long v = R[0];
+#pragma unroll
+    for (int j = 1; j < NS; ++j)
+      if (j == jk) v = R[j];
+    kth = __shfl_sync(FULL, v, (kp - 1) & 31);
+  }
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) R[j] = KEY_MASKED;
+    kth = KEY_MASKED;
+  }
+  __device__ __forceinline__ void load(const unsigned long long* L, int kp,
+                                       int lane) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int i = lane + 32 * j;
+      R[j] = i < kp ? L[i] : KEY_MASKED;
+    }
+    refresh_kth(kp);
+  }
+  __device__ __forceinline__ void store(unsigned long long* L, int kp,
+                                        int lane) const {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int i = lane + 32 * j;
+      if (i < kp) L[i] = R[j];
+    }
+  }
+  // Insert `key` (< kth, so its place is below kp).
+  __device__ __forceinline__ void insert(unsigned long long key, int kp,
+                                         int lane) {
+    int pos = 0;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      pos += __popc(__ballot_sync(FULL, lane + 32 * j < kp && R[j] < key));
+    unsigned long long prev[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const unsigned long long up = __shfl_up_sync(FULL, R[j], 1);
+      const unsigned long long carry =
+          j > 0 ? __shfl_sync(FULL, R[j > 0 ? j - 1 : 0], 31) : 0ULL;
+      prev[j] = lane == 0 ? carry : up;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int i = lane + 32 * j;
+      if (i > pos) R[j] = prev[j];
+      else if (i == pos) R[j] = key;
+    }
+    refresh_kth(kp);
+  }
+  // Fold one candidate key per lane.
+  __device__ __forceinline__ void fold(unsigned long long mine, int kp,
+                                       int lane) {
+    unsigned ball = __ballot_sync(FULL, mine < kth);
+    while (ball) {
+      const int src = __ffs(ball) - 1;
+      insert(__shfl_sync(FULL, mine, src), kp, lane);
+      ball &= ball - 1;
+      ball &= __ballot_sync(FULL, mine < kth);
+    }
+  }
+};
+
+// Candidate slots per row and tile: the columns at or below the row's k-th
+// distance, listed in the epilogue; a row with more is folded by a full scan.
+constexpr int CAND = 32;
+
+// The fold of one distance tile (dist: row stride DS; cs: the tile's column
+// owners, INT_MIN past N; cnt, cand: the listed candidates; kthv: each row's
+// current k-th distance): warp w takes rows w, w + 8, ...; a row with listed
+// candidates folds just those, a row with more than CAND scans its whole
+// tile row; then the row's k-th distance is republished.
+template <int NS, bool SEG, int BN, int DS>
+__device__ __forceinline__ void fold_rows(
+    unsigned long long* lists, int kp, const float* dist, const int* cnt,
+    const unsigned char* cand, const int* cs, const int* qs, float* kthv,
+    int col0, int warp, int lane, int bq) {
+  for (int r = warp; r < bq; r += NT / 32) {
+    const int n = cnt[r];  // warp-uniform
+    if (n == 0) continue;
+    unsigned long long* L = lists + r * kp;
+    RegList<NS> rl;
+    rl.load(L, kp, lane);
+    if (n <= CAND) {  // fold only the candidates (order does not matter)
+      unsigned long long key = KEY_MASKED;
+      if (lane < n) {
+        const int c = cand[r * CAND + lane];
+        key = make_key(dist[r * DS + c], col0 + c);
+      }
+      rl.fold(key, kp, lane);
+    } else {  // many candidates: scan the whole row
+      const int q = qs[r];
+      const float kv = kthv[r];
+      for (int c0 = 0; c0 < BN; c0 += 32) {
+        const int c = c0 + lane, o = cs[c];
+        const float v = dist[r * DS + c];
+        unsigned long long key = KEY_MASKED;
+        if (o != INT_MIN && (!SEG || o == q) && !(v > kv))
+          key = make_key(v, col0 + c);
+        rl.fold(key, kp, lane);
+      }
+    }
+    rl.store(L, kp, lane);
+    if (lane == 0)
+      kthv[r] = rl.kth == KEY_MASKED ? __uint_as_float(kPosInfBits)
+                                     : key_value(rl.kth);
   }
 }
 
-// Second pass: merge the S sorted partial lists of each row, (Q, S, kp) keys,
-// into the row's final ascending top-kp.  One warp per row.  An empty slot,
-// or a distance of +inf, is emitted as (+inf, -1).
-__global__ void __launch_bounds__(MERGE_WARPS * 32)
-merge_partials(const unsigned long long* __restrict__ partial, int Q, int S,
-               int kp, float* __restrict__ out_v, int* __restrict__ out_i) {
-  extern __shared__ unsigned long long mlists[];
+// List, for row r of a tile, the outputs j (bit j of `pass`) at or below
+// the row's k-th distance: reserve slots with one shared atomic, then write
+// the columns col_of(j) of the first CAND.
+template <int NJ, typename ColOf>
+__device__ __forceinline__ void list_candidates(int* cnt, unsigned char* cand,
+                                                int r, unsigned pass,
+                                                ColOf col_of) {
+  if (pass == 0) return;
+  int pos = atomicAdd(cnt + r, __popc(pass));
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    if ((pass >> j) & 1u) {
+      if (pos < CAND)
+        cand[r * CAND + pos] = static_cast<unsigned char>(col_of(j));
+      ++pos;
+    }
+}
+
+// --------------------------------------------------------------------- //
+// The merge
+// --------------------------------------------------------------------- //
+
+// Merge the flagged partial lists of each (sorted) row into its top-kp and
+// write it to output row perm[r] (or r).  One block of MERGE_WARPS warps
+// per row: warp w folds splits w, w + W, ... into its own list, then warp 0
+// folds the other lists into its own.  An empty slot, or a distance of +inf,
+// is emitted as (+inf, -1).
+template <int NS>
+__device__ __forceinline__ void merge_row(
+    const unsigned long long* __restrict__ partial, const int* f, int S,
+    int kp, int r, const int* __restrict__ perm, float* __restrict__ out_v,
+    int* __restrict__ out_i, unsigned long long* mlists) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * MERGE_WARPS + warp;
-  if (row >= Q) return;  // whole warp
-  unsigned long long* L = mlists + warp * kp;
-  for (int i = lane; i < kp; i += 32) L[i] = KEY_MASKED;
-  __syncwarp();
-  const unsigned long long* src = partial + size_t(row) * S * kp;
-  const int total = S * kp;
-  for (int base = 0; base < total; base += 32) {
-    const int i = base + lane;
-    warp_fold(L, kp, i < total ? src[i] : KEY_MASKED, lane);
+  RegList<NS> rl;
+  rl.clear();
+  const unsigned long long* src = partial + size_t(r) * S * kp;
+  for (int s0 = warp * 32; s0 < S; s0 += MERGE_WARPS * 32) {
+    const int s = s0 + lane;
+    unsigned ball = __ballot_sync(FULL, s < S && f[s] != 0);
+    while (ball) {
+      const int ss = s0 + __ffs(ball) - 1;
+      ball &= ball - 1;
+      for (int i0 = 0; i0 < kp; i0 += 32) {
+        const int i = i0 + lane;
+        rl.fold(i < kp ? src[size_t(ss) * kp + i] : KEY_MASKED, kp, lane);
+      }
+    }
   }
+  rl.store(mlists + warp * kp, kp, lane);
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < MERGE_WARPS; ++w)
+    for (int i0 = 0; i0 < kp; i0 += 32) {
+      const int i = i0 + lane;
+      rl.fold(i < kp ? mlists[w * kp + i] : KEY_MASKED, kp, lane);
+    }
+  rl.store(mlists, kp, lane);
+  __syncwarp();
+  const int g = perm != nullptr ? perm[r] : r;
   for (int i = lane; i < kp; i += 32) {
-    const unsigned long long key = L[i];
+    const unsigned long long key = mlists[i];
     const float v = key_value(key);
     const bool empty =
         key == KEY_MASKED || __float_as_uint(v) == kPosInfBits;
-    out_v[size_t(row) * kp + i] = empty ? __uint_as_float(kPosInfBits) : v;
-    out_i[size_t(row) * kp + i] =
+    out_v[size_t(g) * kp + i] = empty ? __uint_as_float(kPosInfBits) : v;
+    out_i[size_t(g) * kp + i] =
         empty ? -1 : static_cast<int>(key & 0xffffffffULL);
   }
 }
 
-inline cudaError_t launch_merge(const unsigned long long* partial, int Q,
-                                int S, int kp, float* out_v, int* out_i,
-                                cudaStream_t stream) {
-  const int grid = (Q + MERGE_WARPS - 1) / MERGE_WARPS;
-  merge_partials<<<grid, MERGE_WARPS * 32,
-                   size_t(MERGE_WARPS) * kp * sizeof(unsigned long long),
-                   stream>>>(partial, Q, S, kp, out_v, out_i);
-  return cudaGetLastError();
+// partial: (Q, S, kp) keys, row = sorted position; flags: (row tiles of bq,
+// S), 1 where a pass block wrote its lists.
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
+merge_flagged_partials(const unsigned long long* __restrict__ partial,
+                       const int* __restrict__ flags,
+                       const int* __restrict__ perm, int Q, int S, int kp,
+                       int bq, float* __restrict__ out_v,
+                       int* __restrict__ out_i) {
+  extern __shared__ unsigned long long mlists[];
+  const int r = blockIdx.x;
+  const int* f = flags + (r / bq) * S;
+  if (kp <= 32)
+    merge_row<1>(partial, f, S, kp, r, perm, out_v, out_i, mlists);
+  else if (kp <= 64)
+    merge_row<2>(partial, f, S, kp, r, perm, out_v, out_i, mlists);
+  else
+    merge_row<4>(partial, f, S, kp, r, perm, out_v, out_i, mlists);
 }
 
+inline cudaError_t launch_merge(const unsigned long long* partial,
+                                const int* flags, const int* perm, int Q,
+                                int S, int kp, int bq, float* out_v,
+                                int* out_i, cudaStream_t st) {
+  merge_flagged_partials<<<Q, MERGE_WARPS * 32,
+                           size_t(MERGE_WARPS) * kp * 8, st>>>(
+      partial, flags, perm, Q, S, kp, bq, out_v, out_i);
+  return cudaGetLastError();
+}
 
 // --------------------------------------------------------------------- //
 // The fp32 product loop (kernel A, topk_f32, pairwise_f32)

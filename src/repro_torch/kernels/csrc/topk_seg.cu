@@ -25,7 +25,7 @@
 //
 // Design.  A split-N pass, then a merge: Hopper runs blocks in no order, so
 // the running top-k the TPU kernel carries across its sequential N axis
-// becomes S sorted partial lists per row, folded by `merge_f32_partials`.
+// becomes S sorted partial lists per row, folded by `merge_flagged_partials`.
 // Grid (row tiles, S); each block walks its split of column tiles, computes
 // each bq x bn distance tile with the fp32 product loop of topk_common.cuh
 // (8x8 or 8x4 outputs per thread from float4 shared loads, double-buffered
@@ -39,19 +39,12 @@
 // Once a row's list is full, few columns of a tile make the cut, so most rows
 // cost one fold or nothing.
 //
-// The owner skip (SEG).  The wrapper passes `perm`, a stable argsort of qseg,
-// and the pass works on rows in that order: row tile t holds rows perm[t·bq
-// .. t·bq + bq).  The flat candidate layout is grouped by owner (descriptors,
-// resident tail, shipped tail, each ascending), so a row tile covers a few
-// owners whose columns sit in a few contiguous stretches of N.  A pre-pass
-// (`tile_owner_ranges`) writes for each column tile, and for each row tile
-// of the sorted rows, two ranges: [min, max] over owners >= 0 and over
-// owners < 0.  Equal owners have the same sign, so a (row tile,
-// column tile) pair can hold a match only if a range of one meets the range
-// of the same sign of the other; otherwise the block skips the tile without
-// reading y.  Tombstones (-3) never widen a live range, pad rows (-1) meet
-// only negative columns, and the rule holds for any qseg, sorted or not.
-// The exact per-pair mask stays in the fold.
+// The owner skip (SEG), the fold (RegList, fold_rows) and the merge are
+// shared with kernel B and described in topk_common.cuh: rows are taken in
+// the order of a stable argsort of qseg, and a (row tile, column tile) pair
+// is computed only if their two-sign owner ranges meet; the block then
+// skips the tile without reading y.  The exact per-pair mask stays in the
+// fold.
 //
 // Load balance: the work of a row tile sits in a few stretches of N, so the
 // segmented policy (tuning.select_f32_splits) uses a small row tile (32 rows)
@@ -63,120 +56,9 @@
 // merge folds flagged lists only.  `counter` (optional) adds the number of
 // tiles computed, one atomic per block, so a run can show how many pairs of
 // tiles the rule skipped.
-#include <climits>
-
 #include "topk_common.cuh"
 
 namespace {
-
-constexpr int MERGE_F32_WARPS = 8;
-
-__device__ __forceinline__ bool ranges_meet(int4 a, int4 b) {
-  return max(a.x, b.x) <= min(a.y, b.y) || max(a.z, b.z) <= min(a.w, b.w);
-}
-
-// Per tile of `block` entries of seg (taken in the order perm, when
-// given): (min, max) over owners >= 0, then over owners < 0; an empty range
-// is (INT_MAX, INT_MIN).  One warp per tile.
-__global__ void __launch_bounds__(NT)
-tile_owner_ranges(const int* __restrict__ seg, const int* __restrict__ perm,
-                  int n, int block, int n_tiles, int4* __restrict__ ranges) {
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
-  if (t >= n_tiles) return;  // whole warp
-  int pmin = INT_MAX, pmax = INT_MIN, nmin = INT_MAX, nmax = INT_MIN;
-  const int end = min(n, (t + 1) * block);
-  for (int c = t * block + lane; c < end; c += 32) {
-    const int o = seg[perm != nullptr ? perm[c] : c];
-    if (o >= 0) {
-      pmin = min(pmin, o);
-      pmax = max(pmax, o);
-    } else {
-      nmin = min(nmin, o);
-      nmax = max(nmax, o);
-    }
-  }
-  pmin = __reduce_min_sync(FULL, pmin);
-  pmax = __reduce_max_sync(FULL, pmax);
-  nmin = __reduce_min_sync(FULL, nmin);
-  nmax = __reduce_max_sync(FULL, nmax);
-  if (lane == 0) ranges[t] = make_int4(pmin, pmax, nmin, nmax);
-}
-
-// A row's running top-kp (ascending keys) held in registers while a warp
-// folds into it: lane l holds element l + 32j in R[j], j < NS = ceil(kp /
-// 32) (NS = 1 for kp <= 32, else 4).  An insert is two ballots and a
-// shuffle of each R[j] one place up, with no shared memory round trip.
-template <int NS>
-struct RegList {
-  unsigned long long R[NS];
-  unsigned long long kth;  // element kp - 1 (KEY_MASKED while not full)
-
-  __device__ __forceinline__ void refresh_kth(int kp) {
-    const int jk = (kp - 1) >> 5;
-    unsigned long long v = R[0];
-#pragma unroll
-    for (int j = 1; j < NS; ++j)
-      if (j == jk) v = R[j];
-    kth = __shfl_sync(FULL, v, (kp - 1) & 31);
-  }
-  __device__ __forceinline__ void clear() {
-#pragma unroll
-    for (int j = 0; j < NS; ++j) R[j] = KEY_MASKED;
-    kth = KEY_MASKED;
-  }
-  __device__ __forceinline__ void load(const unsigned long long* L, int kp,
-                                       int lane) {
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int i = lane + 32 * j;
-      R[j] = i < kp ? L[i] : KEY_MASKED;
-    }
-    refresh_kth(kp);
-  }
-  __device__ __forceinline__ void store(unsigned long long* L, int kp,
-                                        int lane) const {
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int i = lane + 32 * j;
-      if (i < kp) L[i] = R[j];
-    }
-  }
-  // Insert `key` (< kth, so its place is below kp).
-  __device__ __forceinline__ void insert(unsigned long long key, int kp,
-                                         int lane) {
-    int pos = 0;
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-      pos += __popc(__ballot_sync(FULL, lane + 32 * j < kp && R[j] < key));
-    unsigned long long prev[NS];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const unsigned long long up = __shfl_up_sync(FULL, R[j], 1);
-      const unsigned long long carry =
-          j > 0 ? __shfl_sync(FULL, R[j > 0 ? j - 1 : 0], 31) : 0ULL;
-      prev[j] = lane == 0 ? carry : up;
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int i = lane + 32 * j;
-      if (i > pos) R[j] = prev[j];
-      else if (i == pos) R[j] = key;
-    }
-    refresh_kth(kp);
-  }
-  // Fold one candidate key per lane.
-  __device__ __forceinline__ void fold(unsigned long long mine, int kp,
-                                       int lane) {
-    unsigned ball = __ballot_sync(FULL, mine < kth);
-    while (ball) {
-      const int src = __ffs(ball) - 1;
-      insert(__shfl_sync(FULL, mine, src), kp, lane);
-      ball &= ball - 1;
-      ball &= __ballot_sync(FULL, mine < kth);
-    }
-  }
-};
 
 struct PassArgs {
   const float* x;
@@ -192,56 +74,12 @@ struct PassArgs {
   unsigned long long* counter;  // tiles computed, or nullptr
 };
 
-// Candidate slots per row and tile: the columns at or below the row's k-th
-// distance, found in the epilogue; a row with more is folded by a full scan.
-constexpr int CAND = 32;
-
 // Dynamic shared memory of one pass block; mirrors tuning.f32_smem_bytes.
 inline size_t f32_topk_smem_bytes(int bq, int bn, int kp) {
   const size_t stages = f32_stage_floats(bq, bn);
   const size_t dist = size_t(bq) * (bn + 4);
   return (stages > dist ? stages : dist) * 4 + size_t(5 * bq + 2 * bn) * 4 +
          size_t(bq) * CAND + size_t(bq) * kp * 8;
-}
-
-// The fold of one distance tile: warp w takes rows w, w + 8, ...; a row
-// with listed candidates folds just those, a row with more than CAND scans
-// its whole tile row; then the row's k-th distance is republished.
-template <int NS, bool SEG, int BN, int DS>
-__device__ __forceinline__ void fold_rows(
-    unsigned long long* lists, int kp, const float* dist, const int* cnt,
-    const unsigned char* cand, const int* cs, const int* qs, float* kthv,
-    int col0, int warp, int lane, int bq) {
-  for (int r = warp; r < bq; r += NT / 32) {
-    const int n = cnt[r];  // warp-uniform
-    if (n == 0) continue;
-    unsigned long long* L = lists + r * kp;
-    RegList<NS> rl;
-    rl.load(L, kp, lane);
-    if (n <= CAND) {  // fold only the candidates (order does not matter)
-      unsigned long long key = KEY_MASKED;
-      if (lane < n) {
-        const int c = cand[r * CAND + lane];
-        key = make_key(dist[r * DS + c], col0 + c);
-      }
-      rl.fold(key, kp, lane);
-    } else {  // many candidates: scan the whole row
-      const int q = qs[r];
-      const float kv = kthv[r];
-      for (int c0 = 0; c0 < BN; c0 += 32) {
-        const int c = c0 + lane, o = cs[c];
-        const float v = dist[r * DS + c];
-        unsigned long long key = KEY_MASKED;
-        if (o != INT_MIN && (!SEG || o == q) && !(v > kv))
-          key = make_key(v, col0 + c);
-        rl.fold(key, kp, lane);
-      }
-    }
-    rl.store(L, kp, lane);
-    if (lane == 0)
-      kthv[r] = rl.kth == KEY_MASKED ? __uint_as_float(kPosInfBits)
-                                     : key_value(rl.kth);
-  }
 }
 
 template <bool SEG, bool L2, bool BF16, bool VEC, int BQ, int BN, int TM,
@@ -277,10 +115,7 @@ __global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
   int4 rr = make_int4(0, 0, 0, 0);
   if (SEG) {  // every thread reaches the same verdict: no barrier needed
     rr = a.row_ranges[blockIdx.x];
-    bool any = false;
-    for (int t = t_begin; t < t_end && !any; ++t)
-      any = ranges_meet(rr, a.ranges[t]);
-    if (!any) {  // nothing in this split can match
+    if (!split_meets(rr, a.ranges, t_begin, t_end)) {  // nothing can match
       if (tid == 0) a.flags[blockIdx.x * a.S + blockIdx.y] = 0;
       return;
     }
@@ -348,17 +183,9 @@ __global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
         *reinterpret_cast<float4*>(buf + r * DS + c) =
             make_float4(v[0], v[1], v[2], v[3]);
       }
-      if (pass != 0 && xrow[r] >= 0) {
-        int pos = atomicAdd(cnt + r, __popc(pass));
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          if ((pass >> j) & 1u) {
-            if (pos < CAND)
-              cand[r * CAND + pos] =
-                  static_cast<unsigned char>(T::col_of(j, tx));
-            ++pos;
-          }
-      }
+      if (xrow[r] >= 0)
+        list_candidates<TN>(cnt, cand, r, pass,
+                            [tx](int j) { return T::col_of(j, tx); });
     }
     __syncthreads();
     if (a.kp <= 32)
@@ -384,68 +211,6 @@ __global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
       atomicAdd(a.counter, static_cast<unsigned long long>(computed));
     }
   }
-}
-
-// Merge the flagged partial lists of each (sorted) row into its top-kp and
-// write it to output row perm[r] (or r).  One block of MERGE_F32_WARPS warps
-// per row: warp w folds splits w, w + W, ... into its own list, then warp 0
-// folds the other lists into its own.  An empty slot, or a distance of +inf,
-// is emitted as (+inf, -1).
-template <int NS>
-__device__ __forceinline__ void merge_row(
-    const unsigned long long* __restrict__ partial, const int* f, int S,
-    int kp, int r, const int* __restrict__ perm, float* __restrict__ out_v,
-    int* __restrict__ out_i, unsigned long long* mlists) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  RegList<NS> rl;
-  rl.clear();
-  const unsigned long long* src = partial + size_t(r) * S * kp;
-  for (int s0 = warp * 32; s0 < S; s0 += MERGE_F32_WARPS * 32) {
-    const int s = s0 + lane;
-    unsigned ball = __ballot_sync(FULL, s < S && f[s] != 0);
-    while (ball) {
-      const int ss = s0 + __ffs(ball) - 1;
-      ball &= ball - 1;
-      for (int i0 = 0; i0 < kp; i0 += 32) {
-        const int i = i0 + lane;
-        rl.fold(i < kp ? src[size_t(ss) * kp + i] : KEY_MASKED, kp, lane);
-      }
-    }
-  }
-  rl.store(mlists + warp * kp, kp, lane);
-  __syncthreads();
-  if (warp != 0) return;
-  for (int w = 1; w < MERGE_F32_WARPS; ++w)
-    for (int i0 = 0; i0 < kp; i0 += 32) {
-      const int i = i0 + lane;
-      rl.fold(i < kp ? mlists[w * kp + i] : KEY_MASKED, kp, lane);
-    }
-  rl.store(mlists, kp, lane);
-  __syncwarp();
-  const int g = perm != nullptr ? perm[r] : r;
-  for (int i = lane; i < kp; i += 32) {
-    const unsigned long long key = mlists[i];
-    const float v = key_value(key);
-    const bool empty =
-        key == KEY_MASKED || __float_as_uint(v) == kPosInfBits;
-    out_v[size_t(g) * kp + i] = empty ? __uint_as_float(kPosInfBits) : v;
-    out_i[size_t(g) * kp + i] =
-        empty ? -1 : static_cast<int>(key & 0xffffffffULL);
-  }
-}
-
-__global__ void __launch_bounds__(MERGE_F32_WARPS * 32)
-merge_f32_partials(const unsigned long long* __restrict__ partial,
-                   const int* __restrict__ flags, const int* __restrict__ perm,
-                   int Q, int S, int kp, int bq, float* __restrict__ out_v,
-                   int* __restrict__ out_i) {
-  extern __shared__ unsigned long long mlists[];
-  const int r = blockIdx.x;
-  const int* f = flags + (r / bq) * S;
-  if (kp <= 32)
-    merge_row<1>(partial, f, S, kp, r, perm, out_v, out_i, mlists);
-  else
-    merge_row<4>(partial, f, S, kp, r, perm, out_v, out_i, mlists);
 }
 
 template <bool SEG, bool L2, bool BF16, bool VEC, int BQ, int BN, int TM,
@@ -493,16 +258,11 @@ int run_topk(PassArgs a, int metric_ip, int bf16, int vec, int bq, int bn,
                a.row_ranges == nullptr)))
     return int(cudaErrorInvalidValue);
   const int n_tiles = (a.N + bn - 1) / bn;
-  const int q_tiles = (a.Q + bq - 1) / bq;
   a.tiles_per_split = (n_tiles + a.S - 1) / a.S;
   cudaError_t err;
   if (SEG) {
-    constexpr int W = NT / 32;
-    tile_owner_ranges<<<(n_tiles + W - 1) / W, NT, 0, st>>>(
-        a.cseg, nullptr, a.N, bn, n_tiles, const_cast<int4*>(a.ranges));
-    tile_owner_ranges<<<(q_tiles + W - 1) / W, NT, 0, st>>>(
-        a.qseg, a.perm, a.Q, bq, q_tiles, const_cast<int4*>(a.row_ranges));
-    err = cudaGetLastError();
+    err = launch_owner_ranges(a.cseg, a.qseg, a.perm, a.Q, a.N, bq, bn,
+                              const_cast<int4*>(a.ranges), st);
     if (err != cudaSuccess) return int(err);
   }
   const bool l2 = !metric_ip;
@@ -515,10 +275,8 @@ int run_topk(PassArgs a, int metric_ip, int bf16, int vec, int bq, int bn,
                  : dispatch_pass<SEG, F32_WIDE_BQ, F32_WIDE_BN, 8, 8>(
                        l2, bf16, vec, a, st);
   if (err != cudaSuccess) return int(err);
-  merge_f32_partials<<<a.Q, MERGE_F32_WARPS * 32,
-                       size_t(MERGE_F32_WARPS) * a.kp * 8, st>>>(
-      a.partial, a.flags, a.perm, a.Q, a.S, a.kp, bq, out_v, out_i);
-  return int(cudaGetLastError());
+  return int(launch_merge(a.partial, a.flags, a.perm, a.Q, a.S, a.kp, bq,
+                          out_v, out_i, st));
 }
 
 }  // namespace

@@ -18,12 +18,14 @@ it runs its plain PyTorch version (``segmented_dense_topk``,
 distances and column indices, lower column first on equal distance,
 ``(+inf, -1)`` where fewer than k columns match.
 
-Kernel A skips (row tile, column tile) pairs whose owners cannot meet:
-rows are taken in the order of a stable argsort of ``qseg``, and a pair
-is computed only if the two-sign owner ranges of its row tile and column
-tile meet (``tile_owner_ranges``, ``tiles_meet``: the plain versions of
-the kernel's pre-pass and of its per-tile test).  ``tile_stats`` reads
-how many pairs the launches since ``reset_tile_stats`` computed.
+Kernel A, like kernel B (``quant.qtopk_seg_sq8``), skips (row tile,
+column tile) pairs whose owners cannot meet: rows are taken in the order
+of a stable argsort of ``qseg``, and a pair is computed only if the
+two-sign owner ranges of its row tile and column tile meet
+(``tile_owner_ranges``, ``tiles_meet``: the plain versions of the
+kernels' pre-pass and of their per-tile test).  ``tile_stats`` reads
+how many pairs each kernel's launches since ``reset_tile_stats``
+computed.
 """
 
 from __future__ import annotations
@@ -32,8 +34,7 @@ import torch
 
 from . import _build
 from .ref import pairwise_negdot_ref, pairwise_sqdist_ref
-from .tuning import (select_f32_splits, select_f32_tiles, select_splits,
-                     select_tiles)
+from .tuning import select_f32_splits, select_f32_tiles
 
 _INF = float("inf")
 _I32_MAX, _I32_MIN = 2 ** 31 - 1, -2 ** 31
@@ -119,13 +120,11 @@ def check_inputs(device: torch.device, specs) -> None:
         _require(t.is_contiguous(), f"{name} must be contiguous")
 
 
-def scan_outputs(q: int, n: int, kp: int, device: torch.device):
-    """Tiles, N-splits and fresh buffers of one split-N SQ8 top-k launch:
-    ``(bq, bn, S, partial (Q·S·kp) int64 scratch, vals (Q, kp) fp32, idx
-    (Q, kp) int32)``."""
-    bq, bn = select_tiles(q, n, k=kp)
-    s = select_splits(q, n, bq, bn)
-    return (bq, bn, s,
+def scan_buffers(q: int, kp: int, bq: int, s: int, device: torch.device):
+    """Fresh buffers of one split-N top-k launch with row tiles of ``bq``
+    and ``s`` N-splits: ``(flags ((Q/bq)·S) int32, partial (Q·S·kp)
+    int64 scratch, vals (Q, kp) fp32, idx (Q, kp) int32)``."""
+    return (torch.empty(-(-q // bq) * s, dtype=torch.int32, device=device),
             torch.empty(q * s * kp, dtype=torch.int64, device=device),
             torch.empty((q, kp), dtype=torch.float32, device=device),
             torch.empty((q, kp), dtype=torch.int32, device=device))
@@ -134,15 +133,10 @@ def scan_outputs(q: int, n: int, kp: int, device: torch.device):
 def f32_scan_buffers(q: int, n: int, kp: int, device: torch.device, *,
                      segmented: bool):
     """Tiles, N-splits and fresh buffers of one fp32 split-N top-k
-    launch: ``(bq, bn, S, flags ((Q/bq)·S) int32, partial (Q·S·kp) int64
-    scratch, vals (Q, kp) fp32, idx (Q, kp) int32)``."""
+    launch: ``(bq, bn, S, *scan_buffers)``."""
     bq, bn = select_f32_tiles(q, k=kp, segmented=segmented)
     s = select_f32_splits(q, n, bq, bn, k=kp, segmented=segmented)
-    return (bq, bn, s,
-            torch.empty(-(-q // bq) * s, dtype=torch.int32, device=device),
-            torch.empty(q * s * kp, dtype=torch.int64, device=device),
-            torch.empty((q, kp), dtype=torch.float32, device=device),
-            torch.empty((q, kp), dtype=torch.int32, device=device))
+    return (bq, bn, s, *scan_buffers(q, kp, bq, s, device))
 
 
 def vec_loads_ok(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -155,16 +149,17 @@ def vec_loads_ok(x: torch.Tensor, y: torch.Tensor) -> bool:
 
 
 # --------------------------------------------------------------------- #
-# kernel A's owner skip: the plain versions of its pre-pass and tile test
+# the owner skip of kernels A and B: the plain versions of their pre-pass
+# and tile test, and their counters of computed tile pairs
 # --------------------------------------------------------------------- #
 
 def tile_owner_ranges(owners: torch.Tensor, block: int) -> torch.Tensor:
     """Per tile of ``block`` consecutive entries of ``owners`` (the last
     tile ragged): ``(min, max)`` over owners ≥ 0, then over owners < 0,
     as a (tiles, 4) int32 tensor; an empty range is (INT32_MAX,
-    INT32_MIN).  The plain version of kernel A's ``tile_owner_ranges``
-    pre-pass (column tiles) and of its per-block row-tile ranges (row
-    tiles of the owner-sorted rows)."""
+    INT32_MIN).  The plain version of the ``tile_owner_ranges``
+    pre-pass of kernels A and B (column tiles, and row tiles of the
+    owner-sorted rows)."""
     n = int(owners.shape[0])
     t = max(1, -(-n // block))
     o = torch.full((t * block,), 0, dtype=torch.int64, device=owners.device)
@@ -195,33 +190,49 @@ def tiles_meet(row_ranges: torch.Tensor,
     return pos | neg
 
 
-_tile_counters: dict = {}       # device -> (1,) int64 tiles computed
-_tiles_launched = [0]           # (row tile, column tile) pairs in the grids
+_tile_counters: dict = {}       # (kernel, device) -> (1,) int64 computed
+_tiles_launched: dict = {}      # kernel -> tile pairs in the grids launched
 
 
 def reset_tile_stats() -> None:
-    """Zero kernel A's counts of computed and launched tile pairs."""
+    """Zero the counts of computed and launched tile pairs of kernels A
+    (``topk_seg_f32``) and B (``qtopk_seg_sq8``)."""
     for c in _tile_counters.values():
         c.zero_()
-    _tiles_launched[0] = 0
+    _tiles_launched.clear()
 
 
-def tile_stats() -> dict:
-    """Kernel A's (row tile, column tile) pairs since the last
+def tile_stats(kernel: str = "topk_seg_f32") -> dict:
+    """(row tile, column tile) pairs of ``kernel`` since the last
     ``reset_tile_stats``: ``computed`` (counted by the kernel on the
     device; reading it synchronises) and ``total`` (in the grids
     launched)."""
     return {"computed": int(sum(int(c.item())
-                                for c in _tile_counters.values())),
-            "total": _tiles_launched[0]}
+                                for (name, _), c in _tile_counters.items()
+                                if name == kernel)),
+            "total": _tiles_launched.get(kernel, 0)}
 
 
-def _tile_counter(device: torch.device) -> torch.Tensor:
-    c = _tile_counters.get(device)
+def tile_counter(kernel: str, device: torch.device,
+                 launched: int) -> torch.Tensor:
+    """The device counter a segmented launch of ``kernel`` adds its
+    computed tile pairs to; records the ``launched`` pairs of its grid."""
+    _tiles_launched[kernel] = _tiles_launched.get(kernel, 0) + launched
+    c = _tile_counters.get((kernel, device))
     if c is None:
-        c = _tile_counters[device] = torch.zeros(1, dtype=torch.int64,
-                                                 device=device)
+        c = _tile_counters[(kernel, device)] = torch.zeros(
+            1, dtype=torch.int64, device=device)
     return c
+
+
+def owner_sort(qseg: torch.Tensor, q_tiles: int, n_tiles: int):
+    """The row order of a segmented launch (stable argsort of ``qseg``,
+    int32) and its range scratch: ``n_tiles`` column tiles then
+    ``q_tiles`` row tiles of int4."""
+    perm = torch.argsort(qseg, stable=True).to(torch.int32)
+    ranges = torch.empty((n_tiles + q_tiles, 4), dtype=torch.int32,
+                         device=qseg.device)
+    return perm, ranges
 
 
 def _check_topk_args(metric: str, accum: str, kp: int) -> None:
@@ -252,21 +263,19 @@ def topk_seg_f32(x: torch.Tensor, y: torch.Tensor, qseg: torch.Tensor,
     _require(q > 0 and n > 0 and d > 0, f"empty scan ({q}, {n}, {d})")
     bq, bn, s, flags, partial, vals, idx = f32_scan_buffers(
         q, n, kp, x.device, segmented=True)
-    n_tiles = -(-n // bn)
-    perm = torch.argsort(qseg, stable=True).to(torch.int32)
-    ranges = torch.empty((n_tiles + -(-q // bq), 4), dtype=torch.int32,
-                         device=x.device)
+    n_tiles, q_tiles = -(-n // bn), -(-q // bq)
+    perm, ranges = owner_sort(qseg, q_tiles, n_tiles)
+    counter = tile_counter("topk_seg_f32", x.device, q_tiles * n_tiles)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check("topk_seg_f32", lib.topk_seg_f32(
         x.data_ptr(), y.data_ptr(), qseg.data_ptr(), cseg.data_ptr(),
         perm.data_ptr(), ranges.data_ptr(), flags.data_ptr(),
-        _tile_counter(x.device).data_ptr(), q, n, d, kp,
+        counter.data_ptr(), q, n, d, kp,
         int(metric == "ip"), int(accum == "bf16"), int(vec_loads_ok(x, y)),
         bq, bn, s, partial.data_ptr(), vals.data_ptr(), idx.data_ptr(),
         stream))
     topk_seg_f32.launches += 1
-    _tiles_launched[0] += -(-q // bq) * n_tiles
     return vals, idx
 
 
@@ -405,8 +414,9 @@ def distance_topk_descriptors(vectors, base_ids, deleted, x, qseg, starts,
 
 __all__ = ["topk_seg_f32", "distance_topk", "dense_distance",
            "segmented_dense_topk", "dense_topk", "masked_topk", "stable_topk",
-           "scan_outputs", "f32_scan_buffers", "vec_loads_ok",
+           "scan_buffers", "f32_scan_buffers", "vec_loads_ok",
            "tile_owner_ranges", "tiles_meet", "tile_stats",
-           "reset_tile_stats", "check_inputs", "expand_descriptors",
+           "reset_tile_stats", "tile_counter", "owner_sort", "check_inputs",
+           "expand_descriptors",
            "resident_candidates", "assemble_flat_candidates",
            "distance_topk_descriptors"]

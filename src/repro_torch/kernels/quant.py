@@ -23,9 +23,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .distance_topk import (_require, check_inputs, masked_topk,
-                            resident_candidates, scan_outputs, stable_topk)
-from .tuning import SQ8_DIM_CAP
+from .distance_topk import (_require, check_inputs, masked_topk, owner_sort,
+                            resident_candidates, scan_buffers, stable_topk,
+                            tile_counter)
+from .tuning import SQ8_DIM_CAP, SQ8_TILE, select_sq8_splits
 
 _INF = float("inf")
 
@@ -89,13 +90,25 @@ def sq8_dense(xq, sx, x2, yq, sy, y2, k: int):
 
 def _pad_codes(xq, yq):
     """Zero-pad the code rows to a multiple of 16 bytes, as the kernels
-    read them; zero codes add nothing to the dot."""
+    read them (16-byte copies from 16-byte aligned bases; a misaligned
+    view is copied); zero codes add nothing to the dot."""
     d = xq.shape[1]
     dp = -(-d // 16) * 16
     if dp != d:
         xq = torch.nn.functional.pad(xq, (0, dp - d))
         yq = torch.nn.functional.pad(yq, (0, dp - d))
+    xq, yq = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xq, yq))
     return xq, yq, dp
+
+
+def _sq8_launch(q: int, n: int, kqp: int, device, *, segmented: bool):
+    """Tiles, N-splits and fresh buffers of one SQ8 split-N launch:
+    ``(bq, bn, S, bound, flags, partial, vals, idx)``; ``bound`` (Q,)
+    fp32 +inf is where the splits share each row's k-th distance."""
+    bq, bn = SQ8_TILE
+    s = select_sq8_splits(q, n, bq, bn, k=kqp, segmented=segmented)
+    bound = torch.full((q,), _INF, dtype=torch.float32, device=device)
+    return (bq, bn, s, bound, *scan_buffers(q, kqp, bq, s, device))
 
 
 def qtopk_seg_sq8(xq, yq, sx, x2, sy, y2, qseg, cseg, kqp: int):
@@ -103,7 +116,10 @@ def qtopk_seg_sq8(xq, yq, sx, x2, sy, y2, qseg, cseg, kqp: int):
     ``xq`` (Q, d), ``yq`` (N, d) int8; ``sx``, ``x2`` (Q,), ``sy``, ``y2``
     (N,) fp32; ``qseg`` (Q,), ``cseg`` (N,) int32.  CPU tensors take the
     plain version; CUDA tensors launch ``csrc/qtopk_seg.cu``
-    (``launches`` counts those launches) or raise — no fallback."""
+    (``launches`` counts those launches; rows sorted by owner, tile pairs
+    whose owners cannot meet skipped, the computed ones counted in
+    ``distance_topk.tile_stats("qtopk_seg_sq8")``) or raise — no
+    fallback."""
     _require(1 <= kqp <= 128, f"kqp={kqp} outside the kernel's 1..128")
     if xq.device.type == "cpu":
         return sq8_dense_segmented(xq, yq, sx, x2, sy, y2, qseg, cseg, kqp)
@@ -121,14 +137,19 @@ def qtopk_seg_sq8(xq, yq, sx, x2, sy, y2, qseg, cseg, kqp: int):
     _require(q > 0 and n > 0 and 0 < d <= SQ8_DIM_CAP,
              f"unsupported scan shape ({q}, {n}, {d})")
     xq, yq, dp = _pad_codes(xq, yq)
-    bq, bn, s, partial, vals, idx = scan_outputs(q, n, kqp, xq.device)
+    bq, bn, s, bound, flags, partial, vals, idx = _sq8_launch(
+        q, n, kqp, xq.device, segmented=True)
+    n_tiles, q_tiles = -(-n // bn), -(-q // bq)
+    perm, ranges = owner_sort(qseg, q_tiles, n_tiles)
+    counter = tile_counter("qtopk_seg_sq8", xq.device, q_tiles * n_tiles)
     lib = _build.library()
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     _build.check("qtopk_seg_sq8", lib.qtopk_seg_sq8(
         xq.data_ptr(), yq.data_ptr(), sx.data_ptr(), x2.data_ptr(),
         sy.data_ptr(), y2.data_ptr(), qseg.data_ptr(), cseg.data_ptr(),
-        q, n, dp, kqp, bq, bn, s, partial.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), stream))
+        perm.data_ptr(), ranges.data_ptr(), flags.data_ptr(),
+        counter.data_ptr(), bound.data_ptr(), q, n, dp, kqp, bq, bn, s,
+        partial.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream))
     qtopk_seg_sq8.launches += 1
     return vals, idx
 
@@ -160,13 +181,15 @@ def quantized_topk(xq, sx, x2, yq, sy, y2, kqp: int):
     _require(q > 0 and n > 0 and 0 < d <= SQ8_DIM_CAP,
              f"unsupported scan shape ({q}, {n}, {d})")
     xq, yq, dp = _pad_codes(xq, yq)
-    bq, bn, s, partial, vals, idx = scan_outputs(q, n, kqp, xq.device)
+    bq, bn, s, bound, flags, partial, vals, idx = _sq8_launch(
+        q, n, kqp, xq.device, segmented=False)
     lib = _build.library()
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     _build.check("qtopk_sq8", lib.qtopk_sq8(
         xq.data_ptr(), yq.data_ptr(), sx.data_ptr(), x2.data_ptr(),
-        sy.data_ptr(), y2.data_ptr(), q, n, dp, kqp, bq, bn, s,
-        partial.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream))
+        sy.data_ptr(), y2.data_ptr(), flags.data_ptr(), bound.data_ptr(), q,
+        n, dp, kqp, bq, bn, s, partial.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), stream))
     quantized_topk.launches += 1
     return vals, idx
 
@@ -209,6 +232,28 @@ def topk_sq8_rerank(x: torch.Tensor, y: torch.Tensor, k: int, *,
     return d2.gather(1, pos), idx.gather(1, pos).to(torch.int32)
 
 
+def owner_max(own: torch.Tensor, vals: torch.Tensor, n_owners: int):
+    """Per owner, the max of ``vals`` (N, C) fp32, all ≥ 0, over the
+    entries that ``own`` (N,) int64 in [0, n_owners) assigns it, and 0
+    for an owner with none: bit-equal to ``zeros(n_owners,
+    C).scatter_reduce(0, own, vals, "amax")`` (the reference's
+    ``.at[own].max``), since a max is exact in any order.  That scatter
+    sends all N entries to ≤ n_owners addresses, so on the card its
+    atomics serialise.  Here entry i goes to the partial max of (block
+    i // B, owner), so no address takes more than B entries, then a
+    reduction over the blocks.  Non-negative floats order as their bits,
+    so the partial maxima are int32 maxima of the bits (native integer
+    atomics instead of compare-and-swap loops)."""
+    n, c = vals.shape
+    block = max(256, -(-n * n_owners // (1 << 22)))   # ≤ 4M partials
+    slot = (torch.arange(n, device=own.device) // block) * n_owners + own
+    part = torch.zeros((-(-n // block) * n_owners, c), dtype=torch.int32,
+                       device=own.device)
+    part.scatter_reduce_(0, slot[:, None].expand(n, c),
+                         vals.contiguous().view(torch.int32), "amax")
+    return part.view(-1, n_owners, c).amax(0).view(torch.float32)
+
+
 def _sq8_topk_descriptors(vectors, vq, vsc, vsq, vl1, base_ids, deleted, x,
                           qseg, starts, lens, owners, tail_res_ids,
                           tail_res_owners, tail_ship_ids, tail_ship_owners,
@@ -220,7 +265,6 @@ def _sq8_topk_descriptors(vectors, vq, vsc, vsq, vl1, base_ids, deleted, x,
     is (Q, 1).  Returns ``(vals, gids, cert)``: exact reranked distances,
     global ids, and a per-query bool that is True iff the result provably
     equals the fp32 scan's."""
-    dev = x.device
     cand_res, own_res = resident_candidates(
         base_ids, deleted, starts, lens, owners, tail_res_ids,
         tail_res_owners, n_desc)
@@ -285,10 +329,7 @@ def _sq8_topk_descriptors(vectors, vq, vsc, vsq, vl1, base_ids, deleted, x,
     own = cseg.long().clamp(0, qp - 1)      # indexed by OWNER, not row
     u = torch.where(live, sy[:, 0], 0.0)
     t = torch.where(live, sy[:, 0] * (yl1[:, 0] + d / 2.0), 0.0)
-    umax = torch.zeros(qp, dtype=torch.float32, device=dev).scatter_reduce(
-        0, own, u, "amax")
-    tmax = torch.zeros(qp, dtype=torch.float32, device=dev).scatter_reduce(
-        0, own, t, "amax")
+    umax, tmax = owner_max(own, torch.stack([u, t], 1), qp).unbind(1)
     oq = qseg[:, 0].long().clamp(0, qp - 1)
     eps = sx[:, 0] * (xl1[:, 0] * umax[oq] + tmax[oq])
     qkq = vals_q[:, -1]                      # kq-th kept quantized dist
@@ -331,4 +372,5 @@ def topk_sq8_segmented_desc(vectors, quant, base_ids, deleted, x, qseg,
 
 __all__ = ["SQ8_MAX_K", "sq8_supported", "quantize_sq8", "quantize_sq8_ext",
            "qtopk_seg_sq8", "sq8_dense_segmented", "quantized_topk",
-           "sq8_dense", "topk_sq8_rerank", "topk_sq8_segmented_desc"]
+           "sq8_dense", "topk_sq8_rerank", "topk_sq8_segmented_desc",
+           "owner_max"]

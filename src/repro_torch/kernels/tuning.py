@@ -7,18 +7,28 @@ thread block: 227 KB of shared memory (``SMEM_BUDGET``) out of the SM's
 registers per SM.  Every scan kernel runs 256 threads.  Two product
 loops, two policies:
 
-**SQ8 kernels** (``csrc/qtopk_seg.cu``; ``select_tiles``, ``smem_bytes``).
-A 16×16 thread grid, each thread owning a (block_q/16)×(block_n/16)
-register tile, so a tile is a multiple of 16 rows on each side and at
-most 64×64.  The per-block working set is
+**SQ8 kernels** (``csrc/qtopk_seg.cu``; ``SQ8_TILE``,
+``select_sq8_splits``, ``sq8_smem_bytes``).  Int8 tensor-core products
+(``mma.sync`` m16n8k32), eight warps of 32×32 outputs each over one
+32×256 block tile.  d is walked in ``SQ8_CHUNK``-byte chunks through two
+shared stages; a tile's fp32 distance tile, block_q·(block_n + 8)·4
+bytes, lives in the stage its last chunk used.  The per-block working
+set is
 
-    block_q·k·8                              running top-k keys (u64)
-  + CHUNK_WORDS·(block_q + 1 + block_n + 1)·4   one d-chunk of both operands
-  + block_q·(block_n + 1)·4                  distance tile (fp32)
-  + (block_q + block_n)·16                   per-row / per-column scalars
+    2·SQ8_CHUNK·(block_q + block_n)          the two operand stages (int8)
+  + (6·block_q + 3·block_n)·4                per-row / per-column scalars
+  + block_q·CANDIDATES                       listed fold candidates (u8)
+  + block_q·k·8                              running top-k keys (u64)
 
-``select_tiles`` grows the candidate axis first, then the query axis,
-never past what the problem needs.
+and the CUDA entry points compute the same sum: two blocks fit on an SM
+up to k = 128.  The small row tile lets kernel B's owner skip bite, and
+unsegmented it beat on the H100 a 128×64 tile that holds all Q = 128
+rows (whose fold pays each row's overhead for 64 columns instead of
+256; ``PERF.md``).  Splits:
+``select_splits``' two blocks per SM, and when segmented about
+``SQ8_SEG_TILES_PER_SPLIT`` column tiles per split (the kernel's
+partial lists and merge cost more per split than kernel A's, so its
+splits are longer).
 
 **fp32 kernels** (``csrc/topk_seg.cu``, ``csrc/pairwise.cu``;
 ``select_f32_tiles``, ``select_f32_splits``, ``f32_smem_bytes``).  Two
@@ -31,7 +41,7 @@ stages.  The per-block working set of the top-k pass is
   + max(2·F32_CHUNK·(block_q + block_n),      the two operand stages, or
         block_q·(block_n + 4))·4               the distance tile over them
   + (5·block_q + 2·block_n)·4                per-row / per-column scalars
-  + block_q·F32_CANDIDATES                   listed fold candidates (u8)
+  + block_q·CANDIDATES                       listed fold candidates (u8)
 
 and of the pairwise block (k = 0, no lists, no distance tile: it stores
 from registers) ``2·F32_CHUNK·(block_q + block_n)·4 + (2·block_q +
@@ -56,11 +66,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
-TILE_MULT = 16                  # rows per side of the 16×16 thread grid
-MAX_BLOCK_Q = 64
-MAX_BLOCK_N = 64
 SMEM_BUDGET = 232_448           # bytes: 227 KB usable by one H100 block
-CHUNK_WORDS = 32                # 32-bit words of one operand d-chunk
 SM_COUNT = 132                  # H100 SXM
 BLOCKS_PER_SM = 2               # split target: keep ≥ 2 blocks per SM
 SM_SMEM = 233_472               # bytes of shared memory per H100 SM
@@ -71,39 +77,15 @@ F32_WIDE = (128, 128)
 F32_NARROW = (32, 256)
 F32_TILES = {F32_WIDE: (8, 8), F32_NARROW: (8, 4)}
 F32_CHUNK = 16                  # 32-bit words of one operand d-chunk
-F32_CANDIDATES = 32             # listed fold candidates per row and tile
 F32_SEG_TILES_PER_SPLIT = 4     # column tiles per split, segmented
 F32_PARTIAL_CAP = 64 << 20      # bytes of partial lists per launch
+CANDIDATES = 32                 # listed fold candidates per row and tile
+SQ8_TILE = (32, 256)            # SQ8 kernels' block tile (rows, columns)
+SQ8_CHUNK = 128                 # bytes of an operand row in one d-chunk
+SQ8_SEG_TILES_PER_SPLIT = 20    # column tiles per split, segmented
 # SQ8 eligibility: the executor falls back to the fp32 scan past this
 # dim (see quant.sq8_supported); the int8 kernel takes any d up to it
 SQ8_DIM_CAP = 4096
-
-
-def smem_bytes(bq: int, bn: int, k: int) -> int:
-    """Dynamic shared memory of one scan block (module docstring); k = 0
-    is the pairwise kernel, which keeps no top-k lists."""
-    return (bq * k * 8
-            + CHUNK_WORDS * (bq + 1 + bn + 1) * 4
-            + bq * (bn + 1) * 4
-            + (bq + bn) * 16)
-
-
-def select_tiles(q: int, n: int, *, k: int = 0) -> Tuple[int, int]:
-    """Pick ``(block_q, block_n)`` for a (Q, d) × (N, d) scan kernel with
-    a running top-k of width ``k`` (≤ 128; 0 for the pairwise kernel).
-    The kernels walk d in chunks of ``CHUNK_WORDS`` 32-bit words whatever
-    the dtype, so d and the operand type set the number of chunks, not
-    the block's footprint."""
-    bq = bn = TILE_MULT
-
-    def fits(a: int, b: int) -> bool:
-        return smem_bytes(a, b, k) <= SMEM_BUDGET
-
-    while bn < MAX_BLOCK_N and bn < n and fits(bq, bn + TILE_MULT):
-        bn += TILE_MULT
-    while bq < MAX_BLOCK_Q and bq < q and fits(bq + TILE_MULT, bn):
-        bq += TILE_MULT
-    return bq, bn
 
 
 def select_splits(q: int, n: int, block_q: int, block_n: int) -> int:
@@ -123,7 +105,7 @@ def f32_smem_bytes(bq: int, bn: int, k: int) -> int:
     if k == 0:
         return stages * 4 + (2 * bq + bn) * 4
     return bq * k * 8 + max(stages, bq * (bn + 4)) * 4 \
-        + (5 * bq + 2 * bn) * 4 + bq * F32_CANDIDATES
+        + (5 * bq + 2 * bn) * 4 + bq * CANDIDATES
 
 
 def f32_blocks_per_sm(bq: int, bn: int, k: int) -> int:
@@ -143,22 +125,42 @@ def select_f32_tiles(q: int, *, k: int = 0,
     return F32_NARROW
 
 
+def _splits(q: int, n: int, block_q: int, block_n: int, k: int,
+            segmented: bool, per_split: int) -> int:
+    s = select_splits(q, n, block_q, block_n)
+    if segmented:
+        n_tiles = max(1, math.ceil(n / block_n))
+        cap = F32_PARTIAL_CAP // max(1, q * k * 8)
+        s = max(s, min(math.ceil(n_tiles / per_split), cap))
+    return min(s, 65_535)
+
+
 def select_f32_splits(q: int, n: int, block_q: int, block_n: int, *,
                       k: int, segmented: bool = False) -> int:
     """N-splits S of the fp32 split-N pass: ``select_splits``' two blocks
     per SM, raised when segmented to about ``F32_SEG_TILES_PER_SPLIT``
     column tiles per split while the partial lists (Q·S·k·8 bytes) stay
     under ``F32_PARTIAL_CAP``; at most one split per column tile."""
-    s = select_splits(q, n, block_q, block_n)
-    if segmented:
-        n_tiles = max(1, math.ceil(n / block_n))
-        cap = F32_PARTIAL_CAP // max(1, q * k * 8)
-        s = max(s, min(math.ceil(n_tiles / F32_SEG_TILES_PER_SPLIT), cap))
-    return min(s, 65_535)
+    return _splits(q, n, block_q, block_n, k, segmented,
+                   F32_SEG_TILES_PER_SPLIT)
 
 
-__all__ = ["select_tiles", "select_splits", "smem_bytes", "SMEM_BUDGET",
-           "MAX_BLOCK_Q", "MAX_BLOCK_N", "TILE_MULT", "CHUNK_WORDS",
-           "SM_COUNT", "SQ8_DIM_CAP", "select_f32_tiles", "select_f32_splits",
-           "f32_smem_bytes", "f32_blocks_per_sm", "F32_TILES", "F32_WIDE",
-           "F32_NARROW", "F32_CHUNK", "THREADS"]
+def sq8_smem_bytes(bq: int, bn: int, k: int) -> int:
+    """Dynamic shared memory of one SQ8 pass block (module docstring)."""
+    return (2 * SQ8_CHUNK * (bq + bn) + (6 * bq + 3 * bn) * 4
+            + bq * CANDIDATES + bq * k * 8)
+
+
+def select_sq8_splits(q: int, n: int, block_q: int, block_n: int, *,
+                      k: int, segmented: bool = False) -> int:
+    """N-splits S of the SQ8 split-N pass: the fp32 rule with
+    ``SQ8_SEG_TILES_PER_SPLIT`` column tiles per split when segmented."""
+    return _splits(q, n, block_q, block_n, k, segmented,
+                   SQ8_SEG_TILES_PER_SPLIT)
+
+
+__all__ = ["select_splits", "SMEM_BUDGET", "SM_COUNT", "SQ8_DIM_CAP",
+           "select_f32_tiles", "select_f32_splits", "f32_smem_bytes",
+           "f32_blocks_per_sm", "F32_TILES", "F32_WIDE", "F32_NARROW",
+           "F32_CHUNK", "THREADS", "CANDIDATES", "select_sq8_splits",
+           "sq8_smem_bytes", "SQ8_TILE", "SQ8_CHUNK"]

@@ -333,18 +333,35 @@ def test_beam_capacity_raise_in_both_packages(ref, graphs, pkg):
 # H100 tile policy and wrapper contracts (no card needed)
 # --------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("q,n,k", [(4, 100, 8), (128, 2_097_152, 16),
-                                   (1000, 64, 128), (64, 10 ** 6, 40)])
-def test_select_tiles_h100_budget(q, n, k):
-    bq, bn = ttune.select_tiles(q, n, k=k)
-    assert bq % 16 == 0 and bn % 16 == 0
-    assert 16 <= bq <= ttune.MAX_BLOCK_Q and 16 <= bn <= ttune.MAX_BLOCK_N
-    assert ttune.smem_bytes(bq, bn, k) <= ttune.SMEM_BUDGET
-    assert bq <= max(16, -(-q // 16) * 16)       # never past the problem
-    s = ttune.select_splits(q, n, bq, bn)
-    assert 1 <= s <= -(-n // bn)
-    if n >= 10 ** 6:                             # ≥ 2 blocks per SM
-        assert -(-q // bq) * s >= 2 * ttune.SM_COUNT
+@pytest.mark.parametrize("d", [8, 100, 128, 4096])
+@pytest.mark.parametrize("kqp", [8, 40, 128])
+def test_sq8_tile_and_splits_h100_budget(kqp, d):
+    """The SQ8 kernels' policy: a tile of eight 32×32 warp tiles whose
+    columns fit the fold's u8 candidate slots, two blocks of it per SM
+    within the H100's shared memory at any kqp (d is walked in chunks, so
+    it does not change the footprint), and splits that keep ≥ 2 blocks
+    per SM at N ≥ 10⁶, at most one per column tile, the partial lists
+    under the cap."""
+    bq, bn = ttune.SQ8_TILE
+    dp = -(-d // 16) * 16
+    assert dp <= ttune.SQ8_DIM_CAP
+    assert bq % 32 == 0 and bn % 32 == 0 and bn <= 256
+    assert (bq // 32) * (bn // 32) * 32 == ttune.THREADS
+    assert ttune.sq8_smem_bytes(bq, bn, kqp) <= ttune.SMEM_BUDGET
+    assert bq * (bn + 8) * 4 <= ttune.SQ8_CHUNK * (bq + bn)  # dist in a stage
+    per_block = ttune.sq8_smem_bytes(bq, bn, kqp) \
+        + ttune.SMEM_PER_BLOCK_RESERVED
+    assert ttune.SM_SMEM // per_block >= 2       # two blocks per SM
+    for q in (1, 100, 128, 1000):
+        for segmented in (False, True):
+            for n in (1000, 2_097_152):
+                s = ttune.select_sq8_splits(q, n, bq, bn, k=kqp,
+                                            segmented=segmented)
+                assert 1 <= s <= max(-(-n // bn), 1) and s <= 65_535
+                if n >= 10 ** 6:
+                    assert -(-q // bq) * s >= 2 * ttune.SM_COUNT
+                if segmented and s > ttune.select_splits(q, n, bq, bn):
+                    assert q * s * kqp * 8 <= ttune.F32_PARTIAL_CAP
 
 
 @pytest.mark.parametrize("k", [1, 16, 40, 128])
@@ -443,10 +460,12 @@ def test_gpu_topk_seg_f32_matches_plain(cuda, metric, accum, kp, n, d, dup):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kqp,n,d", [(40, 5000, 128), (128, 3000, 64),
-                                     (32, 777, 100), (40, 700, 4096)])
-def test_gpu_qtopk_seg_sq8_bit_equal(cuda, kqp, n, d):
-    x, y, qseg, cseg = _seg_data(13, q=100, n=n, d=d, owners=4)
+@pytest.mark.parametrize("kqp,q,n,d", [
+    (40, 100, 5000, 128), (128, 100, 3000, 64), (32, 100, 777, 100),
+    (40, 100, 700, 4096), (8, 37, 1037, 8), (40, 129, 2049, 100),
+    (128, 70, 999, 130), (8, 1, 300, 128)])
+def test_gpu_qtopk_seg_sq8_bit_equal(cuda, kqp, q, n, d):
+    x, y, qseg, cseg = _seg_data(13, q=q, n=n, d=d, owners=4)
     xq, sx, x2 = tq.quantize_sq8(_t(x, cuda))
     yq, sy, y2 = tq.quantize_sq8(_t(y, cuda))
     args = (xq, yq, sx[:, 0].contiguous(), x2[:, 0].contiguous(),

@@ -280,11 +280,12 @@ def test_gpu_topk_f32_matches_plain(cuda, metric, accum, kp, n, d, dup):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kqp,n,d", [(40, 5000, 128), (128, 3000, 64),
-                                     (32, 777, 100), (40, 700, 4096),
-                                     (64, 30, 16)])
-def test_gpu_qtopk_sq8_bit_equal(cuda, kqp, n, d):
-    x, y = _data(13, 100, n, d)
+@pytest.mark.parametrize("kqp,q,n,d", [
+    (40, 100, 5000, 128), (128, 100, 3000, 64), (32, 100, 777, 100),
+    (40, 100, 700, 4096), (64, 100, 30, 16), (40, 128, 4097, 128),
+    (8, 129, 1037, 8), (8, 33, 2000, 130), (128, 1, 999, 100)])
+def test_gpu_qtopk_sq8_bit_equal(cuda, kqp, q, n, d):
+    x, y = _data(13, q, n, d)
     xq, sx, x2 = tq.quantize_sq8(_t(x, cuda))
     yq, sy, y2 = tq.quantize_sq8(_t(y, cuda))
     args = (xq, sx[:, 0].contiguous(), x2[:, 0].contiguous(), yq,
