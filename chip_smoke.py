@@ -47,13 +47,33 @@ Phases:
      must move, and each is held against its plain version on the inputs
      the phase gave it and timed beside its plain version, the torch
      composition, the one PyTorch call where there is one, and its bound;
-  5. graph states, inserts past the upload watermark, deletes and one
+  5. serving, on the main path's index (not rebuilt): (a) checkpoint it
+     to a temporary directory (bytes, save time) and restore it as a
+     ``RetrievalEngine`` (time to the first answered wave; the answers
+     must equal the original's); (b) one scripted stream — 32 read
+     waves of 64 requests in segments of 8, write bursts of new
+     scale records and deletes between segments, one forced compaction
+     — through ``ContinuousBatcher(pipeline=False)`` and
+     ``pipeline=True`` on engines restored from the checkpoint, under
+     ``sq8`` and ``none``: every read equal across the two modes (ids,
+     distances after rounding to 5 decimals), recall 1.0 against a brute
+     force on the card, the same launches per wave in both modes; read
+     QPS, wave p50, the ``pipeline_*`` counters and the device-busy share
+     of 8 warm waves under the profiler, in turns (sync, pipelined,
+     pipelined, sync); (c) a 2-replica
+     ``ReplicaSet.from_engine`` behind a ``ReplicatedRouter``, one
+     replica killed mid-churn and rejoined from the checkpoint plus a
+     replay of the log: no request lost or duplicated, every answer
+     equal to a single-replica oracle's, the rejoin time;
+  6. graph states, inserts past the upload watermark, deletes and one
      compaction on ``make_corpus("code")`` with ``T=50, M=8, ef_con=60``:
      every wave equals the same index run through the port's plain
      PyTorch path on the CPU (near ties aside), graph-free requests equal
      the NumPy host oracle, and every answer is a live record that
-     satisfies its predicate at its true distance;
-  6. the ``kernels`` line; 7. the card line and the ``ok`` line.
+     satisfies its predicate at its true distance; then one profiled
+     wave (``graphs_profile``: the host time blocked in the beam's
+     convergence checks and the copies);
+  7. the ``kernels`` line; 8. the card line and the ``ok`` line.
 
 ``--phases build`` or ``--phases build,edges`` runs only those phases
 and stops without the ``kernels`` and ``ok`` lines: a short check of new
@@ -853,7 +873,8 @@ def phase_main_path():
         rt._sq8_bad_streak = 0      # so the sq8 wave runs the SQ8 scan
         profile_wave(vm, qsets[0], patterns, mode)
     return (cap_a.args, launches_a, tiles_a), \
-        (cap_b.args, launches_b, tiles_b), cap_call.args, dev_vecs
+        (cap_b.args, launches_b, tiles_b), cap_call.args, dev_vecs, \
+        (vm, vecs, rows_of, patterns)
 
 
 # --------------------------------------------------------------------- #
@@ -1051,10 +1072,19 @@ def measure_pairwise_f32(args, kwargs, launches):
                 "accum", "f32")}}
 
 
-def device_profile(fn):
+# host calls that block on the device: the runtime's waits and copies,
+# and ``aten::_local_scalar_dense`` (a tensor read as a Python scalar,
+# e.g. the SQ8 certificate's ``bool(cert.all())``)
+BLOCKING = ("cudaStreamSynchronize", "cudaEventSynchronize",
+            "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaMemcpy",
+            "aten::_local_scalar_dense")
+
+
+def device_profile(fn, blocking=None):
     """``fn()`` once under ``torch.profiler``: (wall ms, device busy ms or
     None when the trace holds no device time, the top 8 device kernels
-    by time)."""
+    by time).  With ``blocking`` (a dict), it also receives the host
+    time and count of each ``BLOCKING`` call and of kernel launches."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1065,6 +1095,10 @@ def device_profile(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
+        if blocking is not None and (e.key in BLOCKING
+                                     or e.key == "cudaLaunchKernel"):
+            blocking[e.key] = {"ms": e.cpu_time_total / 1e3,
+                               "count": e.count}
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue                # host ops would count their kernels twice
         dev_us = getattr(e, "self_device_time_total", None)
@@ -1082,15 +1116,395 @@ def profile_wave(vm, queries, patterns, mode: str) -> None:
     """One wave under ``torch.profiler``: device time by kernel name and
     the device's busy share of the wave's wall time.  Run after the
     counted waves, so its launches count nowhere."""
+    blocked = {}
     wall_ms, busy, top = device_profile(
-        lambda: vm.query_batch(queries, patterns, K))
+        lambda: vm.query_batch(queries, patterns, K), blocked)
     emit(phase="profile", mode=mode, wall_ms=wall_ms, device_busy_ms=busy,
          device_idle_share=None if busy is None else 1 - busy / wall_ms,
-         top=top)
+         top=top, host_blocked=blocked)
 
 
 # --------------------------------------------------------------------- #
-# phase 5: graph states, churn and compaction
+# phase 5: serving — checkpoint/restore, one stream twice, kill/rejoin
+# --------------------------------------------------------------------- #
+
+SERVE_WAVES = 32            # read waves of the stream
+SERVE_SEGMENT = 8           # read waves between write bursts
+SERVE_INSERTS = 10          # inserts per write burst
+SERVE_DELETES = 60          # deletes per write burst
+
+
+class FakeClock:
+    """The router's liveness clock, advanced by the script (heartbeat
+    verdicts replay identically whatever the card's speed)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def sleep(self, s):
+        self.t += s
+
+
+def new_scale_records(start: int, count: int, dim: int):
+    """Records ``start .. start+count-1`` of ``make_scale_corpus``'s
+    generator: new records past a table of ``start`` rows."""
+    from repro_torch.data.corpora import scale_sequences, stream_scale_vectors
+    blocks = [(s0, blk) for s0, blk in stream_scale_vectors(start + count,
+                                                            dim)
+              if s0 + len(blk) > start]
+    vecs = np.concatenate([blk for _, blk in blocks])
+    lo = start - blocks[0][0]
+    return vecs[lo:lo + count], scale_sequences(start + count)[start:]
+
+
+def _snap_rows(res):
+    """(ids, distances rounded to 5 decimals) per request."""
+    return [(i.tolist(), np.round(d, 5).tolist()) for d, i in res]
+
+
+def _ckpt_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def build_stream(vecs, ins_vecs, ins_seqs, rng):
+    """The scripted stream: ``SERVE_WAVES`` read waves of 64 requests in
+    segments of ``SERVE_SEGMENT`` waves; before every segment but the
+    first, a write burst (inserts of the new records, deletes of live
+    base ids), and a forced compaction before the third segment."""
+    n, dim = vecs.shape
+    n_bursts = SERVE_WAVES // SERVE_SEGMENT - 1
+    victims = rng.choice(n, n_bursts * SERVE_DELETES, replace=False)
+    segments = []
+    for s in range(SERVE_WAVES // SERVE_SEGMENT):
+        writes = []
+        if s:
+            b = s - 1
+            for j in range(b * SERVE_INSERTS, (b + 1) * SERVE_INSERTS):
+                writes.append(("insert", ins_vecs[j], ins_seqs[j]))
+            for vid in victims[b * SERVE_DELETES:(b + 1) * SERVE_DELETES]:
+                writes.append(("delete", int(vid)))
+            if s == 2:
+                writes.append(("compact",))
+        waves = [(vecs[rng.integers(0, n, 64)]
+                  + 0.3 * rng.standard_normal((64, dim))).astype(np.float32)
+                 for _ in range(SERVE_SEGMENT)]
+        segments.append((writes, waves))
+    return segments
+
+
+def stream_oracle(vecs, rows_of, patterns, segments, ins_vecs, ins_seqs):
+    """Brute-force answers on the card for every read wave: each segment
+    sees the base plus the inserts so far, minus the deletes so far."""
+    n = len(vecs)
+    table = torch.from_numpy(np.concatenate([vecs, ins_vecs])).cuda()
+    new_rows = matching_rows(ins_seqs, patterns)
+    out, n_ins, gone = [], 0, set()
+    for writes, waves in segments:
+        for w in writes:
+            if w[0] == "insert":
+                n_ins += 1
+            elif w[0] == "delete":
+                gone.add(w[1])
+        dead = np.fromiter(gone, np.int64, len(gone))
+        live = {p: np.concatenate([
+                    rows[~np.isin(rows, dead)],
+                    n + new_rows[p][new_rows[p] < n_ins]])
+                for p, rows in rows_of.items()}
+        out.extend(brute_force(table, live, q, patterns, K) for q in waves)
+    del table
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_stream(ckpt, quantize, pipeline, patterns, segments):
+    """Serve the scripted stream through ``ContinuousBatcher`` on an
+    engine restored from ``ckpt``: per-wave results, the read waves'
+    wall time (QPS; each write burst lands at a barrier and is timed
+    apart), wave completion intervals, launch counts, pipeline counters
+    and the device-busy share of 8 warm read waves under the
+    profiler."""
+    from repro_torch.kernels import distance_topk, ops, quant
+    from repro_torch.serve.batching import ContinuousBatcher
+    from repro_torch.serve.engine import Request, RetrievalEngine
+
+    eng = RetrievalEngine.restore(ckpt, device="cuda")
+    eng.index.config.quantize = quantize
+    eng.query_batch(segments[0][1][0], patterns, K)   # upload + warm-up
+    torch.cuda.synchronize()
+    done_at = []
+    stage_s = {"plan": [], "dispatch": [], "fetch": []}
+
+    def timed(stage, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            t1 = time.perf_counter()
+            stage_s[stage].append(t1 - t0)
+            if stage == "fetch":
+                done_at.append(t1)
+            return out
+        return call
+
+    for stage in stage_s:                 # the engine's three stages
+        name = f"{stage}_batch"
+        setattr(eng, name, timed(stage, getattr(eng, name)))
+    b = ContinuousBatcher(eng, budget=10 ** 9, max_wave=64,
+                          pipeline=pipeline)
+    ops.reset_launch_stats()
+    distance_topk.topk_seg_f32.launches = 0
+    quant.qtopk_seg_sq8.launches = 0
+    results, intervals, wall, write_s = [], [], 0.0, 0.0
+    read_stage_s = {k: [] for k in stage_s}
+    try:
+        for writes, waves in segments:
+            for w in writes:
+                if w[0] == "insert":
+                    b.submit_insert(w[1], w[2])
+                elif w[0] == "delete":
+                    b.submit_delete(w[1])
+                else:
+                    b.submit_compact()
+            t0 = time.perf_counter()
+            b.drain()                   # the burst lands at a barrier
+            write_s += time.perf_counter() - t0
+            tickets = [[b.submit(Request(vector=v, pattern=p, k=K))
+                        for v, p in zip(q, patterns)] for q in waves]
+            start = len(done_at)
+            before = {k: len(v) for k, v in stage_s.items()}
+            t0 = time.perf_counter()
+            res = b.drain()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            for k, v in stage_s.items():
+                read_stage_s[k] += v[before[k]:]
+            intervals += np.diff(done_at[start:]).tolist()
+            results += [[(res[t].distances, res[t].ids) for t in ts]
+                        for ts in tickets]
+        launches = {"topk_seg_f32": distance_topk.topk_seg_f32.launches,
+                    "qtopk_seg_sq8": quant.qtopk_seg_sq8.launches,
+                    **ops.launch_stats()}
+        stats = b.maintenance_stats()
+        warm = segments[-1][1]
+        for q in warm:
+            for v, p in zip(q, patterns):
+                b.submit(Request(vector=v, pattern=p, k=K))
+        blocked = {}
+        wall_ms, busy, top = device_profile(b.drain, blocked)
+    finally:
+        b.close()
+    reads = SERVE_WAVES * len(patterns)
+    line = {
+        "quantize": quantize, "pipeline": pipeline,
+        "qps": reads / wall, "reads_s": wall, "writes_s": write_s,
+        "wave_ms_p50": float(np.median(intervals)) * 1e3,
+        "wave_ms_p25_p75": (np.percentile(intervals, [25, 75]) * 1e3
+                            ).tolist(),
+        "stage_ms_p50": {k: float(np.median(v)) * 1e3
+                         for k, v in read_stage_s.items()},
+        "stage_ms_mean": {k: float(np.mean(v)) * 1e3
+                          for k, v in read_stage_s.items()},
+        "launches_per_wave": {k: v / SERVE_WAVES
+                              for k, v in launches.items()},
+        "pipeline_counters": {k: v for k, v in stats.items()
+                              if k.startswith(("pipeline_", "staging_",
+                                               "device_idle",
+                                               "planner_wait"))},
+        "writes_applied": b.writes_applied,
+        "sq8_stats": {k: v for k, v in stats.items()
+                      if k.startswith("sq8_")},
+        "host_ms": {k: v for k, v in stats.items() if k.startswith("time_")},
+        "window": {"waves": len(warm), "wall_ms": wall_ms,
+                   "device_busy_ms": busy,
+                   "qps": len(warm) * len(patterns) / wall_ms * 1e3,
+                   "device_busy_share": None if busy is None
+                   else busy / wall_ms, "top": top[:4],
+                   "host_blocked": blocked}}
+    del eng, b
+    torch.cuda.empty_cache()
+    return results, launches, line
+
+
+def kill_and_rejoin(ckpt, tmp, patterns, vecs, ins_vecs, ins_seqs, rng):
+    """A 2-replica set attached to an engine restored from ``ckpt``,
+    behind a router; r1 is killed at wave 4 mid-churn and rejoins at wave
+    9 from the attach checkpoint plus a replay of the log.  Every answer
+    must equal a single-replica oracle's."""
+    from repro_torch.distributed.replication import (FaultInjector,
+                                                     ReplicaSet)
+    from repro_torch.serve.engine import RetrievalEngine
+    from repro_torch.serve.router import ReplicatedRouter
+
+    n, dim = vecs.shape
+    leader = RetrievalEngine.restore(ckpt, device="cuda")
+    oracle = RetrievalEngine.restore(ckpt, device="cuda")
+    t0 = time.perf_counter()
+    rs = ReplicaSet.from_engine(leader, n_replicas=2,
+                                ckpt_dir=str(Path(tmp) / "replicas"))
+    attach_s = time.perf_counter() - t0
+    clk = FakeClock()
+    inj = FaultInjector()
+    inj.kill("r1", at_wave=4)
+    inj.rejoin("r1", at_wave=9)
+    router = ReplicatedRouter(rs, heartbeat_timeout_s=5.0, clock=clk,
+                              sleep=clk.sleep, injector=inj)
+    rejoin_s = []
+    rejoin = router.rejoin
+
+    def timed_rejoin(name, devices=None):
+        t1 = time.perf_counter()
+        r = rejoin(name, devices=devices)
+        rejoin_s.append(time.perf_counter() - t1)
+        return r
+
+    router.rejoin = timed_rejoin
+    waves = 12
+    victims = iter(rng.choice(n, waves, replace=False).tolist())
+    bit_exact = answers = 0
+    t0 = time.perf_counter()
+    for w in range(waves):
+        vid = router.submit_insert(ins_vecs[w], ins_seqs[w])
+        check(vid == oracle.insert(ins_vecs[w], ins_seqs[w]),
+              f"insert id {vid} differs from the oracle's")
+        if w % 3 == 1:
+            victim = next(victims)
+            router.submit_delete(victim)
+            oracle.delete(victim)
+        if w == 6:
+            router.submit_compact()
+            oracle.compact()
+        q = (vecs[rng.integers(0, n, 64)]
+             + 0.3 * rng.standard_normal((64, dim))).astype(np.float32)
+        got = router.serve_wave(q, patterns, K)
+        want = oracle.query_batch(q, patterns, K)
+        check(_snap_rows(got) == _snap_rows(want),
+              f"replicated answers differ from the oracle's at wave {w}")
+        bit_exact += sum(np.array_equal(gd, wd) and np.array_equal(gi, wi)
+                         for (gd, gi), (wd, wi) in zip(got, want))
+        answers += len(got)
+        clk.t += 2.0
+    churn_s = time.perf_counter() - t0
+    router.assert_no_loss()
+    st = router.router_stats()
+    check(st["accepted"] == st["answered"] == waves,
+          f"router accepted {st['accepted']}, answered {st['answered']}")
+    check(st["rejoined"] == 1 and len(rejoin_s) == 1, "r1 did not rejoin")
+    check(st["failovers"] >= 1, "the kill was never observed")
+    check(("kill", 4, "r1") in inj.events, "the kill did not fire")
+    r1 = rs.replicas["r1"]
+    check(r1.alive and r1.serving and rs.lag(r1) == 0,
+          "the rejoined replica is not serving at the watermark")
+    out = {"replicas": 2, "waves": waves, "requests": answers,
+           "attach_s": attach_s, "rejoin_s": rejoin_s[0],
+           "churn_s": churn_s, "answers_bit_exact": bit_exact,
+           "router": {k: st[k] for k in
+                      ("accepted", "answered", "failovers", "retries",
+                       "ejected", "rejoined", "commit_lsn")},
+           "events": [list(e) for e in inj.events]}
+    del leader, oracle, rs, router
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving(vm, vecs, rows_of, patterns) -> None:
+    """The serving tier on the main path's 1,048,576 × 128 index: (a)
+    checkpoint and restore, (b) one scripted stream through the
+    synchronous and the pipelined ``ContinuousBatcher`` under ``sq8``
+    and ``none``, (c) kill and rejoin a replica behind the router."""
+    import tempfile
+
+    from repro_torch.kernels import distance_topk, quant
+    from repro_torch.serve.engine import RetrievalEngine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(7)
+    with tempfile.TemporaryDirectory(prefix="serving_") as tmp:
+        # (a) checkpoint and restore
+        ckpt = str(Path(tmp) / "index")
+        t0 = time.perf_counter()
+        vm.save(ckpt)
+        save_s = time.perf_counter() - t0
+        q = (vecs[rng.integers(0, len(vecs), 64)]
+             + 0.3 * rng.standard_normal((64, vecs.shape[1]))).astype(
+            np.float32)
+        vm.runtime.quantize = "sq8"
+        t0 = time.perf_counter()
+        eng = RetrievalEngine.restore(ckpt, device="cuda")
+        got = eng.query_batch(q, patterns, K)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        check(_snap_rows(got) == _snap_rows(vm.query_batch(q, patterns, K)),
+              "the restored engine answers differently")
+        emit(phase="serving_checkpoint", bytes=_ckpt_bytes(ckpt),
+             save_s=save_s, restore_to_first_wave_s=recover_s,
+             files=sorted(p.name for p in Path(ckpt).iterdir()))
+        del eng
+        torch.cuda.empty_cache()
+
+        # (b) one stream, served twice, under each scan
+        n_bursts = SERVE_WAVES // SERVE_SEGMENT - 1
+        ins_vecs, ins_seqs = new_scale_records(
+            len(vecs), n_bursts * SERVE_INSERTS, vecs.shape[1])
+        segments = build_stream(vecs, ins_vecs, ins_seqs, rng)
+        oracle = stream_oracle(vecs, rows_of, patterns, segments,
+                               ins_vecs, ins_seqs)
+        distance_topk.topk_seg_f32.launches = 0
+        quant.qtopk_seg_sq8.launches = 0
+        lines = []
+        for quantize in ("sq8", "none"):
+            # in turns — sync, pipelined, pipelined, sync — so the two
+            # modes are compared within one call on one card
+            runs = [(mode, run_stream(ckpt, quantize, mode, patterns,
+                                      segments))
+                    for mode in (False, True, True, False)]
+            res_s, la_s, _ = runs[0][1]
+            for w in range(SERVE_WAVES):
+                rec = recall_check(res_s[w], oracle[w])
+                check(rec == 1.0, f"recall {rec} < 1.0 ({quantize}, "
+                      f"wave {w})")
+            for turn, (mode, (res, la, line)) in enumerate(runs):
+                for w in range(SERVE_WAVES):
+                    check(_snap_rows(res[w]) == _snap_rows(res_s[w]),
+                          f"wave {w} of turn {turn} differs from the sync "
+                          f"oracle ({quantize})")
+                check(la == la_s, f"launches differ between turns "
+                      f"({quantize}): {la_s} vs {la}")
+                check(not mode or line["pipeline_counters"].get(
+                    "pipeline_waves", 0) >= SERVE_WAVES,
+                      "the pipelined run did not pipeline")
+                line.update(turn=turn, recall=1.0)
+                emit(phase="serving_stream", **line)
+                lines.append(line)
+        check(sum(line["launches_per_wave"]["qtopk_seg_sq8"]
+                  for line in lines) > 0,
+              "kernel B never launched in the serving phase")
+        check(sum(line["launches_per_wave"]["topk_seg_f32"]
+                  for line in lines) > 0,
+              "kernel A never launched in the serving phase")
+        del oracle
+
+        # (c) kill a replica mid-churn and rejoin it
+        out = kill_and_rejoin(ckpt, tmp, patterns, vecs, ins_vecs,
+                              ins_seqs, rng)
+        emit(phase="serving_replicas", **out)
+    summary = {}
+    for line in lines:
+        name = (f"{line['quantize']}/"
+                f"{'pipelined' if line['pipeline'] else 'sync'}")
+        summary.setdefault(name, {"qps": [], "wave_ms_p50": [],
+                                  "device_busy_share": []})
+        summary[name]["qps"].append(line["qps"])
+        summary[name]["wave_ms_p50"].append(line["wave_ms_p50"])
+        summary[name]["device_busy_share"].append(
+            line["window"]["device_busy_share"])
+    emit(phase="serving_done", seconds=time.perf_counter() - t_phase,
+         turns=summary)
+
+
+# --------------------------------------------------------------------- #
+# phase 6: graph states, churn and compaction
 # --------------------------------------------------------------------- #
 
 def _graph_free_requests(vm, patterns):
@@ -1183,6 +1597,17 @@ def phase_graphs() -> None:
          launch_graph_fused=stats["cuda"].get("launch_graph_fused", 0),
          launch_graph_fused_filt=stats["cuda"].get(
              "launch_graph_fused_filt", 0))
+    # after the counted waves, one wave on the card under the profiler:
+    # what the beam's every-16-steps convergence check (``bool(active.
+    # any())``, under ``aten::_local_scalar_dense``) and the copies cost
+    # the host
+    blocked = {}
+    q = rng.standard_normal((len(patterns), vecs.shape[1])).astype(
+        np.float32)
+    wall_ms, busy, top = device_profile(
+        lambda: vms["cuda"].query_batch(q, patterns, K), blocked)
+    emit(phase="graphs_profile", wall_ms=wall_ms, device_busy_ms=busy,
+         top=top[:4], host_blocked=blocked)
 
 
 def main() -> int:
@@ -1207,7 +1632,7 @@ def main() -> int:
         return 0
     phase_edges()
     (args_a, launches_a, tiles_a), (args_b, launches_b, tiles_b), call, \
-        table = phase_main_path()
+        table, serving_inputs = phase_main_path()
     kernels = [measure_kernel_a(*args_a, launches_a, tiles_a),
                measure_kernel_b(args_b[0], launches_b, tiles_b)]
     del args_a, args_b
@@ -1217,6 +1642,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += phase_unfiltered(table)
     del table
+    torch.cuda.empty_cache()
+    phase_serving(*serving_inputs)
+    del serving_inputs
     torch.cuda.empty_cache()
     phase_graphs()
     emit(phase="done", seconds=time.perf_counter() - t_start)

@@ -9,9 +9,14 @@ reference's ``"jax"``): the resident table, CSR and tombstone mask, the
 scan launches (kernel A / kernel B through ``kernels.ops`` and
 ``kernels.quant``), the batched beam (``hnsw_torch``), the residual
 distance matrix and the device merge.  ``dispatch`` enqueues device work
-without a sync (apart from the SQ8 certificate read, as in the
-reference); ``fetch`` is the one copy back to the host.  The NumPy
-backend is the host oracle, as in the reference.
+without reading results back (apart from the SQ8 certificate read and
+the residual loop's ranks, as in the reference; its blocking
+host-to-device copies of descriptors and ids do wait for the stream) and
+ends by queueing the copies of its outputs to pinned host memory behind
+a CUDA event; ``fetch`` waits on that event alone, so a
+pipelined caller that dispatched wave N+1 first never waits for it when
+it fetches wave N.  The NumPy backend is the host oracle, as in the
+reference.
 
 The build-time structures (ESAM dicts, per-state ``_StateIndex`` objects,
 ``HNSW`` instances) are pointer-rich host objects: right for incremental
@@ -102,7 +107,7 @@ _EMPTY_I = np.empty(0, np.int64)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """The one device-to-host copy of a launch output (``fetch``)."""
+    """A synchronous device-to-host copy (the residual loop's ranks)."""
     return t.cpu().numpy()
 
 
@@ -288,13 +293,17 @@ class PendingExecution:
     """In-flight result of ``PackedRuntime.dispatch`` (DESIGN.md §7).
 
     Holds everything ``fetch`` needs to assemble the final per-request
-    results: the device launch outputs (still device arrays — JAX's async
-    dispatch means the kernels may still be running), the per-request
-    (launch, row) routing, host-computed parts (residual verification),
-    and — when the device merge ran — the merged ``(R, k)`` device
-    arrays.  Between ``dispatch`` and ``fetch`` the host is free to plan
-    and dispatch the NEXT wave; touching ``fetch`` is the only point
-    that blocks on the device.
+    results: the device launch outputs (CUDA launches are asynchronous,
+    so the kernels may still be running), the per-request (launch, row)
+    routing, host-computed parts (residual verification), and — when the
+    device merge ran — the merged ``(R, k)`` device tensors.  ``host_*``
+    are the host copies ``fetch`` reads: on the card, pinned tensors
+    whose copies were queued at the end of ``dispatch`` and complete at
+    ``ready`` (a CUDA event recorded after them; never read one before
+    it); on the CPU, the outputs themselves.  Between ``dispatch`` and
+    ``fetch`` the host is free to plan and dispatch the NEXT wave;
+    waiting on ``ready`` in ``fetch`` is the only point that blocks on
+    the device, and it waits for this wave's work alone.
     """
     plan: QueryPlan
     k: int
@@ -304,6 +313,10 @@ class PendingExecution:
     parts: List[List[Tuple[np.ndarray, np.ndarray]]]
     dev_only: List[int] = field(default_factory=list)
     merged: Optional[Tuple[object, object]] = None   # (md, mi) on device
+    host_merged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    host_launches: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = field(
+        default_factory=dict)     # launch index -> host (vals, gids)
+    ready: Optional[torch.cuda.Event] = None
     fetched: bool = False
 
 
@@ -724,7 +737,7 @@ class PackedRuntime:
         return self.fetch(self.dispatch(queries, plan, k,
                                         ef_search=ef_search))
 
-    def dispatch(self, queries: np.ndarray, plan: QueryPlan, k: int,
+    def dispatch(self, queries, plan: QueryPlan, k: int,
                  ef_search: int = 64) -> PendingExecution:
         """Launch every device stage of the plan WITHOUT syncing on the
         results (DESIGN.md §7): staleness checks, the segmented scan
@@ -735,7 +748,12 @@ class PackedRuntime:
         ``PendingExecution``.  The caller overlaps the next wave's
         planning/dispatch with this wave's device execution and calls
         ``fetch`` when it needs the results.  ``execute`` is the
-        synchronous composition."""
+        synchronous composition.
+
+        ``queries`` is an (n, d) array, or a pinned CPU tensor (a
+        ``serve.step`` staging slot), which uploads asynchronously; on the
+        torch backend the wave's queries upload once and every stage
+        gathers its rows on the device."""
         if plan.generation != self.generation:
             raise ValueError(
                 f"stale plan: compiled against generation "
@@ -750,7 +768,7 @@ class PackedRuntime:
                 f"{self.delta.version} — an insert landed between plan "
                 "and execute, so the plan's delta id lists are "
                 "incomplete; re-plan (query_batch does this per batch)")
-        queries = np.ascontiguousarray(queries, dtype=np.float32)
+        queries, qdev = self._wave_queries(queries)
         out: List[Tuple[np.ndarray, np.ndarray]] = [
             (_EMPTY_F, _EMPTY_I)] * plan.n_requests
         parts: List[List[Tuple[np.ndarray, np.ndarray]]] = [
@@ -769,13 +787,13 @@ class PackedRuntime:
         if self.backend == "torch":
             self.traffic["batches"] += 1
             if self.quantize == "sq8":
-                self._execute_scan_sq8(queries, scan_items, k, launches,
+                self._execute_scan_sq8(qdev, scan_items, k, launches,
                                        dev_parts)
             else:
-                self._execute_scan_device(queries, scan_items, k, launches,
+                self._execute_scan_device(qdev, scan_items, k, launches,
                                           dev_parts)
             t0 = time.perf_counter()
-            self._execute_graphs_device(queries, graph_shared, graph_filtered,
+            self._execute_graphs_device(qdev, graph_shared, graph_filtered,
                                         k, ef_search, launches, dev_parts)
             self.wave_times["launch_ms"] += (time.perf_counter() - t0) * 1e3
         else:
@@ -783,7 +801,8 @@ class PackedRuntime:
             self._execute_graphs_host(queries, graph_shared, graph_filtered,
                                       k, ef_search, parts)
         for e, s in residual_items:
-            self._execute_residual(queries, e, s, k, parts)
+            self._execute_residual(queries if qdev is None else qdev, e, s,
+                                   k, parts)
         # device-merge half that can be DISPATCHED now: requests whose
         # parts are all launch rows fold on device; the (R, k) result
         # stays a device future until fetch
@@ -795,16 +814,66 @@ class PackedRuntime:
         if pending.dev_only:
             pending.merged = self._merge_device_launch(
                 pending.dev_only, launches, dev_parts, k)
+        if self.backend == "torch":
+            self._queue_host_copies(pending)
         self.wave_times["merge_ms"] += (time.perf_counter() - t0) * 1e3
         return pending
+
+    def _wave_queries(self, queries):
+        """The wave's (n, d) query matrix as a host array and — torch
+        backend — its one upload to the device: asynchronous from a
+        pinned CPU tensor (a staging slot, which the caller keeps leased
+        until the wave's event), a blocking copy from an array."""
+        if isinstance(queries, torch.Tensor):
+            host, src = queries.numpy(), queries
+        else:
+            host = np.ascontiguousarray(queries, dtype=np.float32)
+            src = torch.from_numpy(host)
+        if self.backend != "torch":
+            return host, None
+        return host, src.to(self.device, non_blocking=src.is_pinned())
+
+    def _rows(self, qdev: torch.Tensor, reqs) -> torch.Tensor:
+        """Rows ``reqs`` of the wave's device query matrix."""
+        return qdev[torch.from_numpy(
+            np.asarray(reqs, dtype=np.int64)).to(self.device)]
+
+    def _queue_host_copies(self, pending: PendingExecution) -> None:
+        """Queue the copies ``fetch`` will read — the device merge's
+        (R, k) rows, and the launch outputs of requests that merge on the
+        host (residual parts present) — into pinned host tensors, then
+        record ``pending.ready`` after them on the wave's stream.  On the
+        CPU the outputs are already host tensors."""
+        done = set(pending.dev_only)
+        need = sorted({li for r in range(pending.plan.n_requests)
+                       if r not in done for li, _ in pending.dev_parts[r]})
+        if self.device.type != "cuda":
+            pending.host_merged = pending.merged
+            pending.host_launches = {li: pending.launches[li]
+                                     for li in need}
+            return
+
+        def copy(t: torch.Tensor) -> torch.Tensor:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            return h
+
+        if pending.merged is not None:
+            pending.host_merged = (copy(pending.merged[0]),
+                                   copy(pending.merged[1]))
+        pending.host_launches = {li: (copy(pending.launches[li][0]),
+                                      copy(pending.launches[li][1]))
+                                 for li in need}
+        pending.ready = torch.cuda.Event()
+        pending.ready.record()
 
     def fetch(self, pending: PendingExecution
               ) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Sync on a dispatched wave's device results and assemble the
         final per-request (dists, ids).  This is the ONLY point the
-        executor blocks on the device; everything before it is async
-        dispatch, so a pipelined caller fetches wave N while wave N+1 is
-        already executing."""
+        executor blocks on the device, and it waits on this wave's own
+        event (recorded after its host copies), so a pipelined caller
+        fetches wave N while wave N+1 is already executing."""
         if pending.fetched:
             return pending.out
         t0 = time.perf_counter()
@@ -826,9 +895,11 @@ class PackedRuntime:
             pending.parts, pending.k, pending.out)
         n = plan.n_requests
         dev_only = pending.dev_only
-        if pending.merged is not None:
-            md, mi = (_to_host(pending.merged[0]),
-                      _to_host(pending.merged[1]))
+        if pending.ready is not None:
+            pending.ready.synchronize()       # this wave's copies only
+        if pending.host_merged is not None:
+            md, mi = (pending.host_merged[0].numpy(),
+                      pending.host_merged[1].numpy())
             for j, r in enumerate(dev_only):
                 valid = mi[j] >= 0
                 out[r] = (md[j][valid], mi[j][valid].astype(np.int64))
@@ -838,8 +909,8 @@ class PackedRuntime:
 
         def _host_rows(li: int) -> Tuple[np.ndarray, np.ndarray]:
             if conv[li] is None:
-                v, g = launches[li]
-                conv[li] = (_to_host(v), _to_host(g))
+                v, g = pending.host_launches[li]
+                conv[li] = (v.numpy(), g.numpy())
             return conv[li]
 
         for r in range(n):
@@ -1116,7 +1187,7 @@ class PackedRuntime:
         t0 = time.perf_counter()
         v, g = ops.topk_segmented_desc(
             dev["vectors"], dev["base_ids"], dev["deleted"],
-            queries[q_rows], q_owner, dstarts, dlens, downers,
+            self._rows(queries, q_rows), q_owner, dstarts, dlens, downers,
             tres_i, tres_ow, tship_i, rows, tship_ow, k,
             metric=self.metric, accum=self.accum)
         dt = time.perf_counter() - t0
@@ -1170,9 +1241,10 @@ class PackedRuntime:
         dev = self.to_device()
         self.sq8_stats["batches"] += 1
         t0 = time.perf_counter()
+        x = self._rows(queries, q_rows)
         v, g, cert = topk_sq8_segmented_desc(
             dev["vectors"], dev["quant"], dev["base_ids"], dev["deleted"],
-            queries[q_rows], q_owner, dstarts, dlens, downers,
+            x, q_owner, dstarts, dlens, downers,
             tres_i, tres_ow, tship_i, rows, tship_ow, k,
             overfetch=overfetch)
         if not self.sq8_escalate:
@@ -1187,7 +1259,7 @@ class PackedRuntime:
             # out of the over-fetched set: redo the whole batch exactly
             v, g = ops.topk_segmented_desc(
                 dev["vectors"], dev["base_ids"], dev["deleted"],
-                queries[q_rows], q_owner, dstarts, dlens, downers,
+                x, q_owner, dstarts, dlens, downers,
                 tres_i, tres_ow, tship_i, rows, tship_ow, k,
                 metric=self.metric, accum=self.accum)
             self.sq8_stats["escalations"] += 1
@@ -1286,7 +1358,7 @@ class PackedRuntime:
                 h = dev["graphs"][u]
                 zero = torch.zeros(len(reqs), dtype=torch.int64,
                                    device=self.device)
-                qd = to_dev(np.ascontiguousarray(queries[reqs]))
+                qd = self._rows(queries, reqs)
                 if al is None:
                     d, i = hnsw_search_fused(
                         dev["vectors"], h["ids"], h["level0"], h["entry"],
@@ -1307,7 +1379,7 @@ class PackedRuntime:
                 d, i = hnsw_search_fused_filtered(
                     dev["vectors"], h["ids"], h["level0"], h["entry"],
                     to_dev(compose_mask(allowed))[None], zero, zero,
-                    to_dev(np.ascontiguousarray(queries[reqs])), k=k,
+                    self._rows(queries, reqs), k=k,
                     ef=ef_cap, metric=self.metric)
                 self._observe("filtered_graph", len(reqs) * ef_cap,
                               time.perf_counter() - t0)
@@ -1353,11 +1425,12 @@ class PackedRuntime:
             p_pad = ops.bucket(p, 8)
             gi = np.zeros(p_pad, np.int32)
             gi[:p] = slots
-            qm = np.zeros((p_pad, d_dim), np.float32)
-            qm[:p] = queries[reqs]
+            qm = torch.zeros((p_pad, d_dim), dtype=torch.float32,
+                             device=self.device)
+            qm[:p] = self._rows(queries, reqs)
             d, i = hnsw_search_fused(
                 dev["vectors"], b["ids"], b["level0"], b["entry"],
-                to_dev(gi), to_dev(qm), k=kk, ef=ef_cap,
+                to_dev(gi), qm, k=kk, ef=ef_cap,
                 metric=self.metric)
             ops.record_launch("graph_fused",
                               (bkey, p_pad, kk, ef_cap, self.metric))
@@ -1372,8 +1445,9 @@ class PackedRuntime:
             gi[:p] = fr["slots"]
             mi_arr = np.zeros(p_pad, np.int32)
             mi_arr[:p] = fr["midx"]
-            qm = np.zeros((p_pad, d_dim), np.float32)
-            qm[:p] = queries[fr["reqs"]]
+            qm = torch.zeros((p_pad, d_dim), dtype=torch.float32,
+                             device=self.device)
+            qm[:p] = self._rows(queries, fr["reqs"])
             mn_pad = ops.bucket(len(fr["masks"]), 1)
             mm = np.zeros((mn_pad, dn), dtype=bool)
             for j, m in enumerate(fr["masks"]):
@@ -1382,7 +1456,7 @@ class PackedRuntime:
             d, i = hnsw_search_fused_filtered(
                 dev["vectors"], b["ids"], b["level0"], b["entry"],
                 to_dev(mm), to_dev(mi_arr), to_dev(gi),
-                to_dev(qm), k=k, ef=ef_cap, metric=self.metric)
+                qm, k=k, ef=ef_cap, metric=self.metric)
             self._observe("filtered_graph", p * ef_cap,
                           time.perf_counter() - t0)
             ops.record_launch("graph_fused_filt",
@@ -1395,15 +1469,15 @@ class PackedRuntime:
 
     # ---- residual verification (strategy c) --------------------------- #
 
-    def _dense_dist(self, qmat: np.ndarray, cand: np.ndarray):
-        """The (Q, |cand|) dense distance matrix of ``qmat`` against
+    def _dense_dist(self, qmat, cand: np.ndarray):
+        """The (Q, |cand|) dense distance matrix of ``qmat`` (the wave's
+        device rows on torch, an array on numpy) against
         ``vectors[cand]`` — computed ONCE per residual source and kept on
         the backend that computed it (device tensor on torch, ndarray on
         numpy) so the over-fetch loop re-ranks without recomputing or
         shipping the whole matrix."""
         if self.backend == "torch":
-            x = torch.from_numpy(
-                np.ascontiguousarray(qmat, np.float32)).to(self.device)
+            x = qmat                      # the wave's device rows
             y = self._device_rows(np.asarray(cand))
             if self.metric == "l2":
                 d = ((x * x).sum(1, keepdim=True) + (y * y).sum(1)
@@ -1474,7 +1548,9 @@ class PackedRuntime:
         reqs = e.requests
         adaptive = (self.planner is not None
                     and getattr(self.planner, "adaptive", False))
-        dmat = self._dense_dist(queries[reqs], cand)
+        dmat = self._dense_dist(
+            self._rows(queries, reqs) if isinstance(queries, torch.Tensor)
+            else queries[reqs], cand)
         m = (len(cand) if (s.residual_full and adaptive)
              else min(len(cand), max(4 * k, k)))
         while True:

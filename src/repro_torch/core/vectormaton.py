@@ -5,8 +5,8 @@ maintained on the host, whose query path runs on PyTorch tensors on
 ``VectorMatonConfig.device`` (``backend="torch"``, the default) or on
 the NumPy host oracle (``backend="numpy"``).  With ``device="cuda"``
 and no card the constructor raises; it never continues on the CPU.
-Checkpoint save/load is not ported yet (ROADMAP Queue 1 item 6);
-``core.convert.from_reference_checkpoint`` reads the reference's.
+``save`` / ``load`` write and read the reference's checkpoint format
+(``distributed/checkpoint.py``), so checkpoints cross between packages.
 
 Build (Algorithm 3 Build):
   1. ESAM over the sequence collection, with online vector-ID propagation.
@@ -693,3 +693,16 @@ class VectorMaton:
             "size_entries": self.size_entries(),
             "total_symbols": self.esam.total_symbols,
         }
+
+    def save(self, path: str, extra_meta: Optional[Dict] = None) -> None:
+        from ..distributed.checkpoint import save_vectormaton
+        save_vectormaton(self, path, extra_meta=extra_meta)
+
+    @classmethod
+    def load(cls, path: str, config: Optional[VectorMatonConfig] = None,
+             device: str = "cuda") -> "VectorMaton":
+        """Restore a checkpoint; ``config`` supplies what the checkpoint
+        does not record (backend, accum, plan mode), ``device`` where the
+        torch backend runs."""
+        from ..distributed.checkpoint import load_vectormaton
+        return load_vectormaton(cls, path, config=config, device=device)

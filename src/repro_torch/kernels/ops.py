@@ -151,11 +151,13 @@ def pad_descriptor_batch(x, qseg, desc_starts, desc_lens, desc_owners,
     positional args ``(x, qseg (qp, 1), starts, lens, owners,
     tail_res_ids, tail_res_owners, tail_ship_ids, tail_ship_owners,
     tail_ship_rows)`` and the bucket key ``(qp, n_desc, tr, ts, dp, d)``.
-    Padded query rows own -1, padded descriptors and tails -3."""
+    Padded query rows own -1, padded descriptors and tails -3.  ``x``
+    may be an array or a tensor already on ``device`` (the executor's
+    query rows, gathered there); it is padded on the device."""
     q, d = x.shape
     qp = bucket(q)
-    xp = np.zeros((qp, d), np.float32)
-    xp[:q] = x
+    xp = torch.zeros((qp, d), dtype=torch.float32, device=device)
+    xp[:q] = torch.as_tensor(x, dtype=torch.float32, device=device)
     qsp = np.full((qp, 1), -1, np.int32)
     qsp[:q, 0] = qseg
     nd_real = int(desc_lens.sum()) if len(desc_lens) else 0
@@ -173,11 +175,11 @@ def pad_descriptor_batch(x, qseg, desc_starts, desc_lens, desc_owners,
         raise ValueError("descriptor launch with no candidates")
     rows = np.zeros((ts, d), np.float32)
     rows[:len(tail_ship_rows)] = tail_ship_rows
-    host = (xp, qsp, _pad1(desc_starts, dp, 0), _pad1(desc_lens, dp, 0),
+    host = (qsp, _pad1(desc_starts, dp, 0), _pad1(desc_lens, dp, 0),
             _pad1(desc_owners, dp, -3), _pad1(tail_res_ids, tr, 0),
             _pad1(tail_res_owners, tr, -3), _pad1(tail_ship_ids, ts, 0),
             _pad1(tail_ship_owners, ts, -3), rows)
-    args = tuple(torch.from_numpy(a).to(device) for a in host)
+    args = (xp,) + tuple(torch.from_numpy(a).to(device) for a in host)
     return args, (qp, n_desc, tr, ts, dp, d)
 
 
