@@ -65,7 +65,20 @@ Phases:
      replica killed mid-churn and rejoined from the checkpoint plus a
      replay of the log: no request lost or duplicated, every answer
      equal to a single-replica oracle's, the rejoin time;
-  6. graph states, inserts past the upload watermark, deletes and one
+  6. sharded, on the same index split into 4 logical row shards on the
+     card (``make_host_mesh(data=4)``): the residency build (seconds,
+     device bytes); 16 waves per mode through ``sharded_plan_topk``,
+     each equal to the one-device ``query_batch`` under ``topk_agree``
+     and at recall 1.0 against brute force, timed beside it, with
+     kernels A and B launched per shard (counted) and one profiled wave;
+     kernels A and B held against their plain versions at a shard's
+     shape and timed; the same waves through ``RetrievalEngine(mesh=)``
+     restored from a checkpoint; 10 inserts and 60 resident deletes past
+     the residency, a compaction, and a restore of the compacted engine
+     onto the 2-shard mesh ``ElasticPlan.remesh`` picks over 3 devices,
+     each held to brute force; ``sharded_topk`` under a mask against
+     ``ops.topk`` on the masked rows;
+  7. graph states, inserts past the upload watermark, deletes and one
      compaction on ``make_corpus("code")`` with ``T=50, M=8, ef_con=60``:
      every wave equals the same index run through the port's plain
      PyTorch path on the CPU (near ties aside), graph-free requests equal
@@ -73,7 +86,9 @@ Phases:
      satisfies its predicate at its true distance; then one profiled
      wave (``graphs_profile``: the host time blocked in the beam's
      convergence checks and the copies);
-  7. the ``kernels`` line; 8. the card line and the ``ok`` line.
+  8. the ``kernels`` line (kernels A and B with their launches and
+     times in the sharded phase too); 9. the card line and the ``ok``
+     line.
 
 ``--phases build`` or ``--phases build,edges`` runs only those phases
 and stops without the ``kernels`` and ``ok`` lines: a short check of new
@@ -1504,7 +1519,312 @@ def phase_serving(vm, vecs, rows_of, patterns) -> None:
 
 
 # --------------------------------------------------------------------- #
-# phase 6: graph states, churn and compaction
+# phase 6: the sharded executor — 4 row shards of the main path's index
+# --------------------------------------------------------------------- #
+
+SHARDS = 4                  # logical row shards on the one card
+SHARD_WAVES = 16            # waves per mode and per entry point
+
+
+class KernelCounts:
+    """Launches of kernels A and B on one path: ``span`` sets each
+    wrapper's count to 0 just before it drives the path and adds the
+    count to ``total`` just after, so the comparisons made between spans
+    count nowhere."""
+
+    def __init__(self):
+        from repro_torch.kernels import distance_topk, quant
+        self.wrappers = {"topk_seg_f32": distance_topk.topk_seg_f32,
+                         "qtopk_seg_sq8": quant.qtopk_seg_sq8}
+        self.total = dict.fromkeys(self.wrappers, 0)
+
+    def span(self, fn):
+        for w in self.wrappers.values():
+            w.launches = 0
+        out = fn()
+        for k, w in self.wrappers.items():
+            self.total[k] += w.launches
+        return out
+
+
+def _sharded_waves(run, single, qsets, counts, rt):
+    """Each wave through ``run`` (counted, timed with a device sync) and
+    through the one-device ``single`` (timed); the sharded answers must
+    agree with the one-device answers under ``topk_agree``'s tolerance.
+    Returns the answers, the times and the ``sq8_stats`` of the sharded
+    waves alone (both paths count into the runtime's)."""
+    ms = {"sharded": [], "single": []}
+    sq8 = dict.fromkeys(rt.sq8_stats, 0)
+    out = []
+    for q in qsets:
+        before = dict(rt.sq8_stats)
+        t0 = time.perf_counter()
+        res = counts.span(lambda: run(q))
+        torch.cuda.synchronize()
+        ms["sharded"].append((time.perf_counter() - t0) * 1e3)
+        for k in sq8:
+            sq8[k] += rt.sq8_stats[k] - before[k]
+        t0 = time.perf_counter()
+        want = single(q)
+        torch.cuda.synchronize()
+        ms["single"].append((time.perf_counter() - t0) * 1e3)
+        check(recall_check(res, want) == 1.0,
+              "sharded answers differ from the one-device path's")
+        out.append(res)
+    return out, ms, sq8
+
+
+def sharded_kernel_shapes(primitive, q, rt):
+    """Kernels A and B at a shard's shape: one sharded wave per scan with
+    the wrappers captured, then each held against its plain version on
+    the last shard's inputs and timed beside it (CUDA events), with its
+    bound.  These launches count nowhere."""
+    from repro_torch.kernels import distance_topk, quant
+    from repro_torch.kernels.distance_topk import (segmented_dense_topk,
+                                                   topk_seg_f32)
+    from repro_torch.kernels.quant import qtopk_seg_sq8, sq8_dense_segmented
+    out = {}
+    rt.quantize, rt._sq8_bad_streak = "sq8", 0
+    with Capture(quant, "qtopk_seg_sq8") as cap_b:
+        primitive(q)
+    rt.quantize = "none"
+    with Capture(distance_topk, "topk_seg_f32") as cap_a:
+        primitive(q)
+    torch.cuda.synchronize()
+    (x, y, qseg, cseg, kp), kw = cap_a.args
+    err, tol = check_kernel_a(x, y, qseg, cseg, kp, **kw)
+    pairs, live = _live_pairs(qseg, cseg)
+    (qn, d), n = x.shape, y.shape[0]
+    bound, by = _bound(qn * d * 4 + live * d * 4 + (qn + n) * 4
+                       + qn * kp * 8, 2 * pairs * d, PEAK_F32)
+    out["topk_seg_f32"] = {
+        "ms": cuda_ms(lambda: topk_seg_f32(x, y, qseg, cseg, kp, **kw)),
+        "plain_ms": cuda_ms(lambda: segmented_dense_topk(
+            x, y, qseg, cseg, kp, **kw), reps=3),
+        "bound_ms": bound, "bound_by": by, "max_abs_err": err, "tol": tol,
+        "shape": {"Qp": qn, "N": n, "d": d, "kp": kp,
+                  "matched_pairs": pairs, "live_columns": live}}
+    args = cap_b.args[0]
+    xq, yq, kqp = args[0], args[1], args[8]
+    err = check_kernel_b(*args)
+    pairs, live = _live_pairs(args[6], args[7])
+    (qn, d), n = xq.shape, yq.shape[0]
+    bound, by = _bound(qn * (d + 8) + live * (d + 8) + (qn + n) * 4
+                       + qn * kqp * 8, 2 * pairs * d, PEAK_INT8)
+    out["qtopk_seg_sq8"] = {
+        "ms": cuda_ms(lambda: qtopk_seg_sq8(*args)),
+        "plain_ms": cuda_ms(lambda: sq8_dense_segmented(*args), reps=3),
+        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+        "shape": {"Qp": qn, "N": n, "d": d, "kqp": kqp,
+                  "matched_pairs": pairs, "live_columns": live}}
+    del cap_a, cap_b
+    torch.cuda.empty_cache()
+    emit(phase="sharded_kernels", **out)
+    return out
+
+
+def phase_sharded(vm, vecs, rows_of, patterns):
+    """The sharded executor on the main path's 1,048,576 × 128 index,
+    split into ``SHARDS`` logical row shards on the card: (a) the
+    residency build, then ``SHARD_WAVES`` waves per mode through
+    ``sharded_plan_topk`` beside the one-device ``query_batch`` (equal
+    answers, recall 1.0 against brute force on the card) and one
+    profiled wave; (b) the same waves through ``RetrievalEngine(mesh=)``
+    restored from a checkpoint; churn past the residency (inserts, resident
+    deletes), a compaction, and the restore of the compacted engine onto
+    the 2-shard mesh ``ElasticPlan.remesh`` picks over 3 devices, each
+    held to brute force; (c) ``sharded_topk`` under a mask against
+    ``ops.topk`` on the masked rows."""
+    import tempfile
+
+    from repro_torch.distributed import sharded_search
+    from repro_torch.distributed.elastic import ElasticPlan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.engine import RetrievalEngine
+
+    t_phase = time.perf_counter()
+    rt = vm.runtime
+    mesh = make_host_mesh(data=SHARDS, device="cuda")
+    rt.quantize = "sq8"
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sh = rt.to_device_sharded(mesh)
+    torch.cuda.synchronize()
+    emit(phase="sharded_build", shards=SHARDS, local_n=sh.local_n,
+         seconds=time.perf_counter() - t0,
+         device_bytes=torch.cuda.memory_allocated() - mem0,
+         csr_entries_per_shard=[int(x) for x in sh.csr_ptr[:, -1]])
+    check(sh.local_n * SHARDS == len(vecs), "shards do not tile the table")
+
+    rng = np.random.default_rng(11)
+    qsets = [(vecs[rng.integers(0, len(vecs), 64)]
+              + 0.3 * rng.standard_normal((64, vecs.shape[1]))).astype(
+        np.float32) for _ in range(SHARD_WAVES)]
+    dev_vecs = rt.to_device()["vectors"]
+    oracle = [brute_force(dev_vecs, rows_of, q, patterns, K) for q in qsets]
+
+    def primitive(q):
+        snap = vm.snapshot()
+        return sharded_search.sharded_plan_topk(
+            mesh, None, snap, q, vm.plan(patterns, snap), K)
+
+    def single(q):
+        return vm.query_batch(q, patterns, K)
+
+    counts = KernelCounts()
+    lines, answers = {}, {}
+    for mode in ("sq8", "none"):
+        rt.quantize = mode
+        rt._sq8_bad_streak = 0
+        primitive(qsets[0])                        # warm: specs, tails
+        single(qsets[0])
+        traffic_0 = dict(rt.traffic)
+        ops.reset_launch_stats()
+        kc = KernelCounts()
+        res, ms, sq8 = _sharded_waves(primitive, single, qsets, kc, rt)
+        for w in range(SHARD_WAVES):
+            rec = recall_check(res[w], oracle[w])
+            check(rec == 1.0, f"sharded recall {rec} < 1.0 ({mode}, {w})")
+        stats = ops.launch_stats()
+        check(kc.total["topk_seg_f32"] + kc.total["qtopk_seg_sq8"]
+              >= SHARDS * SHARD_WAVES,
+              f"{mode}: fewer kernel launches than shards × waves: "
+              f"{kc.total}")
+        for k in counts.total:
+            counts.total[k] += kc.total[k]
+        answers[mode] = res
+        lines[mode] = {
+            "mode": mode, "waves": SHARD_WAVES, "recall": 1.0,
+            "wave_ms_p25_p50_p75": {
+                k: np.percentile(v, [25, 50, 75]).tolist()
+                for k, v in ms.items()},
+            "wave_ms": ms,
+            "kernel_launches_per_wave": {
+                k: v / SHARD_WAVES for k, v in kc.total.items()},
+            "sweeps": {k: stats.get(k, 0) for k in
+                       ("sharded_sweep", "sq8_sharded_sweep")},
+            "sq8_stats": sq8,
+            "shard_counters": {k: rt.traffic[k] - traffic_0[k]
+                               for k in rt.traffic
+                               if k.startswith("shard_")}}
+        blocked = {}
+        rt._sq8_bad_streak = 0
+        wall_ms, busy, top = device_profile(lambda: primitive(qsets[1]),
+                                            blocked)
+        lines[mode]["profile"] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / wall_ms,
+            "top": top, "host_blocked": blocked}
+        emit(phase="sharded_waves", **lines[mode])
+    shapes = sharded_kernel_shapes(primitive, qsets[1], rt)
+
+    with tempfile.TemporaryDirectory(prefix="sharded_") as tmp:
+        # (b) the engine over the mesh, restored from a checkpoint
+        ckpt = str(Path(tmp) / "index")
+        vm.save(ckpt)
+        rt.quantize = "sq8"
+        t0 = time.perf_counter()
+        eng = RetrievalEngine.restore(ckpt, mesh=mesh, device="cuda")
+        eng.query_batch(qsets[0], patterns, K)
+        torch.cuda.synchronize()
+        first_wave_s = time.perf_counter() - t0
+        engine_ms = {}
+        for mode in ("sq8", "none"):
+            eng.index.snapshot().quantize = mode
+            eng.index.snapshot()._sq8_bad_streak = 0
+            engine_ms[mode] = []
+            for w, q in enumerate(qsets):
+                t0 = time.perf_counter()
+                got = counts.span(lambda: eng.query_batch(q, patterns, K))
+                torch.cuda.synchronize()
+                engine_ms[mode].append((time.perf_counter() - t0) * 1e3)
+                check(recall_check(got, answers[mode][w]) == 1.0,
+                      f"the mesh engine differs from sharded_plan_topk "
+                      f"({mode}, wave {w})")
+        eng.index.snapshot().quantize = "sq8"
+
+        # churn past the residency, then a compaction
+        ins_vecs, ins_seqs = new_scale_records(
+            len(vecs), SERVE_INSERTS, vecs.shape[1])
+        victims = rng.choice(len(vecs), SERVE_DELETES, replace=False)
+        writes = ([("insert", v, s_) for v, s_ in zip(ins_vecs, ins_seqs)]
+                  + [("delete", int(v)) for v in victims])
+        churn_q = [qsets[2], qsets[3]]
+        segments = [(writes, churn_q), ([("compact",)], churn_q)]
+        want = stream_oracle(vecs, rows_of, patterns, segments, ins_vecs,
+                             ins_seqs)
+        t0 = time.perf_counter()
+        for v, s_ in zip(ins_vecs, ins_seqs):
+            eng.insert(v, s_)
+        for v in victims:
+            eng.delete(int(v))
+        writes_s = time.perf_counter() - t0
+        got = [counts.span(lambda: eng.query_batch(q, patterns, K))
+               for q in churn_q]
+        sh_e = eng.index.snapshot().to_device_sharded(mesh)
+        check(int(sh_e.deleted[int(victims[0]) // sh_e.local_n][
+            int(victims[0]) % sh_e.local_n]), "a delete never synced")
+        t0 = time.perf_counter()
+        eng.compact()
+        compact_s = time.perf_counter() - t0
+        got += [counts.span(lambda: eng.query_batch(q, patterns, K))
+                for q in churn_q]
+        for w, (g, o) in enumerate(zip(got, want)):
+            rec = recall_check(g, o)
+            check(rec == 1.0, f"recall {rec} < 1.0 through churn ({w})")
+
+        # restore onto the mesh the elastic plan picks over 3 devices
+        mesh2 = ElasticPlan(tp_degree=1, old_data=SHARDS).remesh(
+            mesh.devices.flat[:3])
+        check(mesh2.shape == {"data": 2, "model": 1},
+              f"remesh over 3 devices gave {mesh2.shape}")
+        ckpt2 = str(Path(tmp) / "compacted")
+        eng.checkpoint(ckpt2)
+        t0 = time.perf_counter()
+        eng2 = RetrievalEngine.restore(ckpt2, mesh=mesh2, device="cuda")
+        got2 = [counts.span(lambda: eng2.query_batch(q, patterns, K))
+                for q in churn_q]
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for w, (g, o) in enumerate(zip(got2, want[2:])):
+            rec = recall_check(g, o)
+            check(rec == 1.0, f"recall {rec} < 1.0 after the restore onto "
+                  f"2 shards ({w})")
+            check(recall_check(g, got[2 + w]) == 1.0,
+                  "the 2-shard restore answers differently")
+        emit(phase="sharded_engine", engine_first_wave_s=first_wave_s,
+             wave_ms_p25_p50_p75={m: np.percentile(v, [25, 50, 75]).tolist()
+                                  for m, v in engine_ms.items()},
+             inserts=SERVE_INSERTS, deletes=SERVE_DELETES,
+             writes_s=writes_s, compact_s=compact_s,
+             restore_2_shards_s=restore_s, recall=1.0,
+             sq8_stats=eng.index.snapshot().sq8_stats)
+        del eng, eng2, sh_e
+        torch.cuda.empty_cache()
+
+    # (c) the raw primitive over the resident table, under a mask
+    dev = dev_vecs.device
+    mask = torch.zeros(len(vecs), dtype=torch.bool, device=dev)
+    rows = torch.from_numpy(rows_of[patterns[5]]).to(dev)
+    mask[rows] = True
+    q = torch.from_numpy(qsets[4]).to(dev)
+    d, i = counts.span(lambda: sharded_search.sharded_topk(
+        mesh, q, dev_vecs, K, valid_mask=mask))
+    dw, iw = ops.topk(q, dev_vecs[rows], K)
+    iw = torch.where(iw >= 0, rows[iw.long().clamp_min(0)], -1)
+    topk_agree(host(d), host(i), host(dw), host(iw),
+               1e-4 * max(float(dw[torch.isfinite(dw)].abs().max()), 1.0))
+    del sh
+    torch.cuda.empty_cache()
+    emit(phase="sharded_done", seconds=time.perf_counter() - t_phase,
+         kernel_launches=counts.total)
+    return counts.total, shapes
+
+
+# --------------------------------------------------------------------- #
+# phase 7: graph states, churn and compaction
 # --------------------------------------------------------------------- #
 
 def _graph_free_requests(vm, patterns):
@@ -1644,6 +1964,11 @@ def main() -> int:
     del table
     torch.cuda.empty_cache()
     phase_serving(*serving_inputs)
+    launches, shapes = phase_sharded(*serving_inputs)
+    for line in kernels:
+        line["launches_sharded"] = launches.get(line["name"], 0)
+        if line["name"] in shapes:
+            line["sharded_shape"] = shapes[line["name"]]
     del serving_inputs
     torch.cuda.empty_cache()
     phase_graphs()

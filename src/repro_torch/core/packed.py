@@ -378,9 +378,14 @@ class PackedRuntime:
         self.use_descriptors = True     # CSR descriptors vs host id upload
         self.fuse_graphs = True         # bucket-fused vs per-state beams
         self.device_merge = True        # device vs host per-request merge
-        # host→device traffic accounting, per batch class (bench gate);
-        # the shard_* classes stay at 0 until the sharded executor is
-        # ported, so the key set matches the reference's
+        self.shard_descriptors = True   # sharded CSR descriptors vs the
+                                        # per-entry dense-mask oracle
+        # (mesh, axis, watermark) -> ShardedDeviceIndex (DESIGN.md §5);
+        # _shard_auto records the watermark frozen by the first n=None use
+        # per (mesh, axis), so auto and explicit callers share a residency
+        self._shard_dev: Dict = {}
+        self._shard_auto: Dict = {}
+        # host→device traffic accounting, per batch class (bench gate)
         self.traffic: Dict[str, int] = {
             "batches": 0, "bytes_to_device": 0, "candidate_id_bytes": 0,
             "query_bytes": 0, "descriptor_bytes": 0, "row_bytes": 0,
@@ -578,19 +583,43 @@ class PackedRuntime:
             self._dev["quant"] = quantize_sq8_ext(self._dev["vectors"])
         return self._dev
 
+    _SHARD_DEV_MAX = 4
+
     def to_device_sharded(self, mesh, axis: str = "data",
                           n: Optional[int] = None):
-        """Row-sharded residency is not ported yet (ROADMAP Queue 1 item 7,
-        the sharded executor)."""
-        raise NotImplementedError(
-            "repro_torch has no sharded executor yet: ROADMAP Queue 1 "
-            "item 7 (distributed/sharded_search.py) ports it")
+        """Row-sharded residency over ``mesh`` (DESIGN.md §5): vector
+        table, tombstone bitmap, SQ8 table and the shard-local CSR,
+        uploaded once per (mesh, axis, watermark) to the shards' devices
+        and reused by every later sharded batch.  ``n`` pins the shard
+        watermark (rows past it are host-merged delta overflow); ``None``
+        freezes the current table length on first use.  The cache is a
+        small LRU: each residency pins a full padded copy of the table,
+        so a caller that keeps moving the watermark recycles slots
+        instead of accumulating table copies until the next
+        compaction."""
+        from ..distributed.sharded_search import ShardedDeviceIndex
+        if n is None:
+            n = self._shard_auto.get((mesh, axis))
+            if n is None:
+                n = len(self.vectors)
+                self._shard_auto[(mesh, axis)] = n
+        key = (mesh, axis, int(n))
+        sh = self._shard_dev.pop(key, None)
+        if sh is None:
+            while len(self._shard_dev) >= self._SHARD_DEV_MAX:
+                self._shard_dev.pop(next(iter(self._shard_dev)))
+            sh = ShardedDeviceIndex(self, mesh, axis=axis, n=n)
+        self._shard_dev[key] = sh                # (re)insert: LRU refresh
+        return sh
 
     def mark_deleted(self, vector_id: int) -> None:
         """Keep the device-side tombstone mask in sync: one in-place write
         into the resident mask (the reference rebuilt the immutable array
         with ``.at[].set``).  Delta ids past the upload watermark are
-        filtered host-side when their candidate lists are built."""
+        filtered host-side when their candidate lists are built.  Sharded
+        residencies sync lazily instead — one batched write at the head
+        of each sharded batch (``ShardedDeviceIndex.sync_tombstones``),
+        not one per delete."""
         if self._dev is not None and vector_id < self._dev_n:
             self._dev["deleted"][vector_id] = True
 

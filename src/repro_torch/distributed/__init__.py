@@ -1,2 +1,2 @@
-"""Index checkpoints, replica groups and failure detection (mirrors
-``repro.distributed``; the sharded executor is not ported yet)."""
+"""Sharded search, index checkpoints, replica groups and failure
+detection (mirrors ``repro.distributed``)."""

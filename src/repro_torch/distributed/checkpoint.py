@@ -6,7 +6,7 @@ The on-disk format is the reference's to the letter — the same file
 names, array names, dtypes, ``config`` and ``delta_meta`` layouts and
 ``meta.json`` sidecar — so a checkpoint written by either package loads
 in the other.  The train-state ``CheckpointManager`` waits for the LM
-stack (ROADMAP Queue 1 item 10).
+stack (ROADMAP Queue 1, "training").
 
 An index checkpoint holds the ESAM struct-of-arrays, the per-state index
 descriptors and the vector table.  It restores without any index

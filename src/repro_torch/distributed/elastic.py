@@ -3,8 +3,7 @@ re-meshing.
 
 Port of ``src/repro/distributed/elastic.py``: ``HeartbeatMonitor``,
 ``StragglerMonitor`` and ``ElasticPlan.plan`` are pure Python and
-copied; ``ElasticPlan.remesh`` builds a device mesh, which waits for the
-sharded executor (ROADMAP Queue 1 item 7) and raises until then.
+copied; ``ElasticPlan.remesh`` builds the port's ``launch.mesh.Mesh``.
 
 On a real multi-pod deployment these hooks bind to the cluster manager
 (GKE / Borg preemption notices, ICI link telemetry).  The logic — which is
@@ -33,6 +32,8 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 
 class HeartbeatMonitor:
@@ -164,9 +165,14 @@ class ElasticPlan:
         return (p, self.tp_degree)
 
     def remesh(self, devices):
-        raise NotImplementedError(
-            "repro_torch has no device mesh yet: ElasticPlan.remesh waits "
-            "for ROADMAP Queue 1 item 7 (the sharded executor)")
+        """A ``(data, model)`` mesh of shape ``plan(len(devices))`` over
+        the first ``data · model`` of ``devices`` (``torch.device`` objects
+        or their names; one device may repeat)."""
+        from ..launch.mesh import Mesh
+        data, model = self.plan(len(devices))
+        dev = np.empty(data * model, dtype=object)
+        dev[:] = list(devices)[:data * model]
+        return Mesh(dev.reshape(data, model), ("data", "model"))
 
 
 __all__ = ["HeartbeatMonitor", "StragglerMonitor", "ElasticPlan"]

@@ -4,9 +4,9 @@ Port of ``src/repro/distributed/replication.py`` over the port's engine
 and ``core.packed.extract_delta_records``.  Replicas restored from a
 checkpoint take the configuration and device of the engine they replace
 (the checkpoint records the index parameters, not where it runs), so
-every replica of a set runs on the same kind of device.  Reshard-on-
-rejoin (``ElasticPlan.remesh``) waits for the sharded executor (ROADMAP
-Queue 1 item 7).
+every replica of a set runs on the same kind of device.  A replica that
+rejoins with fewer devices than it left with is resharded onto the mesh
+``ElasticPlan.remesh`` picks over them (reshard-on-rejoin).
 
 One mesh is one failure domain.  This module turns N independently
 built engines into a *replica set* behind a single write leader:

@@ -20,8 +20,9 @@ the plain PyTorch versions play):
     ``topk_segmented`` over kernel A.  They take tensors and run where
     the tensors are; ragged Q and N are masked in the kernels, so no
     operand is padded or copied;
-  * the **device merge** ``merge_topk_device`` (plain PyTorch, as it was
-    XLA code in the reference);
+  * the **device merges** ``merge_topk_device`` and the cross-shard fold
+    ``merge_topk_allgather`` (plain PyTorch, as they were XLA code in the
+    reference);
   * the NumPy host oracle ``topk_numpy`` / ``topk_segmented_numpy``.
 """
 
@@ -312,7 +313,30 @@ def merge_topk_device(big_d: torch.Tensor, big_i: torch.Tensor,
     return out_d[:, :k], out_i[:, :k]
 
 
+def merge_topk_allgather(vals: torch.Tensor, gids: torch.Tensor, k: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-shard top-k fold of the sharded executor, the counterpart of
+    the reference's all-gather + ``lax.top_k`` inside ``shard_map``.
+
+    ``vals``/``gids``: the shards' (S, Q, k) local winners, (+inf, -1)
+    padding, on one device.  Row q's pool is its S·k winners in
+    shard-major order, as the reference's all-gather + transpose lays it
+    out; a stable sort keeps the first k, so on an exact tie the lower
+    position (lower shard, then lower local slot) wins, as ``lax.top_k``
+    does.  Shard candidate sets are disjoint, so no id dedup is needed.
+    Non-finite values and negative ids come back as (+inf, -1)."""
+    s, q, w = vals.shape
+    av = vals.permute(1, 0, 2).reshape(q, s * w)
+    ai = gids.permute(1, 0, 2).reshape(q, s * w)
+    pos = torch.argsort(av, dim=1, stable=True)[:, :k]
+    out_v, out_i = av.gather(1, pos), ai.gather(1, pos)
+    bad = ~torch.isfinite(out_v) | (out_i < 0)
+    return (torch.where(bad, float("inf"), out_v),
+            torch.where(bad, -1, out_i))
+
+
 __all__ = ["bucket", "record_launch", "launch_stats", "reset_launch_stats",
            "pairwise_sqdist", "topk", "topk_segmented",
            "pad_descriptor_batch", "topk_segmented_desc", "topk_numpy",
-           "topk_segmented_numpy", "merge_topk_device"]
+           "topk_segmented_numpy", "merge_topk_device",
+           "merge_topk_allgather"]

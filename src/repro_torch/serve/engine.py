@@ -3,9 +3,10 @@
 Port of ``src/repro/serve/engine.py`` (``Request``, ``Response``,
 ``WavePlan``, ``WavePending``, ``RetrievalEngine``) over the port's
 index.  The engine runs where its ``VectorMatonConfig`` says —
-``device="cuda"`` by default, which raises without a card.  Sharded
-serving (``mesh``) waits for the sharded executor (ROADMAP Queue 1
-item 7), and ``embed_texts`` for the LM stack (item 10).
+``device="cuda"`` by default, which raises without a card.  With a
+``mesh`` (``launch.mesh.make_host_mesh``) every wave runs through the
+sharded executor (``distributed.sharded_search``).  ``embed_texts``
+waits for the LM stack (ROADMAP Queue 1, "the LM in serving").
 
 Request flow (DESIGN.md §3):
     planner: predicate compile + automaton walks per request (µs-scale
@@ -37,14 +38,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.vectormaton import VectorMaton, VectorMatonConfig
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "repro_torch has no sharded executor yet: serving over a mesh "
-            "waits for ROADMAP Queue 1 item 7 "
-            "(distributed/sharded_search.py)")
 
 
 @dataclass
@@ -88,20 +81,22 @@ class WavePending:
     produced it.  ``RetrievalEngine.fetch_batch`` resolves it to
     [(dists, ids)] — the only point that blocks on the device."""
     wave: WavePlan
-    inner: object       # PendingExecution
+    inner: object       # PendingExecution (one device) | ShardedPending
     sharded: bool = False
 
 
 class RetrievalEngine:
-    """Single-device serving through the packed planner/executor.
-    ``mesh`` (distributed serving, DESIGN.md §5) is not ported yet and
-    raises ``NotImplementedError``."""
+    """``mesh`` (a ``launch.mesh.Mesh``) switches the engine to
+    distributed serving (DESIGN.md §5): every batch routes through the
+    sharded descriptor executor — the packed generation row-sharded over
+    ``shard_axis`` at upload time, one kernel launch per shard a wave,
+    the cross-shard top-k folded on device.  ``mesh=None`` (default)
+    serves on one device through the packed planner/executor."""
 
     def __init__(self, vectors: np.ndarray, sequences: Sequence[str],
                  config: Optional[VectorMatonConfig] = None,
                  workers: int = 1, mesh=None, shard_axis: str = "data",
                  attributes=None):
-        _no_mesh(mesh)
         self.index = VectorMaton(vectors, sequences, config,
                                  workers=workers, attributes=attributes)
         self.mesh = mesh
@@ -146,8 +141,17 @@ class RetrievalEngine:
         version, compaction swapped the generation) — the pipeline
         replans; it never locks writers out.  A pinned staging slot
         uploads asynchronously and is guarded until that copy is done,
-        on the error path too."""
+        on the error path too.  With a mesh the wave runs through the
+        sharded executor (no staging: the pipeline keeps it off)."""
         with self._lock:
+            if self.mesh is not None:
+                from ..distributed.sharded_search import \
+                    sharded_plan_dispatch
+                inner = sharded_plan_dispatch(
+                    self.mesh, None, wave.rt, wave.queries, wave.plan,
+                    wave.k, metric=self.index.config.metric,
+                    axis=self.shard_axis)
+                return WavePending(wave=wave, inner=inner, sharded=True)
             slot = wave.staged
             if slot is None:
                 q = wave.queries
@@ -170,6 +174,9 @@ class RetrievalEngine:
         blocking here must overlap the next wave's planning.  The wave's
         staging slot is released on every path out."""
         try:
+            if pending.sharded:
+                from ..distributed.sharded_search import sharded_plan_fetch
+                return sharded_plan_fetch(pending.wave.rt, pending.inner)
             return pending.wave.rt.fetch(pending.inner)
         finally:
             if pending.wave.staged is not None:
@@ -273,8 +280,9 @@ class RetrievalEngine:
                 device: str = "cuda") -> "RetrievalEngine":
         """Restore a checkpointed engine (written by either package) on
         ``device``; ``config`` supplies what the checkpoint does not
-        record (backend, accum, plan mode)."""
-        _no_mesh(mesh)
+        record (backend, accum, plan mode).  With ``mesh`` the restored
+        engine serves sharded over it — a mesh of another shape than the
+        one the checkpoint was taken under reshards on load."""
         self = cls.__new__(cls)
         self.index = VectorMaton.load(path, config=config, device=device)
         self.mesh = mesh

@@ -112,12 +112,13 @@ class PipelinedExecutor:
         self._planned: "queue.Queue[Optional[Tuple[WaveJob, object]]]" = (
             queue.Queue(maxsize=1))
         cfg = engine.index.config
-        # pinned slots exactly when the wave's upload goes to a card
+        # pinned slots exactly when the wave's upload goes to a card; a
+        # sharded engine uploads per shard device and stages nothing
         self._ring = (StagingRing(
             engine.index.vectors.shape[1],
             pin=(cfg.backend == "torch"
                  and torch.device(cfg.device).type == "cuda"))
-            if staging else None)
+            if staging and engine.mesh is None else None)
         self._n_jobs = 0
         self._submitted = 0
         self._completed = 0

@@ -3,7 +3,7 @@ executor.
 
 Port of ``StagingStall``, ``StagingSlot`` and ``StagingRing`` from
 ``src/repro/serve/step.py``; its prefill/decode step functions wait for
-the LM stack (ROADMAP Queue 1 item 10).
+the LM stack (ROADMAP Queue 1, "the LM in serving").
 
 ``StagingRing`` (DESIGN.md §7): the planner thread assembles wave N+1's
 query matrix into one of two preallocated host buffers while wave N's

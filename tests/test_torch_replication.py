@@ -14,7 +14,7 @@ exact scan), so the two executors must agree.  Where the reference holds the
 replicated path against a single-replica oracle, the port's path is held
 against the port's own oracle, bit for bit.  The pure-Python monitors
 must give the reference's verdicts.  ``ElasticPlan.remesh`` builds a
-device mesh, which the port does not have yet: it must raise.
+mesh of the same shape in both packages.
 
 The reference is imported inside fixtures, so the card, which has no
 JAX, can still collect this file.
@@ -554,16 +554,19 @@ def test_elastic_plan_keeps_tp(ref):
 
 
 def test_elastic_remesh_devices(ref):
-    """The reference builds a (data, model) mesh; the port has no mesh
-    yet and says which ROADMAP item brings it."""
+    """Both packages build a (data, model) mesh of the planned shape over
+    the first devices given."""
     jax = importlib.import_module("jax")
     mesh = ref.elastic.ElasticPlan(tp_degree=1, old_data=1).remesh(
         jax.devices())
     assert mesh.axis_names == ("data", "model")
     plan = port_elastic.ElasticPlan(tp_degree=1, old_data=1)
+    got = plan.remesh(["cpu"] * len(jax.devices()))
+    assert got.axis_names == mesh.axis_names
+    assert got.devices.shape == mesh.devices.shape
     assert plan.plan(len(jax.devices())) == (len(mesh.devices), 1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        plan.remesh(["cpu"])
+    assert port_elastic.ElasticPlan(tp_degree=1, old_data=8).remesh(
+        ["cpu"] * 5).devices.shape == (4, 1)
 
 
 def test_heartbeat_fully_injectable_clock(ref):

@@ -1039,10 +1039,10 @@ def test_serving_defaults_to_card_and_refuses_mesh(monkeypatch):
     vecs, seqs = _mk(np.random.default_rng(0), 20)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RetrievalEngine(vecs, seqs)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        RetrievalEngine(vecs, seqs, _config(PORT), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        RetrievalEngine.restore("unused", mesh=object())
+    from repro_torch.launch.mesh import make_host_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RetrievalEngine(vecs, seqs, _config(PORT),
+                        mesh=make_host_mesh(data=2))
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--corpus", "words", "--scale", "0.05",
