@@ -11,10 +11,11 @@ Phases:
      csrc`` with nvcc and prints what ``-Xptxas -v`` reports;
   2. kernels vs plain at edge shapes (k = 128, ragged N, N < k, owners
      with no candidates, exact ties from duplicated rows, ip, bf16, d =
-     97 (the scalar-load instantiation), d = 100 and 768, Q = 1 and 129,
-     SQ8 at d = 4096, 8 and 130, Q = 1024 × N = 65,536 × d = 768 for the
-     unsegmented kernels, and kernels A and B (B at kqp = 8, 40 and 128)
-     under every owner layout of their tile skip:
+     97 (the scalar-load instantiation), d = 100, 768 and 2,560 (the
+     LM's width, kernels A and B under three owner layouts), Q = 1 and
+     129, SQ8 at d = 4096, 8 and 130, Q = 1024 × N = 65,536 × d = 768
+     for the unsegmented kernels, and kernels A and B (B at kqp = 8, 40
+     and 128) under every owner layout of their tile skip:
      owner-sorted descriptor and tail runs, random owners, scattered
      tombstones, pad rows, an owner with no candidates, negative owners
      that match, ragged Q): the SQ8 kernels must be bit-equal to their
@@ -22,7 +23,23 @@ Phases:
      equal on ids except where the distance is within that tolerance of a
      neighbour's; kernels A and B must compute exactly the (row tile,
      column tile) pairs that the plain skip rule keeps;
-  3. the main path at SIFT1M shape — ``make_scale_corpus(1_048_576, 128)``
+  3. the LM, first part (before the index phases): ``lm_model`` —
+     qwen3-4b at its published width and depth in bf16, random weights
+     from a seeded generator on the card (parameters against
+     ``cfg.param_count()``, device bytes, init seconds); ``lm_parity`` —
+     the card against the port's own CPU path on the same weights: the
+     full-width config cut to 2 layers (hidden states of 4 × 96 tokens
+     within 2e-2·max|h|) and every architecture's smoke config in fp32
+     (prefill + 8 greedy decode steps, logits within 1e-3·max|logit|,
+     tokens equal but at near ties); ``lm_embed`` — ``embed_texts`` over
+     the 3,000 records of ``make_corpus("mtg")`` (96 byte tokens each,
+     batches of 64): tokens/s, ms a batch, peak memory, the norms of the
+     embeddings; ``lm_generate`` — 8 prompts of 128 tokens, one prefill
+     and 32 greedy decode steps (``make_prefill`` / ``make_decode``):
+     prefill ms, decode ms a token (p50), and the tokens at steps 0, 1,
+     16 and 32 held to the argmax of a full-sequence ``forward`` (near
+     ties within 2e-2·max|logit|);
+  4. the main path at SIFT1M shape — ``make_scale_corpus(1_048_576, 128)``
      indexed with ``VectorMatonConfig(T=10**9, backend="torch",
      device="cuda")``, 64-request batches of ``SCALE_PATTERNS`` plus one
      multi-segment LIKE (the residual path), under ``quantize="sq8"`` and
@@ -38,7 +55,7 @@ Phases:
      last SQ8 inputs (the ``sq8_call`` line: kernel B and the
      certificate's owner maxima inside it, the latter beside the two
      ``scatter_reduce`` it replaced, bit-equal);
-  4. unfiltered — the same resident 1,048,576 × 128 table through the
+  5. unfiltered — the same resident 1,048,576 × 128 table through the
      unsegmented exact k-NN entry points, Q = 128 queries, k = 10:
      ``ops.topk`` (recall 1.0 against an fp64 brute force on the card),
      ``ops.pairwise_sqdist`` (l2 and ip, within 1e-4·max|d| of fp64) and
@@ -47,7 +64,7 @@ Phases:
      must move, and each is held against its plain version on the inputs
      the phase gave it and timed beside its plain version, the torch
      composition, the one PyTorch call where there is one, and its bound;
-  5. serving, on the main path's index (not rebuilt): (a) checkpoint it
+  6. serving, on the main path's index (not rebuilt): (a) checkpoint it
      to a temporary directory (bytes, save time) and restore it as a
      ``RetrievalEngine`` (time to the first answered wave; the answers
      must equal the original's); (b) one scripted stream — 32 read
@@ -65,7 +82,7 @@ Phases:
      replica killed mid-churn and rejoined from the checkpoint plus a
      replay of the log: no request lost or duplicated, every answer
      equal to a single-replica oracle's, the rejoin time;
-  6. sharded, on the same index split into 4 logical row shards on the
+  7. sharded, on the same index split into 4 logical row shards on the
      card (``make_host_mesh(data=4)``): the residency build (seconds,
      device bytes); 16 waves per mode through ``sharded_plan_topk``,
      each equal to the one-device ``query_batch`` under ``topk_agree``
@@ -78,17 +95,36 @@ Phases:
      onto the 2-shard mesh ``ElasticPlan.remesh`` picks over 3 devices,
      each held to brute force; ``sharded_topk`` under a mask against
      ``ops.topk`` on the masked rows;
-  7. graph states, inserts past the upload watermark, deletes and one
-     compaction on ``make_corpus("code")`` with ``T=50, M=8, ef_con=60``:
-     every wave equals the same index run through the port's plain
+  8. graph states, inserts past the upload watermark, deletes and one
+     compaction on ``make_corpus("code")`` with ``T=50, M=8, ef_con=60``
+     (built once on the host; the card's and the CPU's executors load it
+     from its checkpoint): every wave equals the same index run through
+     the port's plain
      PyTorch path on the CPU (near ties aside), graph-free requests equal
      the NumPy host oracle, and every answer is a live record that
      satisfies its predicate at its true distance; then one profiled
      wave (``graphs_profile``: the host time blocked in the beam's
      convergence checks and the copies);
-  8. the ``kernels`` line (kernels A and B with their launches and
-     times in the sharded phase too); 9. the card line and the ``ok``
-     line.
+  9. the LM, second part: a child process builds the index of the
+     embeddings on the host (``T=40, M=8, ef_con=50``, the example's tag
+     and price attributes; about 4 minutes of Python HNSW work) from the
+     end of the sharded phase on, so it overlaps the graphs phase and
+     none of the host-bound times above; ``lm_index`` — that index
+     restored onto the card (build and restore seconds, graph states);
+     ``lm_serve`` — ``pattern_search.py``'s request sets (120 CONTAINS,
+     11 boolean/LIKE, 9 tag + range) through ``serve_batch`` under
+     ``sq8`` and ``none``: every id satisfies its predicate, graph-free
+     requests equal a brute force on the card (recall 1.0), the mean
+     recall@10 of the graph-state CONTAINS requests against the host
+     oracle, kernels A and B launched (counted), and a checkpoint
+     restored with identical answers; ``lm_kernels`` — kernels A and B
+     held against their plain versions at this phase's shape (d = 2,560)
+     and timed beside them and their bounds; ``lm_generate_profile`` —
+     one decode step under ``torch.profiler`` (last: a traced process
+     launches more slowly afterwards);
+  10. the ``kernels`` line (kernels A and B with their launches and
+     times in the sharded and LM phases too); 11. the card line and the
+     ``ok`` line.
 
 ``--phases build`` or ``--phases build,edges`` runs only those phases
 and stops without the ``kernels`` and ``ok`` lines: a short check of new
@@ -441,7 +477,34 @@ def phase_edges() -> None:
             emit(phase="edges", kernel="qtopk_seg_sq8",
                  case=f"layout_{layout}_k{kp}", max_abs_err=0.0,
                  bit_equal=True, tiles=tiles)
+    phase_edges_d2560(dev, rng)
     phase_edges_unsegmented(dev, rng)
+
+
+def phase_edges_d2560(dev, rng) -> None:
+    """Kernels A and B at the LM's embedding width, d = 2,560 (qwen3-4b),
+    under three owner layouts, before the ``lm`` phase relies on them."""
+    from repro_torch.kernels import distance_topk
+    for layout in ("runs", "random", "tombstones"):
+        x = rng.standard_normal((128, 2560)).astype(np.float32)
+        y = rng.standard_normal((6000, 2560)).astype(np.float32)
+        qseg, cseg = owner_layout(rng, layout, 128, 6000)
+        t = [torch.from_numpy(a).to(dev) for a in (x, y, qseg, cseg)]
+        for accum, metric in (("f32", "l2"), ("bf16", "ip")):
+            distance_topk.reset_tile_stats()
+            err, tol = check_kernel_a(*t, 16, metric=metric, accum=accum)
+            tiles = check_skip_count(t[2], t[3])
+            emit(phase="edges", kernel="topk_seg_f32",
+                 case=f"d2560_{layout}_{accum}", max_abs_err=err, tol=tol,
+                 tiles=tiles)
+        sq = _sq8_inputs(x, y, qseg, cseg, dev)
+        for kp in (10, 40):
+            distance_topk.reset_tile_stats()
+            check_kernel_b(*sq, kp)
+            tiles = check_skip_count(sq[6], sq[7], "qtopk_seg_sq8")
+            emit(phase="edges", kernel="qtopk_seg_sq8",
+                 case=f"d2560_{layout}_k{kp}", max_abs_err=0.0,
+                 bit_equal=True, tiles=tiles)
 
 
 def phase_edges_unsegmented(dev, rng) -> None:
@@ -551,16 +614,21 @@ class Capture:
         setattr(self.module, self.name, self.fn)
 
 
-def matching_rows(seqs, patterns):
-    """Ids whose sequence satisfies each distinct predicate (host scan)."""
+def matching_rows(seqs, patterns, attributes=None):
+    """Ids whose record satisfies each distinct predicate (host scan;
+    ``attributes``: the records' attribute dicts, for tag and range
+    predicates)."""
     from repro_torch.core.predicate import Contains, as_predicate
     out = {}
     for p in dict.fromkeys(patterns):
         pred = as_predicate(p)
         if isinstance(pred, Contains):
             hit = [i for i, s in enumerate(seqs) if p in s]
-        else:
+        elif attributes is None:
             hit = [i for i, s in enumerate(seqs) if pred.matches(s)]
+        else:
+            hit = [i for i, s in enumerate(seqs)
+                   if pred.matches(s, attributes[i])]
         out[p] = np.asarray(hit, np.int64)
     return out
 
@@ -1837,6 +1905,8 @@ def _graph_free_requests(vm, patterns):
 
 
 def phase_graphs() -> None:
+    import tempfile
+
     from repro_torch.core.predicate import as_predicate
     from repro_torch.core.vectormaton import VectorMaton, VectorMatonConfig
     from repro_torch.data.corpora import make_corpus, sample_patterns
@@ -1844,13 +1914,18 @@ def phase_graphs() -> None:
     vecs, seqs = make_corpus("code")
     cfg = dict(T=50, M=8, ef_con=60, auto_compact=False)
     t0 = time.perf_counter()
-    vms = {"cuda": VectorMaton(vecs, seqs, VectorMatonConfig(
-               device="cuda", **cfg)),
-           "cpu": VectorMaton(vecs, seqs, VectorMatonConfig(
-               device="cpu", **cfg)),
-           "numpy": VectorMaton(vecs, seqs, VectorMatonConfig(
-               backend="numpy", **cfg))}
+    # one host build; the card's and the CPU's torch executors take the
+    # same index from its checkpoint (three builds took 220 s, PR 16)
+    vms = {"numpy": VectorMaton(vecs, seqs, VectorMatonConfig(
+        backend="numpy", **cfg))}
     build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="graphs_") as tmp:
+        vms["numpy"].save(str(Path(tmp) / "index"))
+        for dev in ("cuda", "cpu"):
+            vms[dev] = VectorMaton.load(
+                str(Path(tmp) / "index"),
+                config=VectorMatonConfig(device=dev, **cfg), device=dev)
+    restore_s = time.perf_counter() - t0 - build_s
     n_graphs = len(vms["cuda"].runtime.graphs)
     check(n_graphs > 0, "the code corpus built no graph states")
     rng = np.random.default_rng(2)
@@ -1913,6 +1988,7 @@ def phase_graphs() -> None:
     check(set(stats["cuda"]) == set(stats["cpu"]) == set(stats["numpy"]),
           "maintenance_stats keys differ across backends")
     emit(phase="graphs_done", graph_states=n_graphs, build_s=build_s,
+         save_and_restore_s=restore_s,
          compactions=stats["cuda"]["compactions"],
          launch_graph_fused=stats["cuda"].get("launch_graph_fused", 0),
          launch_graph_fused_filt=stats["cuda"].get(
@@ -1930,6 +2006,483 @@ def phase_graphs() -> None:
          top=top[:4], host_blocked=blocked)
 
 
+# --------------------------------------------------------------------- #
+# phase 8: the LM serving path — qwen3-4b embeds, VectorMaton serves
+# --------------------------------------------------------------------- #
+
+LM_ARCH = "qwen3-4b"
+LM_WIDTH = 96           # byte tokens a record (pattern_search.py's, uncut)
+LM_BATCH = 64           # records an embedding batch
+LM_INDEX = dict(T=40, M=8, ef_con=50)       # pattern_search.py's index
+LM_SCHEMA = {"genre": "tag", "price": "numeric"}
+LM_PROMPTS, LM_PROMPT_LEN, LM_STEPS = 8, 128, 32
+LM_TOL = 2e-2           # bf16 tolerance, a share of max|x| (a few ulps)
+PEAK_BF16 = 989e12      # H100 SXM bf16 tensor-core FLOP/s, dense
+
+
+def lm_tokens(seqs, vocab: int, width: int = LM_WIDTH) -> np.ndarray:
+    """``examples/pattern_search.py``'s byte tokens at ``width`` (spaces
+    pad a short record); the modulus is taken in int32, since a uint8
+    array cannot hold a vocabulary of 151,936."""
+    return np.stack([np.frombuffer(s[:width].ljust(width).encode(),
+                                   dtype=np.uint8).astype(np.int32) % vocab
+                     for s in seqs])
+
+
+def lm_requests(vectors, seqs, rng):
+    """``examples/pattern_search.py``'s request sets, drawn from ``rng``
+    in its order: 120 sampled CONTAINS patterns, 11 boolean/LIKE
+    predicates, the records' (genre, price) attributes, 10 tag + range
+    (+ pattern) predicates; each request a record's vector plus 0.1·N(0,
+    1) noise, k = 10."""
+    from repro_torch.core.predicate import quote_literal
+    from repro_torch.data.corpora import sample_patterns
+    from repro_torch.serve.engine import Request
+
+    def noisy(p):
+        return Request(vector=vectors[rng.integers(len(vectors))]
+                       + 0.1 * rng.standard_normal(vectors.shape[1]
+                                                   ).astype(np.float32),
+                       pattern=p, k=K)
+
+    def esc(text):
+        return (text.replace("\\", "\\\\").replace("%", r"\%")
+                .replace("_", r"\_"))
+
+    contains = [noisy(p) for p in (sample_patterns(seqs, 2, 40, seed=11)
+                                   + sample_patterns(seqs, 3, 40, seed=11)
+                                   + sample_patterns(seqs, 4, 40, seed=11))]
+    p2 = sample_patterns(seqs, 2, 8, seed=23)
+    p3 = sample_patterns(seqs, 3, 8, seed=23)
+    long_seqs = [s for s in seqs if len(s) >= 8]
+    q = quote_literal
+    boolean = [noisy(p) for p in (
+        [f"{q(a)} AND {q(b)}" for a, b in zip(p2[:3], p3[:3])]
+        + [f"{q(a)} OR {q(b)}" for a, b in zip(p3[:3], p3[3:6])]
+        + [f"{q(a)} AND NOT {q(b)}" for a, b in zip(p2[3:5], p3[5:7])]
+        + [f"LIKE {q('%' + esc(s[:3]) + '%' + esc(s[-3:]) + '%')}"
+           for s in long_seqs[:3]])]
+    genres = ["rock", "jazz", "pop"]
+    attributes = [{"genre": genres[int(rng.integers(0, 3))],
+                   "price": float(np.round(rng.uniform(0, 20), 2))}
+                  for _ in seqs]
+    hybrid = [noisy(p) for p in (
+        [f"genre = {q(g)}" for g in genres]
+        + ["price < 5", "price >= 3 AND price <= 12"]
+        + [f"{q(p)} AND genre = 'jazz'" for p in p2[:2]]
+        + [f"{q(p)} AND price < 10" for p in p3[:2]])]
+    return {"contains": contains, "boolean": boolean,
+            "hybrid": hybrid}, attributes
+
+
+def build_lm_index(vectors, seqs, attributes, path: str) -> None:
+    """Run in a child process: build the index of the LM's embeddings on
+    the host (the ESAM and one HNSW per state above T — NumPy work that
+    never touches the card) and checkpoint it to ``path``; the build's
+    seconds go to ``path + ".json"``.  The parent restores it onto the
+    card."""
+    from repro_torch.core.vectormaton import VectorMatonConfig
+    from repro_torch.serve.engine import RetrievalEngine
+    t0 = time.perf_counter()
+    engine = RetrievalEngine(vectors, seqs, VectorMatonConfig(
+        backend="numpy", schema=LM_SCHEMA, **LM_INDEX),
+        attributes=attributes)
+    build_s = time.perf_counter() - t0
+    engine.checkpoint(path)
+    Path(path + ".json").write_text(json.dumps({"build_s": build_s}))
+
+
+class LMRun:
+    """What the early part of the LM phase hands the late part: the
+    corpus, its embeddings, the request sets and, once ``start()`` ran,
+    the child process that builds the index.  ``stop()`` ends the child
+    and removes its checkpoint directory."""
+
+    def __init__(self, seqs, vectors, requests, attributes):
+        import tempfile
+        self.seqs, self.vectors = seqs, vectors
+        self.requests, self.attributes = requests, attributes
+        self.tmp = tempfile.mkdtemp(prefix="lm_index_")
+        self.path = str(Path(self.tmp) / "index")
+        self.proc = None
+
+    def start(self) -> None:
+        import multiprocessing
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=build_lm_index, args=(self.vectors, self.seqs,
+                                         self.attributes, self.path))
+        self.t_start = time.perf_counter()
+        self.proc.start()
+
+    def wait(self) -> dict:
+        """Join the build; its seconds, and how long the parent waited."""
+        t0 = time.perf_counter()
+        self.proc.join()
+        check(self.proc.exitcode == 0,
+              f"the LM index build failed (exit {self.proc.exitcode})")
+        out = json.loads(Path(self.path + ".json").read_text())
+        out["waited_s"] = time.perf_counter() - t0
+        out["started_to_done_s"] = time.perf_counter() - self.t_start
+        return out
+
+    def stop(self) -> None:
+        import shutil
+        if self.proc is not None:
+            if self.proc.is_alive():
+                self.proc.terminate()
+            self.proc.join()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def phase_lm_model(card: str):
+    """qwen3-4b at its published width and depth in bf16, random weights
+    from a seeded generator on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    pad = (model.vocab_padded - cfg.vocab_size) * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    check(n == cfg.param_count() + pad,
+          f"{n} parameters, cfg.param_count() {cfg.param_count()} + {pad}")
+    emit(phase="lm_model", card=card, arch=cfg.name,
+         layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, vocab_padded=model.vocab_padded,
+         dtype=cfg.dtype, params=n, param_count=cfg.param_count(),
+         padded_vocab_params=pad,
+         device_bytes=sum(p.numel() * p.element_size()
+                          for p in model.parameters()), init_s=init_s)
+    return model
+
+
+def _smoke_run(model, cfg, toks, extra, steps, feed=None):
+    """Prefill and ``steps`` greedy decode steps on the model's device:
+    (logits per step (host fp32), tokens fed).  ``feed``: the tokens to
+    feed instead of the model's own argmax (the CPU run's)."""
+    dev = model.device
+    t = torch.from_numpy(toks).to(dev)
+    if cfg.is_encoder_decoder:
+        cache, logits = model.prefill(torch.from_numpy(extra).to(dev), t,
+                                      toks.shape[1] + steps)
+        pos = toks.shape[1]
+    else:
+        pe = None if extra is None else torch.from_numpy(extra).to(dev)
+        n_pre = 0 if extra is None else extra.shape[1]
+        cache, logits = model.prefill(t, toks.shape[1] + n_pre + steps,
+                                      patch_embeds=pe)
+        pos = toks.shape[1] + n_pre
+    out, fed = [host(logits.float())], []
+    for i in range(steps):
+        nxt = out[-1].argmax(-1) if feed is None else feed[i]
+        fed.append(nxt)
+        logits, cache = model.decode_step(
+            cache, torch.from_numpy(nxt[:, None]).to(dev), pos + i)
+        out.append(host(logits.float()))
+    return out, fed
+
+
+def _near_tie_tokens(got, logits, tol):
+    """``got`` (B,) equals ``logits``' argmax except where the two tokens'
+    logits are within ``tol``; returns the near ties' logit gaps."""
+    want = logits.argmax(-1)
+    gaps = []
+    for i in np.nonzero(got != want)[0]:
+        gap = float(logits[i, want[i]] - logits[i, got[i]])
+        check(gap <= tol, f"token {got[i]} vs argmax {want[i]}: gap {gap} "
+              f"> {tol}")
+        gaps.append(gap)
+    return gaps
+
+
+def phase_lm_parity(card: str) -> None:
+    """The card against the port's own CPU path on the same weights: the
+    full-width qwen3-4b config cut to 2 layers (bf16 hidden states), and
+    every architecture's smoke config in fp32 (prefill + 8 decode
+    steps)."""
+    from repro_torch.configs import arch_names, get_config, smoke_config
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.transformer import LM
+    rng = np.random.default_rng(5)
+    cfg = get_config(LM_ARCH).replace(num_layers=2)
+    model = LM(cfg, device="cuda", seed=1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, LM_WIDTH)))
+    t0 = time.perf_counter()
+    h_card = host(model.forward(toks.cuda())[0].float())
+    model.to("cpu")
+    h_cpu = host(model.forward(toks)[0].float())
+    err = np.abs(h_card - h_cpu)
+    scale = float(np.abs(h_cpu).max())
+    check(err.max() <= LM_TOL * scale,
+          f"2-layer hidden states differ by {err.max()} > {LM_TOL}·{scale}")
+    emit(phase="lm_parity", card=card, case=f"{LM_ARCH} 2 layers, bf16",
+         shape=list(h_cpu.shape), max_abs_err=float(err.max()),
+         mean_abs_err=float(err.mean()), max_abs=scale,
+         tol=LM_TOL * scale, seconds=time.perf_counter() - t0)
+    del model
+    steps, results = 8, {}
+    for name in arch_names():
+        scfg = smoke_config(name)
+        model = (EncDec if scfg.is_encoder_decoder else LM)(
+            scfg, device="cpu", seed=0)
+        toks = rng.integers(0, scfg.vocab_size, (2, 16)).astype(np.int64)
+        extra = None
+        if scfg.is_encoder_decoder:
+            extra = (0.1 * rng.standard_normal((2, 24, scfg.d_model))
+                     ).astype(np.float32)
+        elif scfg.frontend == "vision_stub":
+            extra = (0.1 * rng.standard_normal(
+                (2, scfg.num_patches, scfg.d_model))).astype(np.float32)
+        cpu, fed = _smoke_run(model, scfg, toks, extra, steps)
+        model.to("cuda")
+        card_out, _ = _smoke_run(model, scfg, toks, extra, steps, feed=fed)
+        worst, ties = 0.0, 0
+        for i, (a, b) in enumerate(zip(card_out, cpu)):
+            tol = 1e-3 * float(np.abs(b).max())
+            e = float(np.abs(a - b).max())
+            check(e <= tol, f"{name} step {i}: logits differ by {e} > {tol}")
+            worst = max(worst, e / max(float(np.abs(b).max()), 1e-30))
+            ties += len(_near_tie_tokens(a.argmax(-1), b, 2 * tol))
+        results[name] = {"max_rel_err": worst, "near_ties": ties}
+        del model
+    emit(phase="lm_parity", card=card, case="smoke configs, fp32",
+         steps=steps, tol="1e-3·max|logit|", archs=results)
+    torch.cuda.empty_cache()
+
+
+def phase_lm_embed(model, card: str) -> "LMRun":
+    """Embed every record of ``make_corpus("mtg")`` with ``embed_texts``
+    and draw the request sets."""
+    from repro_torch.data.corpora import make_corpus
+    from repro_torch.serve.engine import embed_texts
+    cfg = model.cfg
+    _, seqs = make_corpus("mtg", scale=1.0)
+    batches = [lm_tokens(seqs[i:i + LM_BATCH], cfg.vocab_size)
+               for i in range(0, len(seqs), LM_BATCH)]
+    embed_texts(model, batches[:1])           # warm-up (cuBLAS, allocator)
+    torch.cuda.reset_peak_memory_stats()
+    ms, parts = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        parts.append(embed_texts(model, [b]))   # ends in a copy to host
+        ms.append((time.perf_counter() - t0) * 1e3)
+    vectors = np.concatenate(parts).astype(np.float32)
+    check(vectors.shape == (len(seqs), cfg.d_model),
+          f"embeddings {vectors.shape}")
+    check(bool(np.isfinite(vectors).all()), "non-finite embeddings")
+    norms = np.linalg.norm(vectors, axis=1)
+    tokens = len(seqs) * LM_WIDTH
+    flop = 2 * tokens * sum(p.numel() for name, p in
+                            model.named_parameters() if name != "embed")
+    seconds = sum(ms) / 1e3
+    emit(phase="lm_embed", card=card, records=len(seqs), tokens=tokens,
+         width=LM_WIDTH, batch=LM_BATCH, batches=len(batches),
+         seconds=seconds, tokens_per_s=tokens / seconds,
+         ms_per_batch_p50=float(np.median(ms)),
+         ms_per_batch_max=float(np.max(ms)),
+         gemm_flop=flop, achieved_tflops=flop / seconds / 1e12,
+         bound_s=flop / PEAK_BF16,
+         peak_memory_allocated=torch.cuda.max_memory_allocated(),
+         norm_min=float(norms.min()), norm_mean=float(norms.mean()),
+         norm_max=float(norms.max()))
+    requests, attributes = lm_requests(vectors, seqs,
+                                       np.random.default_rng(1))
+    return LMRun(seqs, vectors, requests, attributes)
+
+
+def phase_lm_generate(model, card: str) -> None:
+    """8 prompts of 128 tokens: one prefill, 32 greedy decode steps; each
+    step's token held to the argmax of a full-sequence ``forward`` over
+    the prompt and the tokens so far at steps 1, 16 and 32."""
+    from repro_torch.serve.step import make_decode, make_prefill
+    cfg = model.cfg
+    rng = np.random.default_rng(9)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_PROMPTS, LM_PROMPT_LEN))).cuda()
+    max_len = LM_PROMPT_LEN + LM_STEPS
+    prefill, decode = make_prefill(model, max_len), make_decode(model)
+    prefill(prompts)                          # warm-up at this shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, nxt = prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    gen, step_ms = [nxt[:, None]], []
+    for i in range(LM_STEPS):
+        t0 = time.perf_counter()
+        nxt, cache = decode(cache, gen[-1], LM_PROMPT_LEN + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gen.append(nxt)
+    gen = torch.cat(gen, dim=1)                          # (B, 1 + steps)
+    ties, tol = {}, {}
+    for t in (0, 1, 16, LM_STEPS):
+        seq = torch.cat([prompts, gen[:, :t]], dim=1)
+        hidden, _, _ = model.forward(seq)
+        logits = host(model.logits(hidden[:, -1]))
+        tol[t] = LM_TOL * float(np.abs(logits).max())
+        ties[t] = _near_tie_tokens(host(gen[:, t]), logits, tol[t])
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    emit(phase="lm_generate", card=card, prompts=LM_PROMPTS,
+         prompt_len=LM_PROMPT_LEN, max_len=max_len, steps=LM_STEPS,
+         prefill_ms=prefill_ms,
+         prefill_tokens_per_s=LM_PROMPTS * LM_PROMPT_LEN / prefill_ms * 1e3,
+         decode_ms_per_token_p50=float(np.median(step_ms)),
+         decode_ms_p25_p75=np.percentile(step_ms, [25, 75]).tolist(),
+         decode_tokens_per_s=LM_PROMPTS / float(np.median(step_ms)) * 1e3,
+         decode_bound_ms=weight_bytes / PEAK_BYTES * 1e3,
+         consistency_steps=sorted(ties), near_tie_gaps=ties,
+         near_tie_tol=tol)
+
+
+def phase_lm_profile(card: str) -> None:
+    """One decode step of the same model (re-made from its seed) under
+    ``torch.profiler``: the device's busy share of a step.  It runs last:
+    once the profiler has traced a process, later launches from it cost
+    the host more, and the LM's first part runs before the phases whose
+    host-bound times this script reports."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.step import make_decode, make_prefill
+    cfg = get_config(LM_ARCH)
+    model = LM(cfg, device="cuda", seed=0)
+    prompts = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (LM_PROMPTS, LM_PROMPT_LEN))).cuda()
+    cache, nxt = make_prefill(model, LM_PROMPT_LEN + 2)(prompts)
+    decode = make_decode(model)
+    nxt, cache = decode(cache, nxt[:, None], LM_PROMPT_LEN)   # warm-up
+    wall_ms, busy, top = device_profile(
+        lambda: decode(cache, nxt, LM_PROMPT_LEN + 1))
+    emit(phase="lm_generate_profile", card=card, step_wall_ms=wall_ms,
+         step_device_busy_ms=busy,
+         step_idle_share=None if busy is None else 1 - busy / wall_ms,
+         top=top[:6])
+    del model, cache
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(card: str, run: "LMRun"):
+    """The index of the embeddings, restored onto the card from the
+    child's checkpoint, serves the three request sets under ``sq8`` and
+    ``none``; returns kernel A's and B's launches and their measurements
+    at this shape."""
+    from repro_torch.core.baselines import ground_truth, recall
+    from repro_torch.core.predicate import parse_predicate
+    from repro_torch.core.vectormaton import VectorMatonConfig
+    from repro_torch.kernels import distance_topk, quant
+    from repro_torch.serve.engine import RetrievalEngine
+    build = run.wait()
+    config = VectorMatonConfig(backend="torch", device="cuda",
+                               schema=LM_SCHEMA, **LM_INDEX)
+    t0 = time.perf_counter()
+    engine = RetrievalEngine.restore(run.path, config=config,
+                                     device="cuda")
+    rt = engine.index.runtime
+    dev_vecs = rt.to_device()["vectors"]
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    emit(phase="lm_index", card=card, n=len(run.seqs),
+         d=run.vectors.shape[1], **LM_INDEX, states=rt.stats()["states"],
+         graph_states=len(rt.graphs), restore_s=restore_s, **build)
+
+    seqs, attrs = run.seqs, run.attributes
+    for mode in ("sq8", "none"):              # warm-up wave per mode
+        rt.quantize = mode
+        engine.serve_batch(run.requests["contains"][:8])
+    distance_topk.topk_seg_f32.launches = 0
+    quant.qtopk_seg_sq8.launches = 0
+    distance_topk.reset_tile_stats()
+    answers, wave_ms = {}, {}
+    with Capture(distance_topk, "topk_seg_f32") as cap_a, \
+            Capture(quant, "qtopk_seg_sq8") as cap_b:
+        for mode in ("sq8", "none"):
+            rt.quantize = mode
+            rt._sq8_bad_streak = 0        # so sq8 waves run the SQ8 scan
+            for name, reqs in run.requests.items():
+                t0 = time.perf_counter()
+                answers[(mode, name)] = engine.serve_batch(reqs)
+                torch.cuda.synchronize()
+                wave_ms[f"{mode}/{name}"] = (time.perf_counter() - t0) * 1e3
+    launches_a = distance_topk.topk_seg_f32.launches
+    launches_b = quant.qtopk_seg_sq8.launches
+    tiles_a = distance_topk.tile_stats()
+    tiles_b = distance_topk.tile_stats("qtopk_seg_sq8")
+    check(launches_a > 0, "kernel A never launched on the LM path")
+    check(launches_b > 0, "kernel B never launched on the LM path")
+
+    checked, free_total, graph_recalls = 0, 0, []
+    for name, reqs in run.requests.items():
+        patterns = [r.pattern for r in reqs]
+        queries = np.stack([r.vector for r in reqs]).astype(np.float32)
+        free = _graph_free_requests(engine.index, patterns)
+        rows_of = matching_rows(seqs, patterns, attrs)
+        oracle = brute_force(dev_vecs, rows_of, queries, patterns, K)
+        for mode in ("sq8", "none"):
+            got = answers[(mode, name)]
+            for r, (req, resp) in enumerate(zip(reqs, got)):
+                pred = parse_predicate(req.pattern)
+                for i in resp.ids.tolist():
+                    check(pred.matches(seqs[i], attrs[i]),
+                          f"{mode}/{name}: id {i} fails {req.pattern!r}")
+                    checked += 1
+            rec = recall_check([(got[r].distances, got[r].ids)
+                                for r in free], [oracle[r] for r in free])
+            check(rec == 1.0, f"{mode}/{name}: graph-free recall {rec}")
+        free_total += len(free)
+        if name == "contains":                  # the example's recall
+            graph = sorted(set(range(len(reqs))) - set(free))
+            graph_recalls = [recall(answers[("none", name)][r].ids,
+                                    ground_truth(engine.index.vectors,
+                                                 engine.index.esam,
+                                                 reqs[r].pattern,
+                                                 reqs[r].vector, K))
+                             for r in graph]
+
+    # checkpoint the served engine, restore it, the same answers
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="lm_ckpt_") as tmp:
+        t0 = time.perf_counter()
+        engine.checkpoint(str(Path(tmp) / "engine"))
+        save_s = time.perf_counter() - t0
+        back = RetrievalEngine.restore(str(Path(tmp) / "engine"),
+                                       config=config, device="cuda")
+        for e in (engine, back):
+            e.index.runtime.quantize = "none"
+        for name, reqs in run.requests.items():
+            a, b = engine.serve_batch(reqs), back.serve_batch(reqs)
+            check(all(np.array_equal(x.ids, y.ids)
+                      and np.array_equal(x.distances, y.distances)
+                      for x, y in zip(a, b)),
+                  f"{name}: the restored engine answers differently")
+    emit(phase="lm_serve", card=card, k=K,
+         requests={n: len(r) for n, r in run.requests.items()},
+         graph_free=free_total, ids_checked=checked,
+         graph_free_recall=1.0,
+         contains_graph_state_requests=len(graph_recalls),
+         contains_graph_state_recall_mean=(float(np.mean(graph_recalls))
+                                           if graph_recalls else None),
+         wave_ms=wave_ms,
+         kernel_launches={"topk_seg_f32": launches_a,
+                          "qtopk_seg_sq8": launches_b},
+         kernel_a_tiles=tiles_a, kernel_b_tiles=tiles_b,
+         sq8_stats=dict(rt.sq8_stats), checkpoint_save_s=save_s,
+         restored_answers_equal=True)
+    a = measure_kernel_a(*cap_a.args, launches_a, tiles_a)
+    b = measure_kernel_b(cap_b.args[0], launches_b, tiles_b)
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "composition_ms", "shape", "tiles_one_call")
+    emit(phase="lm_kernels", card=card,
+         kernels={m["name"]: {k: m[k] for k in keep} for m in (a, b)})
+    return ({"topk_seg_f32": launches_a, "qtopk_seg_sq8": launches_b},
+            {m["name"]: {k: m[k] for k in keep} for m in (a, b)})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1938,6 +2491,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     emit(phase="card", card=card, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
@@ -1951,6 +2505,30 @@ def main() -> int:
              seconds=time.perf_counter() - t_start)
         return 0
     phase_edges()
+    model = phase_lm_model(card)
+    phase_lm_parity(card)
+    lm_run = phase_lm_embed(model, card)
+    try:
+        phase_lm_generate(model, card)
+        del model
+        torch.cuda.empty_cache()
+        kernels = run_index_phases(card, lm_run)
+    finally:
+        lm_run.stop()
+    emit(phase="done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_index_phases(card, lm_run):
+    """The main path, unfiltered, serving, sharded and graphs phases,
+    the last of them while the LM index builds in its child process,
+    then the LM requests on that index; the ``kernels`` line's
+    entries."""
     (args_a, launches_a, tiles_a), (args_b, launches_b, tiles_b), call, \
         table, serving_inputs = phase_main_path()
     kernels = [measure_kernel_a(*args_a, launches_a, tiles_a),
@@ -1965,6 +2543,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serving(*serving_inputs)
     launches, shapes = phase_sharded(*serving_inputs)
+    # the LM index builds on the host from here on, past the phases whose
+    # host-bound times this script reports (the child takes a core)
+    lm_run.start()
     for line in kernels:
         line["launches_sharded"] = launches.get(line["name"], 0)
         if line["name"] in shapes:
@@ -1972,13 +2553,14 @@ def main() -> int:
     del serving_inputs
     torch.cuda.empty_cache()
     phase_graphs()
-    emit(phase="done", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    torch.cuda.empty_cache()
+    launches, shapes = phase_lm_serve(card, lm_run)
+    phase_lm_profile(card)
+    for line in kernels:
+        line["launches_lm"] = launches.get(line["name"], 0)
+        if line["name"] in shapes:
+            line["lm_shape"] = shapes[line["name"]]
+    return kernels
 
 
 PHASES = None           # None: every phase; else a subset (see --phases)

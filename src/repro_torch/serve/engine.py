@@ -6,7 +6,7 @@ index.  The engine runs where its ``VectorMatonConfig`` says —
 ``device="cuda"`` by default, which raises without a card.  With a
 ``mesh`` (``launch.mesh.make_host_mesh``) every wave runs through the
 sharded executor (``distributed.sharded_search``).  ``embed_texts``
-waits for the LM stack (ROADMAP Queue 1, "the LM in serving").
+turns token batches into embeddings with the port's ``LM``.
 
 Request flow (DESIGN.md §3):
     planner: predicate compile + automaton walks per request (µs-scale
@@ -36,6 +36,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core.vectormaton import VectorMaton, VectorMatonConfig
 
@@ -292,5 +293,20 @@ class RetrievalEngine:
         return self
 
 
+def embed_texts(model, token_batches, dim: Optional[int] = None
+                ) -> np.ndarray:
+    """Mean-pooled LM hidden states in fp32 as embeddings, one (B, d)
+    block per token batch, concatenated on the host.  No ``params``
+    argument: the weights live in ``model`` (a ``models.transformer.LM``),
+    which runs where its weights are.  ``dim`` is unused, as in the
+    reference."""
+    outs = []
+    with torch.inference_mode():
+        for toks in token_batches:
+            hidden, _, _ = model.forward(torch.as_tensor(toks))
+            outs.append(hidden.float().mean(dim=1).cpu().numpy())
+    return np.concatenate(outs, axis=0)
+
+
 __all__ = ["Request", "Response", "WavePlan", "WavePending",
-           "RetrievalEngine"]
+           "RetrievalEngine", "embed_texts"]

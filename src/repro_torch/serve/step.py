@@ -1,9 +1,14 @@
-"""The double-buffered host staging ring for the pipelined retrieval
+"""Serve-step builders — prefill and single-token greedy decode — and
+the double-buffered host staging ring for the pipelined retrieval
 executor.
 
-Port of ``StagingStall``, ``StagingSlot`` and ``StagingRing`` from
-``src/repro/serve/step.py``; its prefill/decode step functions wait for
-the LM stack (ROADMAP Queue 1, "the LM in serving").
+Port of ``src/repro/serve/step.py``.  ``make_prefill``,
+``make_prefill_encdec`` and ``make_decode`` return step functions over
+an ``LM`` / ``EncDec`` module: the weights live in the module, so the
+steps take no ``params`` argument (the reference's first positional
+one); they run under ``torch.inference_mode()`` and pick the next token
+greedily (``argmax``, the first index among equal logits, as
+``jnp.argmax``).
 
 ``StagingRing`` (DESIGN.md §7): the planner thread assembles wave N+1's
 query matrix into one of two preallocated host buffers while wave N's
@@ -28,7 +33,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -148,4 +153,38 @@ class StagingRing:
             self._cv.notify()
 
 
-__all__ = ["StagingStall", "StagingSlot", "StagingRing"]
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def make_prefill(model, max_len: int) -> Callable:
+    """``prefill(tokens[, patch_embeds]) -> (cache, next tokens (B,))``."""
+    @torch.inference_mode()
+    def prefill(tokens, patch_embeds=None):
+        cache, logits = model.prefill(tokens, max_len,
+                                      patch_embeds=patch_embeds)
+        return cache, _greedy(logits)
+    return prefill
+
+
+def make_prefill_encdec(model, max_dec: int) -> Callable:
+    """``prefill(frames, tokens) -> (cache, next tokens (B,))``."""
+    @torch.inference_mode()
+    def prefill(frames, tokens):
+        cache, logits = model.prefill(frames, tokens, max_dec)
+        return cache, _greedy(logits)
+    return prefill
+
+
+def make_decode(model) -> Callable:
+    """``decode(cache, token (B, 1), pos) -> (next (B, 1), cache)``; the
+    cache is updated in place."""
+    @torch.inference_mode()
+    def decode(cache, token, pos):
+        logits, cache = model.decode_step(cache, token, pos)
+        return _greedy(logits)[:, None], cache
+    return decode
+
+
+__all__ = ["StagingStall", "StagingSlot", "StagingRing", "make_prefill",
+           "make_prefill_encdec", "make_decode"]
