@@ -126,9 +126,39 @@ Phases:
      times in the sharded and LM phases too); 11. the card line and the
      ``ok`` line.
 
+Between the LM's first part and the main path run the training phases
+(no kernel of the port runs in them; the reference's models and train
+step have no ``pallas_call``):
+  T1. ``train_parity`` — the card against the port's own CPU path on the
+     same weights: qwen3-4b at full width cut to 2 layers in bf16, 4 × 96
+     tokens (the loss within 1e-3 relative, the global grad norm and
+     every leaf's gradient within 2⁻⁵·max|g| of the leaf: four bf16 ulps
+     of its largest element — the CPU widens the operands, the card
+     rounds each GEMM's cotangent to bf16, and the two sum bf16 values
+     in other orders), and every
+     architecture's smoke config in fp32, one full train step (the loss
+     within 1e-4 relative, the parameters under the Adam rule: elements
+     whose CPU gradient exceeds 1e-4·max|g| of their leaf within rtol
+     1e-5 + atol 1e-6, the others within 2·lr);
+  T2. ``train_full`` — ``repro_torch.launch.train --arch qwen3-4b --steps
+     10 --batch 8 --seq 128`` (bf16, remat) in a spawned process: the
+     loss and grad norm of every step (finite; every leaf changed), step
+     ms p50 over steps 3–10, tokens/s, model TFLOP/s (6 · parameters ·
+     tokens plus attention) and its share of the 989 TFLOP/s bf16 peak
+     (``mfu``), peak memory, the optimizer update's ms (CUDA events) and
+     its bound, and one more step under the profiler: kernels a step,
+     busy share, the top device kernels;
+  T3. ``train_embedder`` — ``examples/train_embedder.py`` at its own
+     size (mamba2-370m cut to 12 layers, vocab 8,192, fp32, chunk 64),
+     300 steps of 8 × 128: the loss must drop; async checkpoints at 100
+     and 200 and a final one (bytes, seconds); a restore and one more
+     step; 3 steps + checkpoint + restore + 3 against 6 uninterrupted
+     (atol 1e-5 + rtol 1e-4).
+
 ``--phases build`` or ``--phases build,edges`` runs only those phases
 and stops without the ``kernels`` and ``ok`` lines: a short check of new
-kernels on the card.
+kernels on the card; ``--phases`` also takes ``train_parity``,
+``train_full`` and ``train_embedder``.
 """
 
 from __future__ import annotations
@@ -1167,7 +1197,8 @@ def device_profile(fn, blocking=None):
     """``fn()`` once under ``torch.profiler``: (wall ms, device busy ms or
     None when the trace holds no device time, the top 8 device kernels
     by time).  With ``blocking`` (a dict), it also receives the host
-    time and count of each ``BLOCKING`` call and of kernel launches."""
+    time and count of each ``BLOCKING`` call and of kernel launches, and
+    under ``"device_kernels"`` the count of kernels the device ran."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1191,6 +1222,8 @@ def device_profile(fn, blocking=None):
             rows.append((dev_us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) if rows else None   # None: no trace
+    if blocking is not None:
+        blocking["device_kernels"] = sum(r[2] for r in rows)
     return wall_ms, busy, [{"kernel": k[:80], "ms": ms, "count": c}
                            for ms, k, c in rows[:8]]
 
@@ -2483,6 +2516,399 @@ def phase_lm_serve(card: str, run: "LMRun"):
             {m["name"]: {k: m[k] for k in keep} for m in (a, b)})
 
 
+# --------------------------------------------------------------------- #
+# training — qwen3-4b's train step, and examples/train_embedder.py's flow
+# --------------------------------------------------------------------- #
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 8, 128   # the launcher's defaults
+TRAIN_WARM = 2          # steps 1-2 warm cuBLAS and the allocator
+GRAD_TOL = 2 ** -5       # 4 bf16 ulps of a leaf's largest gradient
+EMBEDDER = dict(name="mamba2-100m", num_layers=12, ssm_chunk=64,
+                vocab_size=8192, dtype="float32")
+EMBEDDER_STEPS, EMBEDDER_CKPT_EVERY = 300, 100
+
+
+def _grads(model, batch):
+    """(loss, {name: fp32 host gradient}) of ``model.loss`` on its
+    device."""
+    model.requires_grad_(True)
+    loss = model.loss(batch)
+    names, leaves = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), {k: host(g.float())
+                                  for k, g in zip(names, grads)}
+
+
+def _adam_rule(got, want, grads, lr):
+    """Parameters after a step, card against CPU: elements whose CPU
+    gradient exceeds 1e-4·max|g| of their leaf within rtol 1e-5 + atol
+    1e-6; the others (Adam's first step is about lr·sign(g), and a
+    gradient at rounding noise may flip) within 2·lr.  Returns the count
+    of the others and the worst error of the tight ones."""
+    loose, worst = 0, 0.0
+    for k, w in want.items():
+        g = np.abs(grads[k])
+        tight = g > 1e-4 * g.max()
+        err = np.abs(got[k] - w)
+        lim = 1e-6 + 1e-5 * np.abs(w)
+        check(bool((err[tight] <= lim[tight]).all()),
+              f"{k}: tight elements off (max error {err.max()})")
+        check(bool((err[~tight] <= 2 * lr + 1e-6).all()),
+              f"{k}: loose elements off by more than 2·lr")
+        loose += int((~tight).sum())
+        if tight.any():
+            worst = max(worst, float((err[tight] / lim[tight]).max()))
+    return loose, worst
+
+
+def phase_train_parity(card: str) -> None:
+    """The card against the port's own CPU path on the same weights: the
+    full-width qwen3-4b config cut to 2 layers in bf16 (the loss, the
+    global grad norm and every leaf's gradient), and every
+    architecture's smoke config in fp32 (one full train step)."""
+    from repro_torch.configs import arch_names, get_config, smoke_config
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    rng = np.random.default_rng(13)
+    cfg = get_config(LM_ARCH).replace(num_layers=2)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, LM_WIDTH)
+                                    ).astype(np.int32)}
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda", seed=1)
+    loss_card, g_card = _grads(model, batch)
+    model.to("cpu")
+    loss_cpu, g_cpu = _grads(model, batch)
+    del model
+    norm = lambda g: float(np.sqrt(sum(float((x.astype(np.float64) ** 2
+                                              ).sum()) for x in g.values())))
+    n_card, n_cpu = norm(g_card), norm(g_cpu)
+    check(abs(loss_card - loss_cpu) <= 1e-3 * abs(loss_cpu),
+          f"2-layer loss {loss_card} vs {loss_cpu}")
+    check(abs(n_card - n_cpu) <= GRAD_TOL * n_cpu,
+          f"2-layer grad norm {n_card} vs {n_cpu}")
+    leaf_err = {}
+    for k, want in g_cpu.items():
+        scale = float(np.abs(want).max())
+        e = float(np.abs(g_card[k] - want).max())
+        check(e <= GRAD_TOL * scale, f"grad {k}: {e} > {GRAD_TOL}·{scale}")
+        leaf_err[k] = e / max(scale, 1e-30)
+    worst = max(leaf_err, key=leaf_err.get)
+    emit(phase="train_parity", card=card, case=f"{LM_ARCH} 2 layers, bf16",
+         tokens=[4, LM_WIDTH], loss_card=loss_card, loss_cpu=loss_cpu,
+         grad_norm_card=n_card, grad_norm_cpu=n_cpu, leaves=len(leaf_err),
+         max_rel_grad_err=leaf_err[worst], worst_leaf=worst,
+         embed_rel_grad_err=leaf_err["embed"],
+         tol=f"{GRAD_TOL}·max|g| a leaf, loss 1e-3 relative",
+         seconds=time.perf_counter() - t0)
+    del g_card, g_cpu
+
+    results = {}
+    lr = 1e-3
+    for name in arch_names():
+        scfg = smoke_config(name)
+        b = {"tokens": rng.integers(0, scfg.vocab_size, (2, 16)
+                                    ).astype(np.int32)}
+        if scfg.is_encoder_decoder:
+            b["frames"] = (0.1 * rng.standard_normal((2, 24, scfg.d_model))
+                           ).astype(np.float32)
+        elif scfg.frontend == "vision_stub":
+            b["patch_embeds"] = (0.1 * rng.standard_normal(
+                (2, scfg.num_patches, scfg.d_model))).astype(np.float32)
+        runs = []
+        for dev in ("cpu", "cuda"):
+            model = (EncDec if scfg.is_encoder_decoder else LM)(
+                scfg, device="cpu", seed=0).to(dev)
+            seen = []
+            step = make_train_step(
+                model, opt.OptConfig(lr=lr),
+                grad_transform=lambda g: seen.append(g) or g)
+            m = step(opt.init(dict(model.named_parameters())), b)
+            runs.append((float(m["loss"]),
+                         {k: host(p) for k, p in model.named_parameters()},
+                         {k: host(g) for k, g in seen[0].items()}))
+        (l_cpu, p_cpu, g_cpu), (l_card, p_card, _) = runs
+        check(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu),
+              f"{name}: loss {l_card} vs {l_cpu}")
+        loose, worst = _adam_rule(p_card, p_cpu, g_cpu, lr)
+        results[name] = {"loss_rel_err": abs(l_card - l_cpu) / abs(l_cpu),
+                         "loose_elements": loose,
+                         "tight_worst_share_of_tol": worst}
+    emit(phase="train_parity", card=card, case="smoke configs, fp32",
+         tol="loss 1e-4 relative; Adam rule (tight: rtol 1e-5 + atol "
+             "1e-6 where |g| > 1e-4·max|g|, else 2·lr)", lr=lr,
+         archs=results)
+    torch.cuda.empty_cache()
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 · parameters · tokens, plus the
+    attention products (QKᵀ and PV over the full S × S square the port
+    computes, forward and backward: 12 · L · B · S² · H · hd).  The
+    remat recompute is not counted."""
+    attn = 12 * cfg.num_layers * batch * seq * seq * cfg.num_heads \
+        * cfg.head_dim
+    return 6.0 * n_params * batch * seq + attn
+
+
+def train_full_child(card: str) -> None:
+    """``repro_torch.launch.train`` on qwen3-4b at full width and depth
+    (its defaults: bf16, remat, batch 8 × seq 128), 10 steps, run in its
+    own process; the optimizer's update is timed apart with CUDA events
+    around ``optimizer.update``; one more step under the profiler last."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import optimizer as opt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    update, spans = opt.update, []
+
+    def timed_update(*args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = update(*args, **kwargs)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    opt.update = timed_update
+    args = launch_train.parse_args(
+        ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
+         "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+         "--log-every", "1"])
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        run = launch_train.run(args)
+    wall_s = time.perf_counter() - t0
+    opt.update = update
+    peak = torch.cuda.max_memory_allocated()
+    hist = run.history
+    losses = [h["loss"] for h in hist]
+    gnorms = [float(h["metrics"]["grad_norm"]) for h in hist]
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"non-finite train metrics: {losses} {gnorms}")
+    upd_ms = [s.elapsed_time(e) for s, e in spans]
+    steady = [h["ms"] for h in hist[TRAIN_WARM:]]
+    step_ms = float(np.median(steady))
+    model, cfg = run.model, run.cfg
+    n = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop = train_flops(cfg, n, TRAIN_BATCH, TRAIN_SEQ)
+    state_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters()) + sum(
+        t.numel() * t.element_size() for part in ("m", "v")
+        for t in run.opt_state[part].values())
+    # the update reads each parameter, gradient and moment once and
+    # writes each parameter and moment once
+    update_bytes = sum(
+        3 * p.element_size() * p.numel() for p in model.parameters()
+    ) + 2 * sum(t.numel() * t.element_size() for part in ("m", "v")
+                for t in run.opt_state[part].values())
+    fresh = LM(cfg, device="cuda", seed=0)
+    changed = sum(bool((p != q).any()) for p, q in
+                  zip(model.parameters(), fresh.parameters()))
+    del fresh
+    torch.cuda.empty_cache()
+    check(changed == len(list(model.parameters())),
+          f"{changed} of {len(list(model.parameters()))} leaves changed")
+    batch = run.pipe.batch_at(TRAIN_STEPS)
+    prof = {}
+    wall_ms, busy, top = device_profile(
+        lambda: run.step_fn(run.opt_state, batch), prof)
+    emit(phase="train_full", card=card, arch=cfg.name,
+         layers=cfg.num_layers, d_model=cfg.d_model, dtype=cfg.dtype,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, params=n,
+         state_bytes=state_bytes, loss=losses, grad_norm=gnorms,
+         lr=[float(h["metrics"]["lr"]) for h in hist],
+         step_ms=[h["ms"] for h in hist],
+         step_ms_p50=step_ms, step_ms_steps=f"{TRAIN_WARM + 1}-{TRAIN_STEPS}",
+         tokens_per_s=tokens / step_ms * 1e3, model_flop=flop,
+         model_tflops=flop / step_ms / 1e9,
+         mfu=flop / (step_ms / 1e3) / PEAK_BF16,
+         flop_bound_ms=flop / PEAK_BF16 * 1e3,
+         update_ms=upd_ms, update_ms_p50=float(np.median(upd_ms[TRAIN_WARM:])),
+         update_bound_ms=update_bytes / PEAK_BYTES * 1e3,
+         peak_memory_allocated=peak, leaves_changed=changed,
+         run_s=wall_s, log=log.getvalue().splitlines(),
+         profiled_step_wall_ms=wall_ms, profiled_step_busy_ms=busy,
+         profiled_step_idle_share=None if busy is None
+         else 1 - busy / wall_ms,
+         kernels_per_step=prof["device_kernels"],
+         launch_calls={k: v["count"] for k, v in prof.items()
+                       if k != "device_kernels"}, top=top)
+
+
+def phase_train_full(card: str) -> None:
+    """``train_full_child`` in a spawned process, so that the earlier
+    phases' tensors and host state share neither its memory nor its
+    host; it prints its own line and fails the run if it fails."""
+    import multiprocessing
+    torch.cuda.empty_cache()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=train_full_child, args=(card,))
+    t0 = time.perf_counter()
+    proc.start()
+    proc.join()
+    check(proc.exitcode == 0, f"train_full failed (exit {proc.exitcode})")
+    emit(phase="train_full_done", seconds=time.perf_counter() - t0)
+
+
+def phase_train_embedder(card: str) -> None:
+    """``examples/train_embedder.py`` on the card at its own size:
+    mamba2-370m cut to 12 layers, vocab 8,192, fp32, SSD chunk 64, 300
+    steps of 8 × 128 with AdamW (lr 3e-3, warmup 20); async checkpoints
+    at steps 100 and 200 and a final one (keep 2); the loss must drop;
+    a restore into a fresh model and one more step.  Then 3 steps, a
+    checkpoint, a restore and 3 more against 6 uninterrupted steps."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.elastic import StragglerMonitor
+    from repro_torch.models.convert import (from_reference_state,
+                                            to_reference_state)
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    cfg = get_config("mamba2-370m").replace(**EMBEDDER)
+    steps = EMBEDDER_STEPS
+    ocfg = opt.OptConfig(lr=3e-3, warmup_steps=20, total_steps=steps)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tmp = tempfile.mkdtemp(prefix="embedder_ckpt_")
+    ckpt = CheckpointManager(tmp, keep=2)
+    write_s = []
+    write = ckpt._write
+
+    def timed_write(step, flat):
+        t0 = time.perf_counter()
+        write(step, flat)
+        write_s.append(time.perf_counter() - t0)
+
+    ckpt._write = timed_write
+    try:
+        model = LM(cfg, device="cuda", seed=0)
+        n = sum(p.numel() for p in model.parameters())
+        params = dict(model.named_parameters())
+        step_fn = make_train_step(model, ocfg, remat=True)
+        ostate = opt.init(params)
+        straggler = StragglerMonitor()
+        losses, ms, saves = [], [], []
+        for step in range(steps):
+            t0 = time.perf_counter()
+            m = step_fn(ostate, pipe.batch_at(step))
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            straggler.record("host0", ms[-1] / 1e3)
+            if step and step % EMBEDDER_CKPT_EVERY == 0:
+                t0 = time.perf_counter()
+                ckpt.save(step, to_reference_state(cfg, params, ostate),
+                          blocking=False)
+                saves.append({"step": step,
+                              "call_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        ckpt.save(steps, to_reference_state(cfg, params, ostate))
+        ckpt.wait()
+        saves.append({"step": steps, "call_s": time.perf_counter() - t0})
+        for s, w in zip(saves, write_s):
+            s["write_s"] = w
+        kept = ckpt.all_steps()
+        for s in saves:
+            if s["step"] in kept:
+                s["bytes"] = sum(f.stat().st_size for f in
+                                 (Path(tmp) / f"step_{s['step']:010d}"
+                                  ).iterdir())
+        check(all(np.isfinite(losses)), "non-finite embedder loss")
+        check(losses[-1] < losses[0], f"loss did not improve: "
+              f"{losses[0]} -> {losses[-1]}")
+        last_async = (steps - 1) // EMBEDDER_CKPT_EVERY * EMBEDDER_CKPT_EVERY
+        check(kept == [last_async, steps], f"checkpoints kept {kept}")
+        t0 = time.perf_counter()
+        sd, o2 = from_reference_state(cfg, ckpt.restore(device="cuda"))
+        fresh = LM(cfg, device="cuda", seed=1)
+        fresh.load_state_dict(sd)
+        restore_s = time.perf_counter() - t0
+        m = make_train_step(fresh, ocfg, remat=True)(o2,
+                                                     pipe.batch_at(steps))
+        resumed = float(m["loss"])
+        check(int(o2["step"]) == steps + 1 and np.isfinite(resumed),
+              f"resumed step {int(o2['step'])}, loss {resumed}")
+        del model, fresh, ostate, o2, params, step_fn
+        torch.cuda.empty_cache()
+        resume = _resume_equivalence(cfg, pipe, tmp)
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    steady = ms[TRAIN_WARM:]
+    emit(phase="train_embedder", card=card, arch=cfg.name,
+         layers=cfg.num_layers, vocab=cfg.vocab_size, params=n,
+         steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         loss_first=losses[0], loss_last=losses[-1],
+         loss_every_50=losses[::50], step_ms_p50=float(np.median(steady)),
+         step_ms_p25_p75=np.percentile(steady, [25, 75]).tolist(),
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / float(np.median(steady))
+         * 1e3, run_s=sum(ms) / 1e3, checkpoints=saves, kept=kept,
+         restore_s=restore_s, resumed_step=steps + 1, resumed_loss=resumed,
+         stragglers=straggler.stragglers(), resume_equivalence=resume)
+
+
+def _resume_equivalence(cfg, pipe, tmp):
+    """6 uninterrupted steps against 3, a checkpoint, a restore into a
+    fresh model and optimizer, and 3 more, on the card: every parameter
+    within atol 1e-5 + rtol 1e-4 (the reference test's tolerance; the
+    card's embedding backward accumulates with atomics, so two runs need
+    not agree bit for bit)."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.models.convert import (from_reference_state,
+                                            to_reference_state)
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    ocfg = opt.OptConfig(lr=1e-3)
+
+    def fresh(sd=None):
+        model = LM(cfg, device="cuda", seed=2)
+        if sd is not None:
+            model.load_state_dict(sd)
+        return model, make_train_step(model, ocfg)
+
+    m1, step1 = fresh()
+    o1 = opt.init(dict(m1.named_parameters()))
+    for i in range(6):
+        step1(o1, pipe.batch_at(i))
+    want = {k: host(p) for k, p in m1.named_parameters()}
+    del m1, o1, step1
+    m2, step2 = fresh()
+    o2 = opt.init(dict(m2.named_parameters()))
+    for i in range(3):
+        step2(o2, pipe.batch_at(i))
+    mgr = CheckpointManager(str(Path(tmp) / "resume"))
+    mgr.save(3, to_reference_state(cfg, dict(m2.named_parameters()), o2))
+    del m2, o2, step2
+    sd, o3 = from_reference_state(cfg, mgr.restore(3, device="cuda"))
+    m3, step3 = fresh(sd)
+    for i in range(3, 6):
+        step3(o3, pipe.batch_at(i))
+    worst, exact = 0.0, True
+    for k, p in m3.named_parameters():
+        got = host(p)
+        err = np.abs(got - want[k])
+        lim = 1e-5 + 1e-4 * np.abs(want[k])
+        check(bool((err <= lim).all()),
+              f"resumed {k} off by {err.max()} (> atol 1e-5 + rtol 1e-4)")
+        worst = max(worst, float(err.max()))
+        exact = exact and bool((err == 0).all())
+    del m3, o3
+    torch.cuda.empty_cache()
+    return {"steps": "3 + checkpoint + restore + 3 vs 6",
+            "max_abs_err": worst, "bit_equal": exact,
+            "tol": "atol 1e-5 + rtol 1e-4"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2501,6 +2927,9 @@ def main() -> int:
     if PHASES is not None:
         if "edges" in PHASES:
             phase_edges()
+        for name, phase in TRAIN_PHASES.items():
+            if name in PHASES:
+                phase(card)
         emit(phase="done", partial=sorted(PHASES),
              seconds=time.perf_counter() - t_start)
         return 0
@@ -2512,6 +2941,8 @@ def main() -> int:
         phase_lm_generate(model, card)
         del model
         torch.cuda.empty_cache()
+        for phase in TRAIN_PHASES.values():
+            phase(card)
         kernels = run_index_phases(card, lm_run)
     finally:
         lm_run.stop()
@@ -2564,12 +2995,17 @@ def run_index_phases(card, lm_run):
 
 
 PHASES = None           # None: every phase; else a subset (see --phases)
+TRAIN_PHASES = {"train_parity": phase_train_parity,
+                "train_full": phase_train_full,
+                "train_embedder": phase_train_embedder}
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phases":
         PHASES = set(sys.argv[2].split(","))
-        check(PHASES <= {"build", "edges"},
-              f"--phases takes build and edges, not {sorted(PHASES)}")
+        check(PHASES <= {"build", "edges", *TRAIN_PHASES},
+              f"--phases takes build, edges and {sorted(TRAIN_PHASES)}, "
+              f"not {sorted(PHASES)}")
     elif len(sys.argv) != 1:
-        sys.exit("usage: chip_smoke.py [--phases build,edges]")
+        sys.exit("usage: chip_smoke.py [--phases build,edges,"
+                 + ",".join(TRAIN_PHASES) + "]")
     sys.exit(main())

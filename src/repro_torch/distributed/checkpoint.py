@@ -1,12 +1,13 @@
 """Index checkpoints — the restart path after a failure (DESIGN.md §5).
 
-Port of the index half of ``src/repro/distributed/checkpoint.py``
-(``save_vectormaton``, ``load_checkpoint_meta``, ``load_vectormaton``).
-The on-disk format is the reference's to the letter — the same file
-names, array names, dtypes, ``config`` and ``delta_meta`` layouts and
-``meta.json`` sidecar — so a checkpoint written by either package loads
-in the other.  The train-state ``CheckpointManager`` waits for the LM
-stack (ROADMAP Queue 1, "training").
+Port of ``src/repro/distributed/checkpoint.py``: the index half
+(``save_vectormaton``, ``load_checkpoint_meta``, ``load_vectormaton``)
+and the train-state ``CheckpointManager``.  The on-disk formats are the
+reference's to the letter — the same file names, array names, dtypes,
+``config`` and ``delta_meta`` layouts and ``meta.json`` sidecar; for
+train states the ``step_%010d`` directories, ``arrays.npz`` and
+``manifest.json`` — so a checkpoint written by either package loads in
+the other.
 
 An index checkpoint holds the ESAM struct-of-arrays, the per-state index
 descriptors and the vector table.  It restores without any index
@@ -29,9 +30,13 @@ import json
 import os
 import shutil
 import threading
-from typing import Dict, List, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
+
+from ..models.convert import BF16_RAW, to_numpy, to_tensor
 
 
 def save_vectormaton(vm, path: str,
@@ -224,4 +229,148 @@ def load_vectormaton(cls, path: str, config=None, device: str = "cuda"):
     return vm
 
 
-__all__ = ["save_vectormaton", "load_checkpoint_meta", "load_vectormaton"]
+# --------------------------------------------------------------------- #
+# train-state checkpoints
+# --------------------------------------------------------------------- #
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(_flatten(tree[k], f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix.rstrip("/")] = tree
+    return out
+
+
+def _unflatten(flat: Dict[str, Any]) -> Any:
+    root: Dict[str, Any] = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+
+    def rebuild(node):
+        if not isinstance(node, dict):
+            return node
+        keys = list(node.keys())
+        if keys and all(k.isdigit() for k in keys):
+            return [rebuild(node[k]) for k in sorted(keys, key=int)]
+        return {k: rebuild(v) for k, v in node.items()}
+
+    return rebuild(root)
+
+
+def _host(x) -> np.ndarray:
+    """A host copy of one leaf: tensors (bf16 as raw ``|V2`` bytes, as
+    the reference's bf16 arrays land in ``arrays.npz``) or arrays."""
+    if isinstance(x, torch.Tensor):
+        return to_numpy(x)
+    return np.array(x, copy=True)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if a.dtype == BF16_RAW else str(a.dtype)
+
+
+class CheckpointManager:
+    """Step-indexed train-state checkpoints with atomic commit, async
+    save, retention, and resume-from-latest.  ``save`` takes a nested
+    dict/list tree of tensors or numpy arrays (the reference's layout:
+    ``convert.to_reference_state``); ``restore`` returns the tree with
+    every leaf a tensor — bf16 where ``manifest.json`` says
+    ``"bfloat16"``, whichever package wrote it."""
+
+    def __init__(self, directory: str, keep: int = 3) -> None:
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._async_thread: Optional[threading.Thread] = None
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:010d}")
+
+    def save(self, step: int, tree: Any, blocking: bool = True) -> None:
+        # Copy every leaf to the host *before* handing off to the async
+        # thread, so the train loop may overwrite its tensors in place.
+        host_flat = {k: _host(v) for k, v in _flatten(tree).items()}
+        if blocking:
+            self._write(step, host_flat)
+        else:
+            self.wait()
+            self._async_thread = threading.Thread(
+                target=self._write, args=(step, host_flat), daemon=True)
+            self._async_thread.start()
+
+    def wait(self) -> None:
+        if self._async_thread is not None:
+            self._async_thread.join()
+            self._async_thread = None
+
+    def _write(self, step: int, host_flat: Dict[str, np.ndarray]) -> None:
+        final = self._step_dir(step)
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        manifest = {"step": step, "time": time.time(), "arrays": {}}
+        np.savez(os.path.join(tmp, "arrays.npz"), **host_flat)
+        for k, v in host_flat.items():
+            manifest["arrays"][k] = {"shape": list(v.shape),
+                                     "dtype": _dtype_name(v)}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        self._gc()
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[:-self.keep]:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+    def all_steps(self) -> List[int]:
+        out = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                try:
+                    out.append(int(name[5:]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None, device=None) -> Any:
+        """Load checkpoint ``step`` (default latest) as a tree of tensors
+        on ``device`` (default the CPU).  ``device`` takes the place of
+        the reference's ``sharding_tree``."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        path = self._step_dir(step)
+        with open(os.path.join(path, "manifest.json")) as f:
+            dtypes = {k: v["dtype"]
+                      for k, v in json.load(f)["arrays"].items()}
+        flat = {}
+        with np.load(os.path.join(path, "arrays.npz")) as npz:
+            for k in npz.files:
+                a = npz[k]
+                if dtypes[k] == "bfloat16":
+                    a = a.view(BF16_RAW)
+                t = to_tensor(a)
+                flat[k] = t if device is None else t.to(device)
+        return _unflatten(flat)
+
+
+__all__ = ["save_vectormaton", "load_checkpoint_meta", "load_vectormaton",
+           "CheckpointManager"]

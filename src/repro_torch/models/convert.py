@@ -1,13 +1,21 @@
-"""Carry the reference's weights across: ``from_reference_params(cfg,
-params)`` turns a parameter pytree of ``repro.models`` (``LM.init`` or
-``EncDec.init``; JAX, numpy or ``ml_dtypes`` arrays) into a state dict of
-the port's ``LM`` / ``EncDec`` for ``load_state_dict``.
+"""Carry weights and train states between the packages.
+
+``from_reference_params(cfg, params)`` turns a parameter pytree of
+``repro.models`` (``LM.init`` or ``EncDec.init``; JAX, numpy or
+``ml_dtypes`` arrays) into a state dict of the port's ``LM`` /
+``EncDec`` for ``load_state_dict``; ``to_reference_params(cfg, sd)`` is
+its inverse, a nested dict of numpy arrays in the reference's layout.
+``from_reference_state`` / ``to_reference_state`` do the same for a
+whole train state ``{"params", "opt": {"m", "v", "step"}}``, whose
+moments have the parameters' shapes.
 
 The reference stacks each layer stack along a leading axis; the port
-holds one submodule per layer, so the conversion unstacks and converts,
-and changes no tensor's per-layer shape.  bf16 arrays arrive as
-``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses: their bits
-are copied exactly through ``uint16``.  Imports no JAX.
+holds one submodule per layer, so the conversion unstacks (or stacks)
+and changes no tensor's per-layer shape.  numpy has no bfloat16 of its
+own: bf16 arrives as ``ml_dtypes.bfloat16`` or as the raw 2-byte
+``|V2`` that a reference checkpoint restores to, and leaves as ``|V2``
+(``.view(ml_dtypes.bfloat16)`` gives the reference's dtype); the bits
+are copied exactly.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -20,14 +28,33 @@ import torch
 from .config import ModelConfig
 
 
+BF16_RAW = np.dtype("V2")      # a bf16 array's bytes, as numpy holds them
+
+
+def _array(a):
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def to_tensor(a) -> torch.Tensor:
-    """A host copy of one array with its exact bits and dtype."""
+    """A copy of one array with its exact bits and dtype
+    (``ml_dtypes.bfloat16`` and raw ``|V2`` arrays are bf16); a tensor
+    is copied where it lies."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone()
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_RAW:
         return torch.from_numpy(
-            np.ascontiguousarray(a).view(np.uint16).copy()
+            np.ascontiguousarray(a).view(np.int16).copy()
         ).view(torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of one tensor; bf16 becomes raw ``|V2`` bytes."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_RAW).copy()
+    return t.numpy().copy()
 
 
 def _map(tree, fn):
@@ -80,10 +107,11 @@ def _leaves(tree):
 
 def from_reference_params(cfg: ModelConfig, params: Dict
                           ) -> Dict[str, torch.Tensor]:
-    """The reference's parameter pytree for ``cfg`` -> the port's state
-    dict (CPU tensors; ``load_state_dict`` copies them to the module's
-    device)."""
-    params = _map(params, np.asarray)
+    """The reference's parameter pytree for ``cfg`` (arrays, or tensors
+    as ``CheckpointManager.restore`` gives them) -> the port's state
+    dict (CPU tensors from arrays, tensors where they lay;
+    ``load_state_dict`` copies them to the module's device)."""
+    params = _map(params, _array)
     if cfg.is_encoder_decoder:
         tree = dict(params)
         tree["enc_layers"] = _unstack(params["enc_layers"],
@@ -96,4 +124,82 @@ def from_reference_params(cfg: ModelConfig, params: Dict
     return out
 
 
-__all__ = ["from_reference_params", "to_tensor"]
+def _nest(sd: Dict[str, torch.Tensor]) -> Dict:
+    """``{"layers.3.attn.wq": t}`` -> nested dicts and lists of numpy
+    arrays (the inverse of ``_flatten``)."""
+    root: Dict = {}
+    for name, t in sd.items():
+        node = root
+        parts = name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = to_numpy(t)
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[k]) for k in sorted(node, key=int)]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def _stack(entries):
+    """A list of per-entry pytrees -> one pytree of stacked arrays."""
+    first = entries[0]
+    if isinstance(first, dict):
+        return {k: _stack([e[k] for e in entries]) for k in first}
+    return np.stack(entries)
+
+
+def to_reference_params(cfg: ModelConfig, sd: Dict[str, torch.Tensor]
+                        ) -> Dict:
+    """The port's state dict (or any mapping of the parameters' names
+    to tensors of their shapes, such as an AdamW moment) -> the
+    reference's parameter pytree for ``cfg``: nested dicts of numpy
+    arrays, each layer stack stacked along a leading axis."""
+    tree = _nest(sd)
+    if cfg.is_encoder_decoder:
+        tree["enc_layers"] = _stack(tree["enc_layers"])
+        tree["dec_layers"] = _stack(tree["dec_layers"])
+        return tree
+    if cfg.attn_period:
+        for blk in tree["layers"]:
+            for sub in ("mamba", "mlp", "moe"):
+                blk[sub] = _stack(blk[sub])
+    tree["layers"] = _stack(tree["layers"])
+    return tree
+
+
+def from_reference_state(cfg: ModelConfig, state: Dict):
+    """A reference train state ``{"params", "opt": {"m", "v", "step"}}``
+    (as ``repro``'s ``opt.init`` / ``make_train_step`` keep it, or as a
+    checkpoint restores it) -> (state dict, the port's optimizer state
+    ``{"m", "v", "step"}`` with ``step`` an int32 tensor).  Arrays become
+    CPU tensors; tensors stay on their device."""
+    opt = state["opt"]
+    step = opt["step"]
+    return (from_reference_params(cfg, state["params"]),
+            {"m": from_reference_params(cfg, opt["m"]),
+             "v": from_reference_params(cfg, opt["v"]),
+             "step": (step.to(torch.int32) if isinstance(step, torch.Tensor)
+                      else torch.as_tensor(np.asarray(step),
+                                           dtype=torch.int32))})
+
+
+def to_reference_state(cfg: ModelConfig, params: Dict[str, torch.Tensor],
+                       opt_state: Dict) -> Dict:
+    """The port's parameters (name -> tensor) and optimizer state -> the
+    reference's train state ``{"params", "opt": {"m", "v", "step"}}`` as
+    numpy (``step`` an int32 scalar)."""
+    return {"params": to_reference_params(cfg, params),
+            "opt": {"m": to_reference_params(cfg, opt_state["m"]),
+                    "v": to_reference_params(cfg, opt_state["v"]),
+                    "step": np.asarray(int(opt_state["step"]),
+                                       dtype=np.int32)}}
+
+
+__all__ = ["from_reference_params", "to_reference_params",
+           "from_reference_state", "to_reference_state", "to_tensor",
+           "to_numpy", "BF16_RAW"]

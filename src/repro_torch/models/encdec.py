@@ -12,9 +12,11 @@ steps touch only the decoder self-cache plus the fixed cross cache.
 
 The weights live in the module (``enc_layers`` and ``dec_layers`` are
 ``nn.ModuleList``s, one entry per layer), so no method takes the
-reference's ``params`` argument; every entry point runs under
-``torch.inference_mode()``.  The self-attention cache is updated in
-place.
+reference's ``params`` argument.  ``prefill`` and ``decode_step`` run
+under ``torch.inference_mode()``; ``encode``, ``decode`` and
+``_cross_kv`` run under the caller's grad mode, so ``loss`` trains
+through them (no remat by default, as in the reference).  The
+self-attention cache is updated in place.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from torch import nn
 
 from . import layers as L
 from .config import ModelConfig
-from .transformer import check_device, register_tree, seeded_generator
+from .transformer import (check_device, register_tree, seeded_generator,
+                          shifted_labels)
 
 f32 = torch.float32
 
@@ -93,7 +96,6 @@ class EncDec(nn.Module):
             b, s)
 
     # ------------------------------------------------------------------ #
-    @torch.inference_mode()
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, S_enc, d_model) stub embeddings -> encoder states."""
         cfg = self.cfg
@@ -113,7 +115,6 @@ class EncDec(nn.Module):
             x = x + L.mlp(p["mlp"], h)
         return self._ln(x, self.enc_norm)
 
-    @torch.inference_mode()
     def _cross_kv(self, enc_out: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-decoder-layer cross K/V, stacked (L, B, S_enc, G, hd)."""
@@ -125,7 +126,6 @@ class EncDec(nn.Module):
                                  ).to(self.dtype))
         return torch.stack(ks), torch.stack(vs)
 
-    @torch.inference_mode()
     def decode(self, tokens: torch.Tensor, cross_kv,
                cache: Optional[Dict] = None,
                cache_pos: Optional[int] = None
@@ -160,6 +160,18 @@ class EncDec(nn.Module):
             h = self._ln(x, p["ln3"])
             x = x + L.mlp(p["mlp"], h)
         return self._ln(x, self.dec_norm), cache
+
+    def loss(self, batch: Dict, *, remat: bool = False) -> torch.Tensor:
+        """Cross entropy of the next decoder token.  batch: ``frames``
+        (B, S_enc, d), ``tokens`` (B, S_dec); numpy arrays or tensors.
+        The head is the padded ``embed.T``.  ``remat`` is accepted and
+        unused, as in the reference."""
+        dev = self.device
+        enc_out = self.encode(torch.as_tensor(batch["frames"], device=dev))
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        hidden, _ = self.decode(tokens, self._cross_kv(enc_out))
+        labels, mask = shifted_labels(tokens)
+        return L.chunked_ce_loss(hidden, self.embed.t(), labels, mask)
 
     def logits(self, hidden_last: torch.Tensor) -> torch.Tensor:
         """(B, d) -> (B, vocab) fp32 logits against the tied embedding."""

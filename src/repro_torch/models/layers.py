@@ -21,6 +21,10 @@ Conventions (the reference's, kept so the two compare like with like)
 * The reference's ``actctx.shard`` calls are dropped: they are no-ops
   without a configured mesh (``distributed/actctx.py:1-12``), and the
   port has no activation sharding.  Each call site says so.
+* Training runs the same functions under autograd.  Where the reference
+  wraps a body in ``jax.checkpoint``, the port wraps it in ``remat``
+  (``torch.utils.checkpoint``, non-reentrant): its activations are
+  recomputed in the backward pass instead of saved.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 f32 = torch.float32
 MASK_VALUE = -1e30             # the reference's mask value, not -inf
@@ -46,18 +51,53 @@ def _dtype(name: str) -> torch.dtype:
 # products
 # --------------------------------------------------------------------- #
 
+class _MmF32(torch.autograd.Function):
+    """One GEMM of two bf16/fp16 operands on the card with an fp32
+    output.  ``aten::mm.dtype`` has no derivative (torch 2.11), so the
+    backward is written here: each gradient is the same kind of GEMM (operands in
+    the operand dtype, fp32 accumulation), rounded once to its
+    operand's dtype.  The incoming fp32 cotangent is rounded to the
+    operand dtype first; the reference's transposed dot multiplies it
+    in fp32 (a difference within the final rounding)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=f32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g, b.t(), out_dtype=f32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(a.t(), g, out_dtype=f32).to(b.dtype)
+        return ga, gb
+
+
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) × (K, N) with fp32 accumulation and an fp32 result — the
     reference's ``preferred_element_type=f32`` kept in fp32.  bf16/fp16
     operands on the card go through one GEMM with an fp32 output
-    (``out_dtype``); on the CPU they are widened first (each product of
-    two bf16 values is exact in fp32, so both give the same sum up to
-    its order)."""
+    (``out_dtype``, differentiable through ``_MmF32``); on the CPU they
+    are widened first (each product of two bf16 values is exact in fp32,
+    so both give the same sum up to its order)."""
     if a.dtype == f32 and b.dtype == f32:
         return a @ b
     if a.is_cuda and a.dtype == b.dtype:
-        return torch.mm(a, b, out_dtype=f32)
+        return _MmF32.apply(a, b)
     return a.to(f32) @ b.to(f32)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass —
+    the reference's ``jax.checkpoint``.  Without autograd (serving,
+    ``inference_mode``) it is a plain call."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def contract(x: torch.Tensor, w: torch.Tensor, keep_f32: bool
@@ -294,10 +334,12 @@ def attention(params: Mapping, x: torch.Tensor, *,
         ctx = _attend_block(qc, kh, vh, positions, t_pos, window, causal,
                             x.dtype)
     else:
+        # each query block is recomputed in backward, as the
+        # reference's checkpointed scan body is
         ctx = torch.cat([
-            _attend_block(qc[:, i:i + Q_CHUNK], kh, vh,
-                          positions[:, i:i + Q_CHUNK], t_pos, window,
-                          causal, x.dtype)
+            remat(_attend_block, qc[:, i:i + Q_CHUNK], kh, vh,
+                  positions[:, i:i + Q_CHUNK], t_pos, window, causal,
+                  x.dtype)
             for i in range(0, s, Q_CHUNK)], dim=1)
     ctx = ctx.to(x.dtype)
     out = contract(ctx.reshape(b, s, num_heads * hd),
@@ -322,6 +364,48 @@ def mlp(params: Mapping, x: torch.Tensor) -> torch.Tensor:
     return contract(h.to(x.dtype), params["w_out"], False).to(x.dtype)
 
 
-__all__ = ["mm_f32", "contract", "rms_norm", "layer_norm", "swiglu", "gelu",
+# --------------------------------------------------------------------- #
+# loss
+# --------------------------------------------------------------------- #
+
+def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over the unmasked positions without
+    materialising (B, S, V) logits: one (B, chunk, V) fp32 slab at a
+    time, recomputed in the backward pass (``remat``), as the
+    reference's checkpointed scan does.  The S mod chunk positions left
+    over run as one more slab, not recomputed, as in the reference.
+    ``head``: (d, V), every column of it (a padded vocabulary's pad
+    columns too) in the logsumexp."""
+    b, s, d = hidden.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.bool, device=hidden.device)
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    rem = s - n_chunks * chunk
+
+    def one(h, y, m):
+        logits = mm_f32(h.reshape(-1, d), head).reshape(
+            h.shape[0], h.shape[1], -1)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+        m = m.to(f32)
+        return torch.sum((lse - gold) * m), torch.sum(m)
+
+    tot = torch.zeros((), dtype=f32, device=hidden.device)
+    cnt = torch.zeros((), dtype=f32, device=hidden.device)
+    for i in range(0, n_chunks * chunk, chunk):
+        tl, tc = remat(one, hidden[:, i:i + chunk], labels[:, i:i + chunk],
+                       mask[:, i:i + chunk])
+        tot, cnt = tot + tl, cnt + tc
+    if rem:
+        tl, tc = one(hidden[:, -rem:], labels[:, -rem:], mask[:, -rem:])
+        tot, cnt = tot + tl, cnt + tc
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+__all__ = ["mm_f32", "remat", "chunked_ce_loss", "contract", "rms_norm", "layer_norm", "swiglu", "gelu",
            "rope_frequencies", "apply_rope", "normal", "init_attention",
            "init_mlp", "init_embedding", "attention", "mlp", "Q_CHUNK"]

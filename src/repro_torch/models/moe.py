@@ -17,7 +17,7 @@ from typing import Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import normal
+from .layers import normal, remat
 
 f32 = torch.float32
 
@@ -51,7 +51,8 @@ def moe_ffn(params: Mapping, x: torch.Tensor, *, top_k: int,
 
     Sequences longer than ``chunk`` run in ``chunk``-token windows, each
     with its own capacity (the reference's checkpointed ``lax.scan``
-    becomes a loop); S must then be a multiple of ``chunk``."""
+    becomes a loop of ``remat`` calls); S must then be a multiple of
+    ``chunk``."""
     b, s, d = x.shape
     if s > chunk:
         if s % chunk:
@@ -60,11 +61,17 @@ def moe_ffn(params: Mapping, x: torch.Tensor, *, top_k: int,
         nc = s // chunk
         outs, aux = [], torch.zeros((), dtype=f32, device=x.device)
         for i in range(nc):
-            out, a = _moe_core(params, x[:, i * chunk:(i + 1) * chunk],
-                               top_k=top_k, capacity_factor=capacity_factor)
+            out, a = remat(_moe_window, params,
+                           x[:, i * chunk:(i + 1) * chunk], top_k,
+                           capacity_factor)
             outs.append(out)
             aux = aux + a
         return torch.cat(outs, dim=1), aux / nc
+    return _moe_core(params, x, top_k=top_k,
+                     capacity_factor=capacity_factor)
+
+
+def _moe_window(params, x, top_k, capacity_factor):
     return _moe_core(params, x, top_k=top_k,
                      capacity_factor=capacity_factor)
 

@@ -8,9 +8,9 @@ with a_t = exp(−exp(A_log)·Δ_t), Δ = softplus(dt + dt_bias).
 
 The chunked SSD decomposition computes an intra-chunk quadratic term and
 carries the chunk state ``h`` from chunk to chunk; the reference's
-checkpointed ``lax.scan`` over chunks becomes a Python loop that carries
-``h`` exactly as its ``body`` does, with the ``exp(cum)`` differences in
-fp32.  Decode is the O(1) state update.  Projections are split per
+checkpointed ``lax.scan`` over chunks becomes a Python loop of ``remat``
+calls that carries ``h`` exactly as its ``body`` does, with the
+``exp(cum)`` differences in fp32.  Decode is the O(1) state update.  Projections are split per
 segment (z, x, B, C, dt) as in the reference.
 """
 
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import contract, normal
+from .layers import contract, normal, remat
 
 f32 = torch.float32
 
@@ -98,30 +98,37 @@ def _ssd_chunked(xh, dt, a_log, Bm, Cm, D, chunk: int, h0=None):
     ii = torch.arange(chunk, device=xh.device)
     causal = ii[:, None] >= ii[None, :]
 
-    h_prev = (torch.zeros((b, h, p, n), dtype=f32, device=xh.device)
-              if h0 is None else h0.to(f32))
-    ys = []
-    for c0 in range(0, l, chunk):
-        la_k = la[:, c0:c0 + chunk]                            # (B,Q,H)
-        xdt_k = xdt[:, c0:c0 + chunk]                          # (B,Q,H,P)
-        B_k = Bm[:, c0:c0 + chunk].to(f32)                     # (B,Q,G,N)
-        C_k = Cm[:, c0:c0 + chunk].to(f32)
+    def body(h_prev, la_k, xdt_k, B_k, C_k):
         cum = torch.cumsum(la_k, dim=1)                        # (B,Q,H)
         total = cum[:, -1, :]                                  # (B,H)
         Bh = torch.repeat_interleave(B_k, rep, dim=2) if g != h else B_k
         Ch = torch.repeat_interleave(C_k, rep, dim=2) if g != h else C_k
         cb = torch.einsum("bihn,bjhn->bhij", Ch, Bh)           # (B,H,Q,Q)
-        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :]
-                          ).permute(0, 3, 1, 2)                # (B,H,Q,Q)
-        scores = torch.where(causal[None, None], cb * decay,
-                             torch.zeros((), dtype=f32, device=xh.device))
+        # the causal mask goes in before the exp: the reference takes
+        # exp(cum_i - cum_j) of the masked (j > i) entries too and selects
+        # them away after, so once a chunk's decay passes e^88 its
+        # backward gives 0·inf = NaN.  Equal values and gradients
+        # wherever the reference's are finite.
+        diff = (cum[:, :, None, :] - cum[:, None, :, :]).masked_fill(
+            ~causal[None, :, :, None], float("-inf"))         # (B,Q,Q,H)
+        scores = cb * torch.exp(diff).permute(0, 3, 1, 2)      # (B,H,Q,Q)
         y_intra = torch.einsum("bhij,bjhp->bihp", scores, xdt_k)
         y_inter = torch.einsum("bihn,bhpn,bih->bihp", Ch, h_prev,
                                torch.exp(cum))
         w_state = torch.exp(total[:, None, :] - cum)           # (B,Q,H)
         h_chunk = torch.einsum("bjhp,bjhn,bjh->bhpn", xdt_k, Bh, w_state)
-        h_prev = h_prev * torch.exp(total)[:, :, None, None] + h_chunk
-        ys.append(y_intra + y_inter)
+        return (h_prev * torch.exp(total)[:, :, None, None] + h_chunk,
+                y_intra + y_inter)
+
+    h_prev = (torch.zeros((b, h, p, n), dtype=f32, device=xh.device)
+              if h0 is None else h0.to(f32))
+    ys = []
+    for c0 in range(0, l, chunk):
+        h_prev, y_k = remat(body, h_prev, la[:, c0:c0 + chunk],
+                            xdt[:, c0:c0 + chunk],
+                            Bm[:, c0:c0 + chunk].to(f32),
+                            Cm[:, c0:c0 + chunk].to(f32))
+        ys.append(y_k)
     y = torch.cat(ys, dim=1)
     y = y + D[None, None, :, None] * xh.to(f32)
     return y, h_prev

@@ -13,11 +13,16 @@ scans):
     sub-stacks ``attn``, ``mamba[P-1]``, ``mlp[...]``, ``moe[...]``,
     ``ln1`` (P, d) and ``ln2`` (P, d), exactly the reference's.
 
-The weights live in the module, so ``forward``, ``prefill`` and
-``decode_step`` take no ``params`` argument; they run under
-``torch.inference_mode()``.  ``remat`` and ``unroll`` (jit and scan
-knobs) have no counterpart.  Decode caches keep the reference's stacked
-layout (a leading layer axis) and are updated in place.
+The weights live in the module, so ``forward``, ``loss``, ``prefill``
+and ``decode_step`` take no ``params`` argument.  The serving entry
+points run under ``torch.inference_mode()``; ``loss`` runs the shared
+``forward`` under autograd, with ``remat`` at the reference's
+``jax.checkpoint`` points (``layers.remat``).  ``unroll`` (a scan knob)
+has no counterpart.  Decode caches keep the reference's stacked layout
+(a leading layer axis) and are updated in place.
+
+Parameters are created frozen (``requires_grad=False``), so serving
+builds no graph; ``train.step.make_train_step`` makes them trainable.
 """
 
 from __future__ import annotations
@@ -85,6 +90,17 @@ def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
+
+
+def shifted_labels(tokens: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next-token labels (the tokens shifted left, a zero appended) and
+    the mask that leaves the last position out."""
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    mask = torch.ones(labels.shape, dtype=torch.bool, device=tokens.device)
+    mask[:, -1] = False
+    return labels, mask
 
 
 class LM(nn.Module):
@@ -201,15 +217,16 @@ class LM(nn.Module):
     # forward (train / prefill / decode share one driver)
     # ------------------------------------------------------------------ #
 
-    @torch.inference_mode()
     def forward(self, tokens: torch.Tensor, *,
                 patch_embeds: Optional[torch.Tensor] = None,
                 cache: Optional[Dict] = None,
-                cache_pos: Optional[int] = None
+                cache_pos: Optional[int] = None, remat: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
         """Returns (hidden (B,S,d), cache, aux_loss).  No ``params``
         argument: the weights live in the module.  ``cache`` is updated
-        in place and returned."""
+        in place and returned.  Runs under whatever grad mode the caller
+        set; ``remat`` recomputes each layer (each hybrid block, and each
+        of its sublayers) in the backward pass."""
         cfg = self.cfg
         x = self.embed[tokens.to(self.device)].to(self.dtype)
         if patch_embeds is not None:  # vlm stub prefix
@@ -222,50 +239,76 @@ class LM(nn.Module):
                      )[None, :].expand(b, s)
 
         if cfg.family == "ssm":
-            x = self._forward_ssm(x, cache)
+            x = self._forward_ssm(x, cache, remat)
             aux = self._zero()
         elif cfg.attn_period:
-            x, aux = self._forward_hybrid(x, positions, cache, cache_pos)
+            x, aux = self._forward_hybrid(x, positions, cache, cache_pos,
+                                          remat)
         else:
-            x, aux = self._forward_uniform(x, positions, cache, cache_pos)
+            x, aux = self._forward_uniform(x, positions, cache, cache_pos,
+                                           remat)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         return x, cache, aux
 
-    def _forward_uniform(self, x, positions, cache, cache_pos):
+    def _forward_uniform(self, x, positions, cache, cache_pos, remat):
         aux = self._zero()
         for l, p in enumerate(self.layers):
             # actctx.shard / gather_params dropped: no-ops without a mesh
             c = None if cache is None else {"k": cache["k"][l],
                                             "v": cache["v"][l]}
-            x, _, a = self._attn_layer(
-                p, x, positions, self.cfg.layer_window(l, x.shape[1]), c,
-                cache_pos)
+            args = (p, x, positions, self.cfg.layer_window(l, x.shape[1]),
+                    c, cache_pos)
+            x, _, a = (L.remat(self._attn_layer, *args) if remat
+                       else self._attn_layer(*args))
             aux = aux + a
         return x, aux
 
-    def _forward_ssm(self, x, cache):
+    def _ssm_layer(self, p, x):
+        y, _ = SSM.mamba2_block(p["mamba"],
+                                L.rms_norm(x, p["ln"], self.cfg.norm_eps),
+                                self.cfg)
+        return x + y
+
+    def _forward_ssm(self, x, cache, remat):
         cfg = self.cfg
         for l, p in enumerate(self.layers):
             # actctx.shard / gather_params dropped: no-ops without a mesh
+            if cache is None:
+                x = (L.remat(self._ssm_layer, p, x) if remat
+                     else self._ssm_layer(p, x))
+                continue
             h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-            st = None if cache is None else {k: v[l]
-                                             for k, v in cache.items()}
-            y, new_st = SSM.mamba2_block(p["mamba"], h, cfg, state=st)
-            if cache is not None:
-                for k, v in new_st.items():
-                    cache[k][l].copy_(v)
+            y, new_st = SSM.mamba2_block(p["mamba"], h, cfg,
+                                         state={k: v[l]
+                                                for k, v in cache.items()})
+            for k, v in new_st.items():
+                cache[k][l].copy_(v)
             x = x + y
         return x
 
-    def _forward_hybrid(self, x, positions, cache, cache_pos):
-        cfg = self.cfg
-        P = cfg.attn_period
+    def _forward_hybrid(self, x, positions, cache, cache_pos, remat):
         aux = self._zero()
         for bi, p in enumerate(self.layers):
             # actctx.shard / gather_params dropped: no-ops without a mesh
-            mi = di = ei = 0
-            for j in range(P):
-                gl_moe = cfg.is_moe_layer(j)  # period-aligned pattern
+            args = (p, x, positions, cache, cache_pos, bi, remat)
+            x, a = (L.remat(self._hybrid_block, *args) if remat
+                    else self._hybrid_block(*args))
+            aux = aux + a
+        return x, aux
+
+    def _hybrid_block(self, p, x, positions, cache, cache_pos, bi, remat):
+        """One period block: P sublayers, each a mixer (attention at
+        ``attn_index``, else mamba) and an FFN (MoE on the period-aligned
+        pattern).  With ``remat`` and no cache each mixer and FFN is
+        recomputed on its own inside the block's recompute (the
+        reference's nested ``jax.checkpoint``)."""
+        cfg = self.cfg
+        aux = self._zero()
+        mi = di = ei = 0
+        for j in range(cfg.attn_period):
+            gl_moe = cfg.is_moe_layer(j)  # period-aligned pattern
+
+            def mixer(x, j=j, mi=mi):
                 h = L.rms_norm(x, p["ln1"][j], cfg.norm_eps)
                 if j == cfg.attn_index:
                     c_j = None if cache is None else {
@@ -276,28 +319,39 @@ class LM(nn.Module):
                         num_kv_heads=cfg.num_kv_heads, rope=cfg.rope,
                         rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
                         cache=c_j, cache_pos=cache_pos)
-                else:
-                    c_j = None if cache is None else {
-                        k: v[bi, mi] for k, v in cache["mamba"].items()}
-                    a, nc = SSM.mamba2_block(p["mamba"][mi], h, cfg,
-                                             state=c_j)
-                    if nc is not None:
-                        for k, v in nc.items():
-                            cache["mamba"][k][bi, mi].copy_(v)
-                    mi += 1
-                x = x + a
+                    return x + a
+                c_j = None if cache is None else {
+                    k: v[bi, mi] for k, v in cache["mamba"].items()}
+                a, nc = SSM.mamba2_block(p["mamba"][mi], h, cfg, state=c_j)
+                if nc is not None:
+                    for k, v in nc.items():
+                        cache["mamba"][k][bi, mi].copy_(v)
+                return x + a
+
+            def ffn(x, j=j, gl_moe=gl_moe, di=di, ei=ei):
                 h = L.rms_norm(x, p["ln2"][j], cfg.norm_eps)
                 if gl_moe:
                     f, a2 = MOE.moe_ffn(
                         p["moe"][ei], h, top_k=cfg.experts_per_token,
                         capacity_factor=cfg.capacity_factor,
                         chunk=cfg.moe_dispatch_chunk)
-                    ei += 1
                 else:
                     f, a2 = L.mlp(p["mlp"][di], h), self._zero()
-                    di += 1
-                x = x + f
-                aux = aux + a2
+                return x + f, a2
+
+            if remat and cache is None:
+                x = L.remat(mixer, x)
+                x, a2 = L.remat(ffn, x)
+            else:
+                x = mixer(x)
+                x, a2 = ffn(x)
+            if j != cfg.attn_index:
+                mi += 1
+            if gl_moe:
+                ei += 1
+            else:
+                di += 1
+            aux = aux + a2
         return x, aux
 
     # ------------------------------------------------------------------ #
@@ -308,6 +362,26 @@ class LM(nn.Module):
         if self.cfg.tie_embeddings:
             return self.embed.t()
         return self.lm_head
+
+    def loss(self, batch: Dict, *, remat: bool = True) -> torch.Tensor:
+        """Causal-LM cross entropy plus 0.01 × the MoE aux loss, under
+        autograd.  batch: ``tokens`` (B, S) int, plus ``patch_embeds``
+        for vlm (the loss covers the text positions only); numpy arrays
+        or tensors, moved to the model's device.  Labels are the tokens
+        shifted left, the last position masked.  The head is the padded
+        one: the logsumexp runs over every padded-vocabulary column, as
+        the reference's does."""
+        dev = self.device
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        pe = batch.get("patch_embeds")
+        if pe is not None:
+            pe = torch.as_tensor(pe, device=dev)
+        hidden, _, aux = self.forward(tokens, patch_embeds=pe, remat=remat)
+        if pe is not None:
+            hidden = hidden[:, pe.shape[1]:]
+        labels, mask = shifted_labels(tokens)
+        ce = L.chunked_ce_loss(hidden, self._head(), labels, mask)
+        return ce + 0.01 * aux
 
     def logits(self, hidden_last: torch.Tensor) -> torch.Tensor:
         """(B, d) -> (B, vocab) fp32 logits: fp32 products of the hidden
@@ -357,4 +431,4 @@ class LM(nn.Module):
 
 
 __all__ = ["LM", "ParamTree", "register_tree", "check_device",
-           "seeded_generator"]
+           "seeded_generator", "shifted_labels"]

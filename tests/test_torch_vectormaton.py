@@ -175,7 +175,7 @@ def test_import_leaves_jax_and_reference_out():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 33          # every module imported
+    assert int(out.stdout.strip()) >= 60          # every module imported
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
