@@ -155,10 +155,34 @@ step have no ``pallas_call``):
      step; 3 steps + checkpoint + restore + 3 against 6 uninterrupted
      (atol 1e-5 + rtol 1e-4).
 
+After the LM's second part — past every phase whose host times are
+reported — run the data-parallel phases (no kernel of the port runs in
+them either):
+  D1. ``train_dp_parity`` — qwen3-4b and qwen3-moe-30b-a3b at their
+     published widths cut to 2 layers, bf16, 8 × 128 tokens: one step
+     over ``make_host_mesh(data=2)`` and ``(data=4)`` (batch shards on
+     the card, one replica) against the one-device step from the same
+     weights and batch: loss and MoE aux loss within 1e-3 relative, the
+     grad norm within 2⁻⁵ relative, every leaf's gradient within
+     2⁻⁵·max|g| (``train_parity``'s tolerances: the shards' GEMMs round
+     differently, and each shard's bf16 gradient is rounded before the
+     all-reduce), the updated parameters under the Adam rule at bf16
+     width;
+  D2. ``train_dp_full`` — ``train_full``'s run through
+     ``launch.train.run(args, mesh=make_host_mesh(data=2))`` in a
+     spawned process: step ms p50, tokens/s, ``mfu`` and peak memory
+     (under 80 GB) beside ``train_full``'s from the same run; the first
+     two steps' losses within 1e-3 and 2e-2 relative of its;
+  D3. ``psum`` — ``compressed_psum`` over 4 logical shards of a
+     151,936 × 2,560 fp32 gradient: bit-equal to the CPU's, within
+     8·scale of the exact sum, its ms beside a plain fp32 sum's and
+     ``all_reduce_mean``'s.
+
 ``--phases build`` or ``--phases build,edges`` runs only those phases
 and stops without the ``kernels`` and ``ok`` lines: a short check of new
 kernels on the card; ``--phases`` also takes ``train_parity``,
-``train_full`` and ``train_embedder``.
+``train_full``, ``train_embedder``, ``train_dp_parity``,
+``train_dp_full`` (which runs ``train_full`` first) and ``psum``.
 """
 
 from __future__ import annotations
@@ -2652,11 +2676,12 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     return 6.0 * n_params * batch * seq + attn
 
 
-def train_full_child(card: str) -> None:
+def train_full_child(card: str, results=None) -> None:
     """``repro_torch.launch.train`` on qwen3-4b at full width and depth
     (its defaults: bf16, remat, batch 8 × seq 128), 10 steps, run in its
     own process; the optimizer's update is timed apart with CUDA events
-    around ``optimizer.update``; one more step under the profiler last."""
+    around ``optimizer.update``; one more step under the profiler last.
+    Puts the line's numbers on the queue ``results`` too."""
     import contextlib
     import io
     from repro_torch.launch import train as launch_train
@@ -2716,6 +2741,11 @@ def train_full_child(card: str) -> None:
     torch.cuda.empty_cache()
     check(changed == len(list(model.parameters())),
           f"{changed} of {len(list(model.parameters()))} leaves changed")
+    if results is not None:
+        results.put({"loss": losses, "step_ms_p50": step_ms,
+                     "tokens_per_s": tokens / step_ms * 1e3,
+                     "mfu": flop / (step_ms / 1e3) / PEAK_BF16,
+                     "peak_memory_allocated": peak})
     batch = run.pipe.batch_at(TRAIN_STEPS)
     prof = {}
     wall_ms, busy, top = device_profile(
@@ -2743,19 +2773,39 @@ def train_full_child(card: str) -> None:
                        if k != "device_kernels"}, top=top)
 
 
-def phase_train_full(card: str) -> None:
-    """``train_full_child`` in a spawned process, so that the earlier
+def run_child(target, card: str, name: str):
+    """``target(card, queue)`` in a spawned process, so that the earlier
     phases' tensors and host state share neither its memory nor its
-    host; it prints its own line and fails the run if it fails."""
+    host; it prints its own line and fails the run if it fails.
+    Returns what it put on the queue."""
     import multiprocessing
+    import queue as queue_mod
     torch.cuda.empty_cache()
-    proc = multiprocessing.get_context("spawn").Process(
-        target=train_full_child, args=(card,))
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=target, args=(card, results))
     t0 = time.perf_counter()
     proc.start()
+    out = None
+    while out is None and (proc.is_alive() or not results.empty()):
+        try:
+            out = results.get(timeout=1.0)
+        except queue_mod.Empty:
+            pass
     proc.join()
-    check(proc.exitcode == 0, f"train_full failed (exit {proc.exitcode})")
-    emit(phase="train_full_done", seconds=time.perf_counter() - t0)
+    check(proc.exitcode == 0 and out is not None,
+          f"{name} failed (exit {proc.exitcode})")
+    emit(phase=f"{name}_done", seconds=time.perf_counter() - t0)
+    return out
+
+
+TRAIN_RESULTS = {}      # train_full's numbers, for train_dp_full
+
+
+def phase_train_full(card: str) -> None:
+    """``train_full_child`` in a spawned process."""
+    TRAIN_RESULTS["train_full"] = run_child(train_full_child, card,
+                                            "train_full")
 
 
 def phase_train_embedder(card: str) -> None:
@@ -2909,6 +2959,290 @@ def _resume_equivalence(cfg, pipe, tmp):
             "tol": "atol 1e-5 + rtol 1e-4"}
 
 
+# --------------------------------------------------------------------- #
+# data-parallel training — the step over a data mesh, and compressed_psum
+# --------------------------------------------------------------------- #
+
+DP_ARCHS = ("qwen3-4b", "qwen3-moe-30b-a3b")   # at 2 layers, full width
+DP_SHARDS = (2, 4)
+DP_BATCH, DP_SEQ = 8, 128
+DP_LOSS_TOL = (1e-3, 2e-2)  # train_full's steps 0 and 1, relative
+PSUM_SHAPE, PSUM_SHARDS = (151_936, 2_560), 4   # qwen3-4b's embed gradient
+
+
+def _dp_step(model, init, batch, mesh, lr):
+    """One train step of ``model`` from the weights ``init`` over
+    ``mesh`` (None: one device): (metrics as floats, the gradients the
+    update took, the updated parameters), tensors on the card."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    model.load_state_dict(init)
+    seen = []
+    step = make_train_step(model, opt.OptConfig(lr=lr), mesh=mesh,
+                           grad_transform=lambda g: seen.append(g) or g)
+    m = step(opt.init(dict(model.named_parameters())), batch)
+    metrics = {k: float(m[k]) for k in ("loss", "aux", "grad_norm", "lr")}
+    return metrics, seen[0], {k: p.detach().clone()
+                              for k, p in model.named_parameters()}
+
+
+def phase_train_dp_parity(card: str) -> None:
+    """The data-parallel step over ``make_host_mesh(data=2)`` and
+    ``(data=4)`` — batch shards on the card, one replica — against the
+    one-device step from the same weights and batch, for qwen3-4b and
+    qwen3-moe-30b-a3b at their published widths cut to 2 layers, bf16,
+    8 × 128 tokens.  Tolerances, those of ``train_parity`` (the shards'
+    GEMMs have other shapes than the whole batch's, so their bf16
+    outputs round differently, and each shard's bf16 gradient is
+    rounded before the all-reduce): loss and aux loss within 1e-3
+    relative, the grad norm within 2⁻⁵ relative, every leaf's gradient
+    within 2⁻⁵·max|g| of the leaf; the updated bf16 parameters under the
+    Adam rule at bf16 width: Adam's first step moves an element by about
+    lr·sign(g), so an element whose gradient exceeds the gradient
+    tolerance (2⁻⁵·max|g| of its leaf) moves the same way in both and
+    lands within one bf16 ulp (2⁻⁷ of the larger value, + atol 1e-6);
+    the others may move the other way, within 2·lr + that."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import LM
+    rng = np.random.default_rng(17)
+    lr = 1e-3
+    for arch in DP_ARCHS:
+        cfg = get_config(arch).replace(num_layers=2)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (DP_BATCH, DP_SEQ)
+                                        ).astype(np.int32)}
+        t0 = time.perf_counter()
+        model = LM(cfg, device="cuda", seed=3)
+        init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        n = sum(p.numel() for p in init.values())
+        m1, g1, p1 = _dp_step(model, init, batch, None, lr)
+        step_lr = m1["lr"]
+        cases = {}
+        for shards in DP_SHARDS:
+            torch.cuda.reset_peak_memory_stats()
+            m2, g2, p2 = _dp_step(model, init, batch,
+                                  make_host_mesh(data=shards), lr)
+            peak = torch.cuda.max_memory_allocated()
+            rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+            check(rel(m2["loss"], m1["loss"]) <= 1e-3,
+                  f"{arch} data={shards}: loss {m2['loss']} vs {m1['loss']}")
+            check(rel(m2["aux"], m1["aux"]) <= 1e-3,
+                  f"{arch} data={shards}: aux {m2['aux']} vs {m1['aux']}")
+            check(rel(m2["grad_norm"], m1["grad_norm"]) <= GRAD_TOL,
+                  f"{arch} data={shards}: grad norm {m2['grad_norm']} vs "
+                  f"{m1['grad_norm']}")
+            worst_g, worst_leaf, worst_p, loose = 0.0, None, 0.0, 0
+            for k, want in g1.items():
+                w = want.float()
+                scale = float(w.abs().max())
+                e = float((g2[k].float() - w).abs().max())
+                check(e <= GRAD_TOL * scale,
+                      f"{arch} data={shards} grad {k}: {e} > "
+                      f"{GRAD_TOL}·{scale}")
+                if e / max(scale, 1e-30) > worst_g:
+                    worst_g, worst_leaf = e / max(scale, 1e-30), k
+                tight = w.abs() > GRAD_TOL * scale
+                a, b = p2[k].float(), p1[k].float()
+                err = (a - b).abs()
+                lim = 1e-6 + 2 ** -7 * torch.maximum(a.abs(), b.abs())
+                check(bool((err[tight] <= lim[tight]).all()),
+                      f"{arch} data={shards} {k}: updated parameters off "
+                      f"by {float(err[tight].max())}")
+                check(bool((err[~tight] <= 2 * step_lr + lim[~tight]).all()),
+                      f"{arch} data={shards} {k}: loose elements off by "
+                      "more than 2·lr")
+                loose += int((~tight).sum())
+                if bool(tight.any()):
+                    worst_p = max(worst_p, float((err[tight] / lim[tight]
+                                                  ).max()))
+            cases[f"data={shards}"] = {
+                "loss": m2["loss"], "aux": m2["aux"],
+                "grad_norm": m2["grad_norm"],
+                "loss_rel_err": rel(m2["loss"], m1["loss"]),
+                "aux_rel_err": rel(m2["aux"], m1["aux"]),
+                "grad_norm_rel_err": rel(m2["grad_norm"], m1["grad_norm"]),
+                "max_rel_grad_err": worst_g, "worst_leaf": worst_leaf,
+                "param_tight_worst_share_of_tol": worst_p,
+                "param_loose_elements": loose,
+                "peak_memory_allocated": peak}
+            del g2, p2
+            torch.cuda.empty_cache()
+        emit(phase="train_dp_parity", card=card, arch=arch,
+             case=f"{arch} 2 layers, bf16, full width", params=n,
+             tokens=[DP_BATCH, DP_SEQ], lr=step_lr,
+             one_device={"loss": m1["loss"], "aux": m1["aux"],
+                         "grad_norm": m1["grad_norm"]},
+             shards=cases,
+             tol=f"loss and aux 1e-3 relative, grad norm {GRAD_TOL} "
+                 f"relative, {GRAD_TOL}·max|g| a leaf; parameters where "
+                 f"|g| > {GRAD_TOL}·max|g|: one bf16 ulp (2^-7 of the "
+                 "larger) + 1e-6, the others 2·lr more",
+             why="the shards' GEMMs round their bf16 outputs differently "
+                 "from the whole batch's, and each shard's bf16 gradient "
+                 "is rounded before the all-reduce",
+             seconds=time.perf_counter() - t0)
+        del model, init, g1, p1
+        torch.cuda.empty_cache()
+
+
+def _timed(fn, spans):
+    """``fn`` with each call's device span (CUDA events) kept in
+    ``spans``."""
+    def wrapper(*args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*args, **kwargs)
+        ev[1].record()
+        spans.append(ev)
+        return out
+    return wrapper
+
+
+def train_dp_full_child(card: str, results=None) -> None:
+    """``launch.train.run`` on qwen3-4b at full width and depth with a
+    ``make_host_mesh(data=2)`` mesh (two batch shards on the card, one
+    replica), the launcher's defaults otherwise (bf16, remat, 8 × 128),
+    10 steps, in its own process.  Then, past the timed steps: one more
+    step with the gradient all-reduce and the update timed by CUDA
+    events (their calls summed), and one under the profiler."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    args = launch_train.parse_args(
+        ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
+         "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+         "--log-every", "1"])
+    mesh = make_host_mesh(data=2)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        run = launch_train.run(args, mesh=mesh)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = run.history
+    losses = [h["loss"] for h in hist]
+    gnorms = [float(h["metrics"]["grad_norm"]) for h in hist]
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"non-finite train metrics: {losses} {gnorms}")
+    step_ms = float(np.median([h["ms"] for h in hist[TRAIN_WARM:]]))
+    n = sum(p.numel() for p in run.model.parameters())
+    flop = train_flops(run.cfg, n, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batch = run.pipe.batch_at(TRAIN_STEPS)
+    spans = {"all_reduce": [], "update": []}
+    update, reduce_ = opt.update, step_mod.all_reduce_mean
+    opt.update = _timed(update, spans["update"])
+    step_mod.all_reduce_mean = _timed(reduce_, spans["all_reduce"])
+    run.step_fn(run.opt_state, batch)
+    torch.cuda.synchronize()
+    opt.update, step_mod.all_reduce_mean = update, reduce_
+    span_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+               for k, v in spans.items()}
+    prof = {}
+    wall_ms, busy, top = device_profile(
+        lambda: run.step_fn(run.opt_state, batch), prof)
+    out = {"mesh": dict(run.mesh.shape),
+           "devices": sorted({str(d) for d in run.mesh.devices.flat}),
+           "replicas": len(run.step_fn.replicas), "params": n,
+           "loss": losses, "grad_norm": gnorms,
+           "step_ms": [h["ms"] for h in hist], "step_ms_p50": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "model_tflops": flop / step_ms / 1e9,
+           "mfu": flop / (step_ms / 1e3) / PEAK_BF16,
+           "peak_memory_allocated": peak, "run_s": wall_s,
+           "all_reduce_ms": span_ms["all_reduce"],
+           "all_reduce_calls": len(spans["all_reduce"]),
+           "update_ms": span_ms["update"],
+           "profiled_step_wall_ms": wall_ms, "profiled_step_busy_ms": busy,
+           "profiled_step_idle_share": None if busy is None
+           else 1 - busy / wall_ms,
+           "kernels_per_step": prof["device_kernels"],
+           "launch_calls": {k: v["count"] for k, v in prof.items()
+                            if k != "device_kernels"}, "top": top,
+           "log": log.getvalue().splitlines()}
+    if results is not None:
+        results.put(out)
+
+
+def phase_train_dp_full(card: str) -> None:
+    """``train_dp_full_child`` in a spawned process, beside
+    ``train_full``'s one-device numbers from this run (``train_full``
+    runs first if it has not): step ms p50, tokens/s, ``mfu`` against
+    989 TFLOP/s, peak memory (must fit 80 GB); the first two steps'
+    losses equal ``train_full``'s within 1e-3 (step 0: the same weights
+    and batch, bf16 rounding) and 2e-2 (step 1: Adam's first update is
+    about lr·sign(g), and elements whose gradient is at bf16 rounding
+    noise may move the other way) relative."""
+    if "train_full" not in TRAIN_RESULTS:
+        phase_train_full(card)
+    one = TRAIN_RESULTS["train_full"]
+    dp = run_child(train_dp_full_child, card, "train_dp_full_child")
+    errs = [abs(a - b) / abs(b) for a, b in zip(dp["loss"][:2],
+                                                one["loss"][:2])]
+    for i, (e, tol) in enumerate(zip(errs, DP_LOSS_TOL)):
+        check(e <= tol, f"train_dp_full step {i}: loss {dp['loss'][i]} vs "
+                        f"train_full's {one['loss'][i]} (> {tol} relative)")
+    check(dp["peak_memory_allocated"] < 80e9,
+          f"peak memory {dp['peak_memory_allocated']} does not fit 80 GB")
+    emit(phase="train_dp_full", card=card, arch=LM_ARCH,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+         step_ms_steps=f"{TRAIN_WARM + 1}-{TRAIN_STEPS}",
+         loss_rel_err_steps_0_1=errs,
+         loss_tol=f"{DP_LOSS_TOL[0]} (step 0), {DP_LOSS_TOL[1]} (step 1) "
+                  "relative",
+         **dp, one_device={k: one[k] for k in (
+             "step_ms_p50", "tokens_per_s", "mfu", "peak_memory_allocated",
+             "loss")})
+
+
+def phase_psum(card: str) -> None:
+    """``compressed_psum`` over 4 logical shards of a 151,936 × 2,560
+    fp32 gradient on the card: bit-equal to the same call on the CPU,
+    within the reference test's 8·scale of the exact (fp64) sum; its ms
+    (CUDA events, warm) beside a plain fp32 sum's and ``all_reduce_mean``'s,
+    and the byte bound of a sum (each shard read once, the result
+    written once)."""
+    from repro_torch.distributed.collectives import (all_reduce_mean,
+                                                     compressed_psum)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    xs = [torch.randn(PSUM_SHAPE, generator=gen, device="cuda")
+          * (1e-3 * (s + 1)) for s in range(PSUM_SHARDS)]
+    got = compressed_psum(xs)
+    check(len(got) == PSUM_SHARDS and all(g is got[0] for g in got),
+          "compressed_psum: one shared result a device")
+    got = got[0]
+    exact = sum(x.double() for x in xs)
+    scale = max(float(x.abs().max()) for x in xs) / 127.0
+    err = float((got.double() - exact).abs().max())
+    del exact
+    check(err <= 8 * scale + 1e-5,
+          f"compressed_psum: {err} from the exact sum (> 8·{scale})")
+    host = compressed_psum([x.cpu() for x in xs])[0]
+    bit_equal = torch.equal(got.cpu().view(torch.int32),
+                            host.view(torch.int32))
+    check(bit_equal, "compressed_psum on the card differs from the CPU's")
+    del host
+    ms = cuda_ms(lambda: compressed_psum(xs), reps=5)
+    plain_ms = cuda_ms(lambda: xs[0] + xs[1] + xs[2] + xs[3], reps=5)
+    mean_ms = cuda_ms(lambda: all_reduce_mean(xs), reps=5)
+    nbytes = (PSUM_SHARDS + 1) * xs[0].numel() * 4
+    emit(phase="psum", card=card, shape=list(PSUM_SHAPE),
+         shards=PSUM_SHARDS, devices=sorted({str(x.device) for x in xs}),
+         bit_equal_to_cpu=bit_equal, max_abs_err=err, scale=scale,
+         tol="8·scale (the reference test's bound)", ms=ms,
+         plain_sum_ms=plain_ms, all_reduce_mean_ms=mean_ms,
+         bytes_bound_ms=nbytes / PEAK_BYTES * 1e3)
+    del xs, got
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2927,7 +3261,7 @@ def main() -> int:
     if PHASES is not None:
         if "edges" in PHASES:
             phase_edges()
-        for name, phase in TRAIN_PHASES.items():
+        for name, phase in {**TRAIN_PHASES, **DP_PHASES}.items():
             if name in PHASES:
                 phase(card)
         emit(phase="done", partial=sorted(PHASES),
@@ -2944,6 +3278,9 @@ def main() -> int:
         for phase in TRAIN_PHASES.values():
             phase(card)
         kernels = run_index_phases(card, lm_run)
+        # after every phase whose host times are reported
+        for phase in DP_PHASES.values():
+            phase(card)
     finally:
         lm_run.stop()
     emit(phase="done", seconds=time.perf_counter() - t_start)
@@ -2998,14 +3335,17 @@ PHASES = None           # None: every phase; else a subset (see --phases)
 TRAIN_PHASES = {"train_parity": phase_train_parity,
                 "train_full": phase_train_full,
                 "train_embedder": phase_train_embedder}
+DP_PHASES = {"train_dp_parity": phase_train_dp_parity,
+             "train_dp_full": phase_train_dp_full,
+             "psum": phase_psum}
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phases":
         PHASES = set(sys.argv[2].split(","))
-        check(PHASES <= {"build", "edges", *TRAIN_PHASES},
-              f"--phases takes build, edges and {sorted(TRAIN_PHASES)}, "
-              f"not {sorted(PHASES)}")
+        check(PHASES <= {"build", "edges", *TRAIN_PHASES, *DP_PHASES},
+              f"--phases takes build, edges, {sorted(TRAIN_PHASES)} and "
+              f"{sorted(DP_PHASES)}, not {sorted(PHASES)}")
     elif len(sys.argv) != 1:
         sys.exit("usage: chip_smoke.py [--phases build,edges,"
-                 + ",".join(TRAIN_PHASES) + "]")
+                 + ",".join([*TRAIN_PHASES, *DP_PHASES]) + "]")
     sys.exit(main())

@@ -284,7 +284,15 @@ class CheckpointManager:
     dict/list tree of tensors or numpy arrays (the reference's layout:
     ``convert.to_reference_state``); ``restore`` returns the tree with
     every leaf a tensor — bf16 where ``manifest.json`` says
-    ``"bfloat16"``, whichever package wrote it."""
+    ``"bfloat16"``, whichever package wrote it.
+
+    A data-parallel run (``train.step`` over a mesh) saves one replica,
+    the one on the mesh's first device: every replica holds the same
+    weights and moments, as the reference's replicated arrays are saved
+    once.  So the layout does not depend on the mesh, and a run on one
+    device and a run over any data mesh resume from each other's
+    checkpoints (the step copies the restored state to its other
+    replicas at its next call)."""
 
     def __init__(self, directory: str, keep: int = 3) -> None:
         self.directory = directory

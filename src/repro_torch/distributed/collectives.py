@@ -1,23 +1,32 @@
-"""Int8 error-feedback gradient compression — port of the single-device
-half of ``src/repro/distributed/collectives.py``.
+"""Distributed-optimization collectives: int8 error-feedback gradient
+compression and the all-reduces of the data-parallel step — port of
+``src/repro/distributed/collectives.py``.
 
 Wire format: per-tensor symmetric int8 quantization (absmax scale) with
 an error-feedback accumulator, so the quantization residual re-enters
-the next step's gradient.  Both entry points act on a mapping of names
-to gradient tensors:
+the next step's gradient.
 
   * ``compress_decompress(grads)`` — a drop-in ``grad_transform`` for
-    ``train.step.make_train_step``: the values that would cross the wire
-    are the quantized ones;
-  * ``make_error_feedback_transform()`` — the stateful variant.
+    ``train.step.make_train_step`` (a mapping of names to gradients):
+    the values that would cross the wire are the quantized ones;
+  * ``make_error_feedback_transform()`` — the stateful variant;
+  * ``compressed_psum(xs)`` — quantize -> int32 sum -> dequantize over
+    the per-shard tensors of one mesh axis, with one shared scale;
+  * ``all_reduce_mean(xs)`` — the plain all-reduce the data-parallel
+    step runs on its gradients and MoE routing fractions.
 
-``compressed_psum`` (quantize -> all-reduce -> dequantize across a mesh
-axis) belongs to the distributed training slice and is not here.
+Where the reference's collectives run inside ``shard_map`` (one program
+a device, ``psum`` / ``pmax`` over a named axis), the port's take the
+list of per-shard tensors along the axis, in shard order, and one
+process reduces them (as ``ops.merge_topk_allgather`` folds the shards
+of a sharded search); there are no ``torch.distributed`` process groups.
+Each returns one tensor a shard, on that shard's device; shards on one
+device share one result tensor.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
@@ -68,4 +77,46 @@ def compress_decompress(grads: Mapping[str, torch.Tensor]
     return out
 
 
-__all__ = ["compress_decompress", "make_error_feedback_transform"]
+def _to_shards(total: torch.Tensor, xs: Sequence[torch.Tensor]
+               ) -> List[torch.Tensor]:
+    """``total`` (on the first shard's device) once on each distinct
+    device of ``xs``, in shard order."""
+    per_device = {total.device: total}
+    out = []
+    for x in xs:
+        if x.device not in per_device:
+            per_device[x.device] = total.to(x.device)
+        out.append(per_device[x.device])
+    return out
+
+
+def compressed_psum(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Quantize -> all-reduce (int32 sum) -> dequantize over the shards
+    ``xs`` of one mesh axis.  The scale is shared: the max over shards
+    of ``max|x|/127 + 1e-12``, so the sum moves int8 codes and one fp32
+    scalar.  Returns the fp32 sum, one tensor a shard."""
+    dev = xs[0].device
+    scale = torch.stack([(torch.max(torch.abs(x)) / 127.0 + 1e-12).to(dev)
+                         for x in xs]).max()
+    total = None
+    for x in xs:
+        q = torch.clamp(torch.round(x / scale.to(x.device)), -127, 127
+                        ).to(torch.int32).to(dev)
+        total = q if total is None else total.add_(q)
+    return _to_shards(total.to(f32) * scale, xs)
+
+
+def all_reduce_mean(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The mean of the shards ``xs`` of one mesh axis, summed in fp32
+    in shard order and rounded once to the shards' dtype; one tensor a
+    shard."""
+    dev = xs[0].device
+    total = xs[0].to(f32, copy=True)
+    for x in xs[1:]:
+        total.add_(x.to(dev, f32))
+    total.div_(len(xs))
+    return _to_shards(total.to(xs[0].dtype), xs)
+
+
+__all__ = ["compress_decompress", "make_error_feedback_transform",
+           "compressed_psum", "all_reduce_mean"]

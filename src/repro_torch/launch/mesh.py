@@ -1,13 +1,22 @@
 """Device meshes of the port.
 
 Port of ``src/repro/launch/mesh.py`` without JAX.  A JAX ``Mesh`` is a
-grid of devices in one process; ``Mesh`` here is its counterpart: a
-``(data, model)`` array of ``torch.device`` objects, in which one device
-may repeat, its ``axis_names`` and a ``shape`` mapping like ``Mesh.shape``.
-The sharded executor (``distributed.sharded_search``) splits a table into
-``shape["data"]`` row shards and runs each shard on its device, so the
-shard count is a property of the layout, not of the number of cards:
-``make_host_mesh(data=4, device="cuda")`` is four row shards on one card.
+grid of devices in one process; ``Mesh`` here is its counterpart: an
+array of ``torch.device`` objects over named axes (``(data, model)``, or
+``(pod, data, model)`` for the pod layout the sharding rules know), in
+which one device may repeat, with a ``shape`` mapping like
+``Mesh.shape``.  The sharded executor (``distributed.sharded_search``)
+splits a table into ``shape["data"]`` row shards and the data-parallel
+train step (``train.step``) a batch into ``shape["data"]`` batch shards;
+each shard runs on its device, so the shard count is a property of the
+layout, not of the number of cards.
+
+``make_host_mesh(data=n)`` lays its slots over the visible cards in
+turn: with ``n = torch.cuda.device_count()`` it is one card a shard, the
+counterpart of ``jax.make_mesh`` over every device, and on a one-card
+machine every shard is on that card.  ``make_host_mesh(data=4,
+device="cuda:0")`` (or ``device="cpu"``) puts every shard on one device
+on any machine.
 
 ``make_production_mesh`` (the TPU pod's 16 × 16 grid) is not ported.
 """
@@ -80,14 +89,24 @@ class Mesh:
 
 def make_host_mesh(data: int = 1, model: int = 1,
                    device: str = "cuda") -> Mesh:
-    """A ``(data, model)`` mesh whose every slot is ``device``: ``data``
-    row shards on one device (tests, examples, the one-card machine).  A
+    """A ``(data, model)`` mesh.  ``device="cuda"`` (no index) lays the
+    slots, in row-major order, over the visible cards in turn (slot i on
+    ``cuda:<i mod count>``): one card a slot when there are enough, every
+    slot on the one card of a one-card machine.  A device with an index,
+    or ``"cpu"``, fills every slot: ``data`` shards on one device.  A
     CUDA device on a machine without one raises, as the index does."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"make_host_mesh(device={device!r}) but CUDA is not available; "
             "pass device='cpu' for a mesh on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        count = torch.cuda.device_count()
+        slots = [torch.device("cuda", i % count)
+                 for i in range(data * model)]
+        grid = np.empty(data * model, dtype=object)
+        grid[:] = slots
+        return Mesh(grid.reshape(data, model), ("data", "model"))
     return Mesh(np.full((data, model), _device(dev), dtype=object),
                 ("data", "model"))
 

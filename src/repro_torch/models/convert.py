@@ -124,16 +124,16 @@ def from_reference_params(cfg: ModelConfig, params: Dict
     return out
 
 
-def _nest(sd: Dict[str, torch.Tensor]) -> Dict:
-    """``{"layers.3.attn.wq": t}`` -> nested dicts and lists of numpy
-    arrays (the inverse of ``_flatten``)."""
+def _nest(sd: Dict[str, torch.Tensor], leaf=to_numpy) -> Dict:
+    """``{"layers.3.attn.wq": t}`` -> nested dicts and lists of
+    ``leaf(t)``, numpy arrays by default (the inverse of ``_flatten``)."""
     root: Dict = {}
     for name, t in sd.items():
         node = root
         parts = name.split(".")
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = to_numpy(t)
+        node[parts[-1]] = leaf(t)
 
     def lists(node):
         if not isinstance(node, dict):
@@ -145,21 +145,31 @@ def _nest(sd: Dict[str, torch.Tensor]) -> Dict:
     return lists(root)
 
 
+class ShapeLeaf:
+    """A leaf of ``reference_shapes``: only a ``shape``."""
+
+    __slots__ = ("shape",)
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+    def __repr__(self) -> str:
+        return f"ShapeLeaf{self.shape}"
+
+
 def _stack(entries):
-    """A list of per-entry pytrees -> one pytree of stacked arrays."""
+    """A list of per-entry pytrees -> one pytree of stacked arrays (or
+    of stacked ``ShapeLeaf`` shapes)."""
     first = entries[0]
     if isinstance(first, dict):
         return {k: _stack([e[k] for e in entries]) for k in first}
+    if isinstance(first, ShapeLeaf):
+        return ShapeLeaf((len(entries),) + first.shape)
     return np.stack(entries)
 
 
-def to_reference_params(cfg: ModelConfig, sd: Dict[str, torch.Tensor]
-                        ) -> Dict:
-    """The port's state dict (or any mapping of the parameters' names
-    to tensors of their shapes, such as an AdamW moment) -> the
-    reference's parameter pytree for ``cfg``: nested dicts of numpy
-    arrays, each layer stack stacked along a leading axis."""
-    tree = _nest(sd)
+def _stack_layers(cfg: ModelConfig, tree: Dict) -> Dict:
+    """A nested per-layer tree -> the reference's stacked layout."""
     if cfg.is_encoder_decoder:
         tree["enc_layers"] = _stack(tree["enc_layers"])
         tree["dec_layers"] = _stack(tree["dec_layers"])
@@ -170,6 +180,23 @@ def to_reference_params(cfg: ModelConfig, sd: Dict[str, torch.Tensor]
                 blk[sub] = _stack(blk[sub])
     tree["layers"] = _stack(tree["layers"])
     return tree
+
+
+def to_reference_params(cfg: ModelConfig, sd: Dict[str, torch.Tensor]
+                        ) -> Dict:
+    """The port's state dict (or any mapping of the parameters' names
+    to tensors of their shapes, such as an AdamW moment) -> the
+    reference's parameter pytree for ``cfg``: nested dicts of numpy
+    arrays, each layer stack stacked along a leading axis."""
+    return _stack_layers(cfg, _nest(sd))
+
+
+def reference_shapes(cfg: ModelConfig, sd: Dict[str, torch.Tensor]
+                     ) -> Dict:
+    """``to_reference_params``' tree with ``ShapeLeaf`` leaves in place
+    of arrays: the reference's leaf shapes, no tensor copied (what
+    ``distributed.sharding.ShardingRules.param_specs`` reads)."""
+    return _stack_layers(cfg, _nest(sd, leaf=lambda t: ShapeLeaf(t.shape)))
 
 
 def from_reference_state(cfg: ModelConfig, state: Dict):
@@ -202,4 +229,4 @@ def to_reference_state(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 
 __all__ = ["from_reference_params", "to_reference_params",
            "from_reference_state", "to_reference_state", "to_tensor",
-           "to_numpy", "BF16_RAW"]
+           "to_numpy", "BF16_RAW", "reference_shapes", "ShapeLeaf"]

@@ -29,6 +29,7 @@ from torch import nn
 
 from . import layers as L
 from .config import ModelConfig
+from ..distributed import actctx
 from .transformer import (check_device, register_tree, seeded_generator,
                           shifted_labels)
 
@@ -103,8 +104,10 @@ class EncDec(nn.Module):
         positions = self._positions(b, s)
         x = (frames.to(self.device, self.dtype)
              + sinusoidal(positions, cfg.d_model).to(self.dtype))
+        x = actctx.shard(x, "btd")
         for p in self.enc_layers:
-            # actctx.shard / gather_params dropped: no-ops without a mesh
+            x = actctx.shard(x, "btd_sp")
+            p = actctx.gather_params(p)
             h = self._ln(x, p["ln1"])
             a, _ = L.attention(p["attn"], h, positions=positions, window=0,
                                num_kv_heads=cfg.num_kv_heads, rope=False,
@@ -138,9 +141,11 @@ class EncDec(nn.Module):
                                     else int(cache_pos))
         x = (self.embed[tokens.to(self.device)].to(self.dtype)
              + sinusoidal(positions, cfg.d_model).to(self.dtype))
+        x = actctx.shard(x, "btd")
         ck, cv = cross_kv
         for l, p in enumerate(self.dec_layers):
-            # actctx.shard / gather_params dropped: no-ops without a mesh
+            x = actctx.shard(x, "btd_sp" if x.shape[1] > 1 else "btd")
+            p = actctx.gather_params(p)
             c = None if cache is None else {"k": cache["k"][l],
                                             "v": cache["v"][l]}
             h = self._ln(x, p["ln1"])

@@ -18,9 +18,10 @@ Conventions (the reference's, kept so the two compare like with like)
   the activation dtype (fp32 accumulation inside the GEMM).  In decode
   (S == 1) the reference accumulates in the activation dtype; so does
   the port.  Norms, softmax and rope run in fp32.
-* The reference's ``actctx.shard`` calls are dropped: they are no-ops
-  without a configured mesh (``distributed/actctx.py:1-12``), and the
-  port has no activation sharding.  Each call site says so.
+* The reference's ``actctx.shard`` pins stand where the reference has
+  them (``distributed/actctx.py``): without a configured mesh they
+  return their input; under the data-parallel train step they check
+  that an activation is its shard's.
 * Training runs the same functions under autograd.  Where the reference
   wraps a body in ``jax.checkpoint``, the port wraps it in ``remat``
   (``torch.utils.checkpoint``, non-reentrant): its activations are
@@ -36,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..distributed import actctx
 
 f32 = torch.float32
 MASK_VALUE = -1e30             # the reference's mask value, not -inf
@@ -327,8 +330,7 @@ def attention(params: Mapping, x: torch.Tensor, *,
 
     kh = _expand_kv(k, num_heads).to(x.dtype)                  # (B,T,H,hd)
     vh = _expand_kv(v, num_heads).to(x.dtype)
-    qc = q.to(x.dtype)
-    # actctx.shard(qc, "bthd") dropped: a no-op without a mesh
+    qc = actctx.shard(q.to(x.dtype), "bthd")
     t_pos = torch.arange(kh.shape[1], device=x.device)
     if s <= Q_CHUNK:
         ctx = _attend_block(qc, kh, vh, positions, t_pos, window, causal,

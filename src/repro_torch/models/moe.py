@@ -8,11 +8,22 @@ overflowing an expert's capacity are dropped (combine weight zero).  A
 token-major flattened (S·K) order, and the top-k puts the lower expert
 first on ties (``lax.top_k``'s rule, through a stable descending sort),
 so the same tokens drop as in the reference.
+
+The Switch aux loss of a dispatch window is ``E · Σ_e me_e · ce_e``: the
+mean router probability ``me`` (differentiable) times the share of
+routed slots ``ce`` (from top-k indices: no gradient), both means over
+the window's (B, S).  A data-parallel step sees 1/n of the rows a shard,
+so it needs both factors of every window: under ``collect_aux_stats()``
+each window's forward records ``AuxStat(me, ce, weight)``, where
+``weight`` is the window's share of its layer's aux (1/windows).  The
+records come from the first forward pass only: ``remat``'s recompute
+runs in the backward pass, after the collector has closed.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from contextlib import contextmanager
+from typing import List, Mapping, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +55,38 @@ def _capacity(tokens: int, num_experts: int, top_k: int,
 MOE_CHUNK = 4096
 
 
+class AuxStat(NamedTuple):
+    """One dispatch window's Switch statistics: ``me`` (E,) with its
+    graph, ``ce`` (E,) detached, and the window's weight in the summed
+    aux loss."""
+    me: torch.Tensor
+    ce: torch.Tensor
+    weight: float
+
+
+_COLLECT: dict = {"stats": None}
+
+
+@contextmanager
+def collect_aux_stats():
+    """Within: every MoE window's forward appends its ``AuxStat`` to
+    the list this yields, in forward order."""
+    old = _COLLECT["stats"]
+    stats: List[AuxStat] = []
+    _COLLECT["stats"] = stats
+    try:
+        yield stats
+    finally:
+        _COLLECT["stats"] = old
+
+
+def aux_from_stats(stats, num_experts: int) -> torch.Tensor:
+    """Σ weight · E · Σ_e me_e · ce_e over the records: the model's
+    summed aux loss (the value of ``forward``'s ``aux``)."""
+    return sum(st.weight * num_experts * torch.sum(st.me * st.ce)
+               for st in stats)
+
+
 def moe_ffn(params: Mapping, x: torch.Tensor, *, top_k: int,
             capacity_factor: float = 1.25, chunk: int = MOE_CHUNK
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,6 +102,8 @@ def moe_ffn(params: Mapping, x: torch.Tensor, *, top_k: int,
             raise ValueError(f"moe_ffn: S={s} is not a multiple of the "
                              f"dispatch window {chunk}")
         nc = s // chunk
+        stats = _COLLECT["stats"]
+        first = None if stats is None else len(stats)
         outs, aux = [], torch.zeros((), dtype=f32, device=x.device)
         for i in range(nc):
             out, a = remat(_moe_window, params,
@@ -66,6 +111,9 @@ def moe_ffn(params: Mapping, x: torch.Tensor, *, top_k: int,
                            capacity_factor)
             outs.append(out)
             aux = aux + a
+        if stats is not None:
+            stats[first:] = [st._replace(weight=st.weight / nc)
+                             for st in stats[first:]]
         return torch.cat(outs, dim=1), aux / nc
     return _moe_core(params, x, top_k=top_k,
                      capacity_factor=capacity_factor)
@@ -117,6 +165,8 @@ def _moe_core(params: Mapping, x: torch.Tensor, *, top_k: int,
     me = probs.mean(dim=(0, 1))                               # (E,)
     ce_frac = onehot.sum(dim=2).mean(dim=(0, 1))              # (E,)
     aux = e * torch.sum(me * ce_frac)
+    if _COLLECT["stats"] is not None:
+        _COLLECT["stats"].append(AuxStat(me, ce_frac.detach(), 1.0))
 
     # jax.nn.one_hot gives a zero row for an index past the last class;
     # F.one_hot raises, so dropped slots are clamped and then zeroed
@@ -146,4 +196,5 @@ def _moe_core(params: Mapping, x: torch.Tensor, *, top_k: int,
 
 
 __all__ = ["init_moe", "moe_ffn", "_moe_core", "_capacity", "route",
-           "top_k_lower_first", "MOE_CHUNK"]
+           "top_k_lower_first", "MOE_CHUNK", "AuxStat", "collect_aux_stats",
+           "aux_from_stats"]

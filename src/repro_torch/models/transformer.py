@@ -36,8 +36,10 @@ from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
 from .config import ModelConfig
+from ..distributed import actctx
 
 f32 = torch.float32
+AUX_WEIGHT = 0.01          # the MoE aux loss's weight in ``LM.loss``
 
 
 # --------------------------------------------------------------------- #
@@ -232,7 +234,7 @@ class LM(nn.Module):
         if patch_embeds is not None:  # vlm stub prefix
             x = torch.cat([patch_embeds.to(self.device, self.dtype), x],
                           dim=1)
-        # actctx.shard(x, "btd") dropped: a no-op without a mesh
+        x = actctx.shard(x, "btd")  # re-anchor batch sharding post-gather
         b, s, _ = x.shape
         start = 0 if cache_pos is None else int(cache_pos)
         positions = (start + torch.arange(s, device=self.device)
@@ -253,7 +255,8 @@ class LM(nn.Module):
     def _forward_uniform(self, x, positions, cache, cache_pos, remat):
         aux = self._zero()
         for l, p in enumerate(self.layers):
-            # actctx.shard / gather_params dropped: no-ops without a mesh
+            x = actctx.shard(x, "btd_sp" if x.shape[1] > 1 else "btd")
+            p = actctx.gather_params(p)
             c = None if cache is None else {"k": cache["k"][l],
                                             "v": cache["v"][l]}
             args = (p, x, positions, self.cfg.layer_window(l, x.shape[1]),
@@ -272,7 +275,9 @@ class LM(nn.Module):
     def _forward_ssm(self, x, cache, remat):
         cfg = self.cfg
         for l, p in enumerate(self.layers):
-            # actctx.shard / gather_params dropped: no-ops without a mesh
+            x = actctx.shard(x, "btd_fsdp" if cache is None
+                             or x.shape[1] > 1 else "btd")
+            p = actctx.gather_params(p)
             if cache is None:
                 x = (L.remat(self._ssm_layer, p, x) if remat
                      else self._ssm_layer(p, x))
@@ -289,7 +294,8 @@ class LM(nn.Module):
     def _forward_hybrid(self, x, positions, cache, cache_pos, remat):
         aux = self._zero()
         for bi, p in enumerate(self.layers):
-            # actctx.shard / gather_params dropped: no-ops without a mesh
+            x = actctx.shard(x, "btd_fsdp" if x.shape[1] > 1 else "btd")
+            p = actctx.gather_params(p)
             args = (p, x, positions, cache, cache_pos, bi, remat)
             x, a = (L.remat(self._hybrid_block, *args) if remat
                     else self._hybrid_block(*args))
@@ -341,10 +347,16 @@ class LM(nn.Module):
 
             if remat and cache is None:
                 x = L.remat(mixer, x)
+                if x.shape[1] > 1:
+                    x = actctx.shard(x, "btd_fsdp")
                 x, a2 = L.remat(ffn, x)
             else:
                 x = mixer(x)
+                if x.shape[1] > 1:
+                    x = actctx.shard(x, "btd_fsdp")
                 x, a2 = ffn(x)
+            if x.shape[1] > 1:
+                x = actctx.shard(x, "btd_fsdp")
             if j != cfg.attn_index:
                 mi += 1
             if gl_moe:
@@ -381,7 +393,7 @@ class LM(nn.Module):
             hidden = hidden[:, pe.shape[1]:]
         labels, mask = shifted_labels(tokens)
         ce = L.chunked_ce_loss(hidden, self._head(), labels, mask)
-        return ce + 0.01 * aux
+        return ce + AUX_WEIGHT * aux
 
     def logits(self, hidden_last: torch.Tensor) -> torch.Tensor:
         """(B, d) -> (B, vocab) fp32 logits: fp32 products of the hidden
@@ -431,4 +443,4 @@ class LM(nn.Module):
 
 
 __all__ = ["LM", "ParamTree", "register_tree", "check_device",
-           "seeded_generator", "shifted_labels"]
+           "seeded_generator", "shifted_labels", "AUX_WEIGHT"]

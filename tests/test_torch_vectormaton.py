@@ -167,6 +167,9 @@ def test_import_leaves_jax_and_reference_out():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "new = ['repro_torch.distributed.sharding',"
+        " 'repro_torch.distributed.actctx']\n"
+        "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))")
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(os.path.dirname(
@@ -175,7 +178,7 @@ def test_import_leaves_jax_and_reference_out():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 60          # every module imported
+    assert int(out.stdout.strip()) >= 62          # every module imported
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
