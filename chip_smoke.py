@@ -165,11 +165,12 @@ them either):
      weights and batch: loss and MoE aux loss within 1e-3 relative, the
      grad norm within 2⁻⁵ relative, every leaf's gradient within
      2⁻⁵·max|g| (``train_parity``'s tolerances: the shards' GEMMs round
-     differently, and each shard's bf16 gradient is rounded before the
-     all-reduce), the updated parameters under the Adam rule at bf16
+     differently, and the shards' bf16 gradients are summed in bf16),
+     the updated parameters under the Adam rule at bf16
      width;
   D2. ``train_dp_full`` — ``train_full``'s run through
-     ``launch.train.run(args, mesh=make_host_mesh(data=2))`` in a
+     ``launch.train.run(args, mesh=make_host_mesh(data=2))`` with
+     ``--placement replicated`` in a
      spawned process: step ms p50, tokens/s, ``mfu`` and peak memory
      (under 80 GB) beside ``train_full``'s from the same run; the first
      two steps' losses within 1e-3 and 2e-2 relative of its;
@@ -178,11 +179,34 @@ them either):
      8·scale of the exact sum, its ms beside a plain fp32 sum's and
      ``all_reduce_mean``'s.
 
+The FSDP phases (the reference launcher's placement: parameters and
+AdamW moments cut over the data axis by the spec tables; no kernel of
+the port runs in them either) run between the graphs phase and the
+LM's second part, while the LM index builds in its child process (one
+host core; the timed full-depth run is a child process of its own):
+  F1. ``train_fsdp_parity`` — ``train_dp_parity``'s shape, models and
+     tolerances with ``placement="fsdp"`` over ``make_host_mesh(data=2)``
+     and ``(data=4)`` (every slot's shards on the card), against the
+     one-device step; no cut leaf, weight or moment, held whole by any
+     slot between steps;
+  F2. ``train_fsdp_full`` — ``train_full``'s run through
+     ``launch.train.run(args, mesh=make_host_mesh(data=2))`` with
+     ``--placement fsdp`` in a spawned process: step ms p50, tokens/s,
+     ``mfu``, peak memory, one step with the layer gathers, the gradient
+     reduce-scatters and the update timed by CUDA events, kernels a step
+     (profiler); its first two losses within ``train_dp_full``'s
+     tolerances of ``train_full``'s;
+  F3. ``dryrun_fit`` — ``launch.dryrun`` on fake tensors for
+     ``train_full``'s and ``train_fsdp_full``'s cells, the reckoned peak
+     beside the measured ``torch.cuda.max_memory_allocated``.
+
 ``--phases build`` or ``--phases build,edges`` runs only those phases
 and stops without the ``kernels`` and ``ok`` lines: a short check of new
 kernels on the card; ``--phases`` also takes ``train_parity``,
 ``train_full``, ``train_embedder``, ``train_dp_parity``,
-``train_dp_full`` (which runs ``train_full`` first) and ``psum``.
+``train_dp_full`` (which runs ``train_full`` first), ``psum``,
+``train_fsdp_parity``, ``train_fsdp_full`` (``train_full`` first) and
+``dryrun_fit`` (both full runs first).
 """
 
 from __future__ import annotations
@@ -2979,11 +3003,55 @@ def _dp_step(model, init, batch, mesh, lr):
     model.load_state_dict(init)
     seen = []
     step = make_train_step(model, opt.OptConfig(lr=lr), mesh=mesh,
+                           placement="replicated",
                            grad_transform=lambda g: seen.append(g) or g)
     m = step(opt.init(dict(model.named_parameters())), batch)
     metrics = {k: float(m[k]) for k in ("loss", "aux", "grad_norm", "lr")}
     return metrics, seen[0], {k: p.detach().clone()
                               for k, p in model.named_parameters()}
+
+
+def _against_one_device(tag, one, other, step_lr):
+    """``train_dp_parity``'s tolerances, one step of another layout
+    (metrics, whole gradients, whole updated parameters) against the
+    one-device step's; returns the case's numbers."""
+    (m1, g1, p1), (m2, g2, p2) = one, other
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    check(rel(m2["loss"], m1["loss"]) <= 1e-3,
+          f"{tag}: loss {m2['loss']} vs {m1['loss']}")
+    check(rel(m2["aux"], m1["aux"]) <= 1e-3,
+          f"{tag}: aux {m2['aux']} vs {m1['aux']}")
+    check(rel(m2["grad_norm"], m1["grad_norm"]) <= GRAD_TOL,
+          f"{tag}: grad norm {m2['grad_norm']} vs {m1['grad_norm']}")
+    worst_g, worst_leaf, worst_p, loose = 0.0, None, 0.0, 0
+    for k, want in g1.items():
+        w = want.float()
+        scale = float(w.abs().max())
+        e = float((g2[k].float() - w).abs().max())
+        check(e <= GRAD_TOL * scale, f"{tag} grad {k}: {e} > "
+                                     f"{GRAD_TOL}·{scale}")
+        if e / max(scale, 1e-30) > worst_g:
+            worst_g, worst_leaf = e / max(scale, 1e-30), k
+        tight = w.abs() > GRAD_TOL * scale
+        a, b = p2[k].float(), p1[k].float()
+        err = (a - b).abs()
+        lim = 1e-6 + 2 ** -7 * torch.maximum(a.abs(), b.abs())
+        check(bool((err[tight] <= lim[tight]).all()),
+              f"{tag} {k}: updated parameters off by "
+              f"{float(err[tight].max())}")
+        check(bool((err[~tight] <= 2 * step_lr + lim[~tight]).all()),
+              f"{tag} {k}: loose elements off by more than 2·lr")
+        loose += int((~tight).sum())
+        if bool(tight.any()):
+            worst_p = max(worst_p, float((err[tight] / lim[tight]).max()))
+    return {"loss": m2["loss"], "aux": m2["aux"],
+            "grad_norm": m2["grad_norm"],
+            "loss_rel_err": rel(m2["loss"], m1["loss"]),
+            "aux_rel_err": rel(m2["aux"], m1["aux"]),
+            "grad_norm_rel_err": rel(m2["grad_norm"], m1["grad_norm"]),
+            "max_rel_grad_err": worst_g, "worst_leaf": worst_leaf,
+            "param_tight_worst_share_of_tol": worst_p,
+            "param_loose_elements": loose}
 
 
 def phase_train_dp_parity(card: str) -> None:
@@ -2993,8 +3061,8 @@ def phase_train_dp_parity(card: str) -> None:
     qwen3-moe-30b-a3b at their published widths cut to 2 layers, bf16,
     8 × 128 tokens.  Tolerances, those of ``train_parity`` (the shards'
     GEMMs have other shapes than the whole batch's, so their bf16
-    outputs round differently, and each shard's bf16 gradient is
-    rounded before the all-reduce): loss and aux loss within 1e-3
+    outputs round differently, and the shards' bf16 gradients are
+    summed in bf16): loss and aux loss within 1e-3
     relative, the grad norm within 2⁻⁵ relative, every leaf's gradient
     within 2⁻⁵·max|g| of the leaf; the updated bf16 parameters under the
     Adam rule at bf16 width: Adam's first step moves an element by about
@@ -3023,48 +3091,10 @@ def phase_train_dp_parity(card: str) -> None:
             m2, g2, p2 = _dp_step(model, init, batch,
                                   make_host_mesh(data=shards), lr)
             peak = torch.cuda.max_memory_allocated()
-            rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
-            check(rel(m2["loss"], m1["loss"]) <= 1e-3,
-                  f"{arch} data={shards}: loss {m2['loss']} vs {m1['loss']}")
-            check(rel(m2["aux"], m1["aux"]) <= 1e-3,
-                  f"{arch} data={shards}: aux {m2['aux']} vs {m1['aux']}")
-            check(rel(m2["grad_norm"], m1["grad_norm"]) <= GRAD_TOL,
-                  f"{arch} data={shards}: grad norm {m2['grad_norm']} vs "
-                  f"{m1['grad_norm']}")
-            worst_g, worst_leaf, worst_p, loose = 0.0, None, 0.0, 0
-            for k, want in g1.items():
-                w = want.float()
-                scale = float(w.abs().max())
-                e = float((g2[k].float() - w).abs().max())
-                check(e <= GRAD_TOL * scale,
-                      f"{arch} data={shards} grad {k}: {e} > "
-                      f"{GRAD_TOL}·{scale}")
-                if e / max(scale, 1e-30) > worst_g:
-                    worst_g, worst_leaf = e / max(scale, 1e-30), k
-                tight = w.abs() > GRAD_TOL * scale
-                a, b = p2[k].float(), p1[k].float()
-                err = (a - b).abs()
-                lim = 1e-6 + 2 ** -7 * torch.maximum(a.abs(), b.abs())
-                check(bool((err[tight] <= lim[tight]).all()),
-                      f"{arch} data={shards} {k}: updated parameters off "
-                      f"by {float(err[tight].max())}")
-                check(bool((err[~tight] <= 2 * step_lr + lim[~tight]).all()),
-                      f"{arch} data={shards} {k}: loose elements off by "
-                      "more than 2·lr")
-                loose += int((~tight).sum())
-                if bool(tight.any()):
-                    worst_p = max(worst_p, float((err[tight] / lim[tight]
-                                                  ).max()))
-            cases[f"data={shards}"] = {
-                "loss": m2["loss"], "aux": m2["aux"],
-                "grad_norm": m2["grad_norm"],
-                "loss_rel_err": rel(m2["loss"], m1["loss"]),
-                "aux_rel_err": rel(m2["aux"], m1["aux"]),
-                "grad_norm_rel_err": rel(m2["grad_norm"], m1["grad_norm"]),
-                "max_rel_grad_err": worst_g, "worst_leaf": worst_leaf,
-                "param_tight_worst_share_of_tol": worst_p,
-                "param_loose_elements": loose,
-                "peak_memory_allocated": peak}
+            cases[f"data={shards}"] = _against_one_device(
+                f"{arch} data={shards}", (m1, g1, p1), (m2, g2, p2),
+                step_lr)
+            cases[f"data={shards}"]["peak_memory_allocated"] = peak
             del g2, p2
             torch.cuda.empty_cache()
         emit(phase="train_dp_parity", card=card, arch=arch,
@@ -3079,7 +3109,7 @@ def phase_train_dp_parity(card: str) -> None:
                  "larger) + 1e-6, the others 2·lr more",
              why="the shards' GEMMs round their bf16 outputs differently "
                  "from the whole batch's, and each shard's bf16 gradient "
-                 "is rounded before the all-reduce",
+                 "are summed in bf16",
              seconds=time.perf_counter() - t0)
         del model, init, g1, p1
         torch.cuda.empty_cache()
@@ -3099,25 +3129,26 @@ def _timed(fn, spans):
 
 
 def train_dp_full_child(card: str, results=None) -> None:
-    """``launch.train.run`` on qwen3-4b at full width and depth with a
-    ``make_host_mesh(data=2)`` mesh (two batch shards on the card, one
-    replica), the launcher's defaults otherwise (bf16, remat, 8 × 128),
-    10 steps, in its own process.  Then, past the timed steps: one more
-    step with the gradient all-reduce and the update timed by CUDA
-    events (their calls summed), and one under the profiler."""
+    """``launch.train.run`` on qwen3-4b at full width and depth with
+    ``--placement replicated`` over a ``make_host_mesh(data=2)`` mesh
+    (two batch shards on the card, one replica, whose ``.grad`` sums
+    both shards' gradients in the backward: no all-reduce runs on one
+    card), the launcher's defaults otherwise (bf16, remat, 8 × 128), 10
+    steps, in its own process.  Then, past the timed steps: one more
+    step with the update timed by CUDA events (its calls summed), and
+    one under the profiler."""
     import contextlib
     import io
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import optimizer as opt
-    from repro_torch.train import step as step_mod
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     args = launch_train.parse_args(
         ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
          "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-         "--log-every", "1"])
+         "--log-every", "1", "--placement", "replicated"])
     mesh = make_host_mesh(data=2)
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -3135,13 +3166,12 @@ def train_dp_full_child(card: str, results=None) -> None:
     flop = train_flops(run.cfg, n, TRAIN_BATCH, TRAIN_SEQ)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     batch = run.pipe.batch_at(TRAIN_STEPS)
-    spans = {"all_reduce": [], "update": []}
-    update, reduce_ = opt.update, step_mod.all_reduce_mean
+    spans = {"update": []}
+    update = opt.update
     opt.update = _timed(update, spans["update"])
-    step_mod.all_reduce_mean = _timed(reduce_, spans["all_reduce"])
     run.step_fn(run.opt_state, batch)
     torch.cuda.synchronize()
-    opt.update, step_mod.all_reduce_mean = update, reduce_
+    opt.update = update
     span_ms = {k: sum(a.elapsed_time(b) for a, b in v)
                for k, v in spans.items()}
     prof = {}
@@ -3149,15 +3179,13 @@ def train_dp_full_child(card: str, results=None) -> None:
         lambda: run.step_fn(run.opt_state, batch), prof)
     out = {"mesh": dict(run.mesh.shape),
            "devices": sorted({str(d) for d in run.mesh.devices.flat}),
-           "replicas": len(run.step_fn.replicas), "params": n,
+           "slots": len(run.step_fn.slots), "params": n,
            "loss": losses, "grad_norm": gnorms,
            "step_ms": [h["ms"] for h in hist], "step_ms_p50": step_ms,
            "tokens_per_s": tokens / step_ms * 1e3,
            "model_tflops": flop / step_ms / 1e9,
            "mfu": flop / (step_ms / 1e3) / PEAK_BF16,
            "peak_memory_allocated": peak, "run_s": wall_s,
-           "all_reduce_ms": span_ms["all_reduce"],
-           "all_reduce_calls": len(spans["all_reduce"]),
            "update_ms": span_ms["update"],
            "profiled_step_wall_ms": wall_ms, "profiled_step_busy_ms": busy,
            "profiled_step_idle_share": None if busy is None
@@ -3243,6 +3271,267 @@ def phase_psum(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# FSDP placement — parameters and moments cut over the data axis — and
+# the dry run's memory reckoning beside the measured peaks
+# --------------------------------------------------------------------- #
+
+def _fsdp_step(cfg, init, batch, mesh, lr):
+    """One FSDP step of a fresh model loaded with ``init`` over ``mesh``:
+    (metrics as floats, the whole gradients the update took, the whole
+    updated parameters, what each slot holds between steps)."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    model = LM(cfg, device="cuda", seed=3)
+    model.load_state_dict(init)
+    grads = {}
+
+    def keep(g):
+        # slot 0 holds a shard of every cut leaf and every replicated one
+        if not grads:
+            grads.update({k: fsdp.whole(t) for k, t in g.items()})
+        return g
+
+    step = make_train_step(model, opt.OptConfig(lr=lr), mesh=mesh,
+                           placement="fsdp", grad_transform=keep)
+    ostate = opt.init(dict(model.named_parameters()))
+    m = step(ostate, batch)
+    metrics = {k: float(m[k]) for k in ("loss", "aux", "grad_norm", "lr")}
+    params = {k: fsdp.whole(p).detach().clone()
+              for k, p in model.named_parameters()}
+    n = mesh.size
+    held = {"sharded_leaves": 0, "sharded_bytes": 0, "replicated_bytes": 0}
+    for s, module in enumerate(step.slots):
+        for k, p in module.named_parameters():
+            g = fsdp.group(p)
+            whole = params[k].shape
+            if g is None:
+                check(p.shape == whole, f"slot {s} {k}: {tuple(p.shape)}")
+                if s == 0:
+                    held["replicated_bytes"] += p.numel() * p.element_size()
+                continue
+            # no cut leaf held whole between steps: weights and moments
+            cut = list(whole)
+            cut[g.dim] //= n
+            check(list(p.shape) == cut and g.shards[s] is p,
+                  f"slot {s} {k}: {tuple(p.shape)}, not the shard {cut}")
+            for part in ("m", "v"):
+                mg = fsdp.group(ostate[part][k])
+                check(mg is not None and all(
+                    list(t.shape) == cut for t in mg.shards),
+                    f"{k}: the {part} moments are not cut")
+            if s == 0:
+                held["sharded_leaves"] += 1
+            held["sharded_bytes"] += p.numel() * p.element_size()
+    del step, model, ostate
+    return metrics, grads, params, held
+
+
+def phase_train_fsdp_parity(card: str) -> None:
+    """The FSDP step over ``make_host_mesh(data=2)`` and ``(data=4)`` —
+    every slot's shards on the card — against the one-device step from
+    the same weights and batch, ``train_dp_parity``'s shape and
+    tolerances (qwen3-4b and qwen3-moe-30b-a3b at their published widths
+    cut to 2 layers, bf16, 8 × 128 tokens: loss and aux loss within 1e-3
+    relative, the grad norm within 2⁻⁵ relative, every leaf's gradient
+    within 2⁻⁵·max|g|, the updated parameters under the Adam rule at
+    bf16 width); and no cut leaf, weight or moment, held whole by any
+    slot between steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import LM
+    rng = np.random.default_rng(17)
+    lr = 1e-3
+    for arch in DP_ARCHS:
+        cfg = get_config(arch).replace(num_layers=2)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (DP_BATCH, DP_SEQ)
+                                        ).astype(np.int32)}
+        t0 = time.perf_counter()
+        model = LM(cfg, device="cuda", seed=3)
+        init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        n = sum(p.numel() for p in init.values())
+        m1, g1, p1 = _dp_step(model, init, batch, None, lr)
+        del model
+        cases = {}
+        for shards in DP_SHARDS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            m2, g2, p2, held = _fsdp_step(cfg, init, batch,
+                                          make_host_mesh(data=shards), lr)
+            peak = torch.cuda.max_memory_allocated()
+            case = _against_one_device(f"{arch} fsdp data={shards}",
+                                       (m1, g1, p1), (m2, g2, p2), m1["lr"])
+            case.update(held, peak_memory_allocated=peak)
+            cases[f"data={shards}"] = case
+            del g2, p2
+        emit(phase="train_fsdp_parity", card=card, arch=arch,
+             case=f"{arch} 2 layers, bf16, full width", params=n,
+             tokens=[DP_BATCH, DP_SEQ], lr=m1["lr"],
+             one_device={"loss": m1["loss"], "aux": m1["aux"],
+                         "grad_norm": m1["grad_norm"]},
+             shards=cases,
+             tol=f"train_dp_parity's: loss and aux 1e-3 relative, grad "
+                 f"norm {GRAD_TOL} relative, {GRAD_TOL}·max|g| a leaf; "
+                 "parameters one bf16 ulp + 1e-6, loose ones 2·lr more",
+             seconds=time.perf_counter() - t0)
+        del init, g1, p1
+        torch.cuda.empty_cache()
+
+
+def train_fsdp_full_child(card: str, results=None) -> None:
+    """``launch.train.run`` on qwen3-4b at full width and depth with
+    ``--placement fsdp`` over ``make_host_mesh(data=2)`` (two slots on
+    the card, each holding half of every cut leaf and of its moments),
+    the launcher's defaults otherwise (bf16, remat, 8 × 128), 10 steps,
+    in its own process.  Then one more step with the layer gathers, the
+    gradient reduce-scatters (the gathers' backward) and the update
+    timed by CUDA events (their calls summed), and one under the
+    profiler."""
+    import contextlib
+    import io
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import optimizer as opt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    args = launch_train.parse_args(
+        ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
+         "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+         "--log-every", "1", "--placement", "fsdp"])
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        run = launch_train.run(args, mesh=make_host_mesh(data=2))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = run.history
+    losses = [h["loss"] for h in hist]
+    gnorms = [float(h["metrics"]["grad_norm"]) for h in hist]
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"non-finite train metrics: {losses} {gnorms}")
+    step_ms = float(np.median([h["ms"] for h in hist[TRAIN_WARM:]]))
+    n = sum(fsdp.whole(p, "meta").numel() for p in run.model.parameters())
+    flop = train_flops(run.cfg, n, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batch = run.pipe.batch_at(TRAIN_STEPS)
+    spans = {"gather": [], "reduce_scatter": [], "update": []}
+    fwd, bwd, update = fsdp._Gather.forward, fsdp._Gather.backward, \
+        opt.update
+    fsdp._Gather.forward = staticmethod(_timed(fwd, spans["gather"]))
+    fsdp._Gather.backward = staticmethod(_timed(bwd,
+                                                spans["reduce_scatter"]))
+    opt.update = _timed(update, spans["update"])
+    run.step_fn(run.opt_state, batch)
+    torch.cuda.synchronize()
+    fsdp._Gather.forward, fsdp._Gather.backward = (staticmethod(fwd),
+                                                   staticmethod(bwd))
+    opt.update = update
+    span_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+               for k, v in spans.items()}
+    prof = {}
+    wall_ms, busy, top = device_profile(
+        lambda: run.step_fn(run.opt_state, batch), prof)
+    cut = [p for p in run.model.parameters() if fsdp.group(p) is not None]
+    out = {"mesh": dict(run.mesh.shape),
+           "devices": sorted({str(d) for d in run.mesh.devices.flat}),
+           "slots": len(run.step_fn.slots), "params": n,
+           "cut_leaves": len(cut),
+           "cut_share": sum(fsdp.whole(p, "meta").numel() for p in cut) / n,
+           "loss": losses, "grad_norm": gnorms,
+           "step_ms": [h["ms"] for h in hist], "step_ms_p50": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "model_tflops": flop / step_ms / 1e9,
+           "mfu": flop / (step_ms / 1e3) / PEAK_BF16,
+           "peak_memory_allocated": peak, "run_s": wall_s,
+           "gather_ms": span_ms["gather"],
+           "gather_calls": len(spans["gather"]),
+           "reduce_scatter_ms": span_ms["reduce_scatter"],
+           "reduce_scatter_calls": len(spans["reduce_scatter"]),
+           "update_ms": span_ms["update"],
+           "update_calls": len(spans["update"]),
+           "profiled_step_wall_ms": wall_ms, "profiled_step_busy_ms": busy,
+           "profiled_step_idle_share": None if busy is None
+           else 1 - busy / wall_ms,
+           "kernels_per_step": prof["device_kernels"],
+           "launch_calls": {k: v["count"] for k, v in prof.items()
+                            if k != "device_kernels"}, "top": top,
+           "log": log.getvalue().splitlines()}
+    if results is not None:
+        results.put(out)
+
+
+def phase_train_fsdp_full(card: str) -> None:
+    """``train_fsdp_full_child`` in a spawned process, beside
+    ``train_full``'s numbers from this run (``train_full`` runs first if
+    it has not): step ms p50, tokens/s,
+    ``mfu``, the gathers' and reduce-scatters' ms, kernels a step, peak
+    memory (must fit 80 GB); the first two steps' losses equal
+    ``train_full``'s within ``train_dp_full``'s tolerances."""
+    if "train_full" not in TRAIN_RESULTS:
+        phase_train_full(card)
+    one = TRAIN_RESULTS["train_full"]
+    cut = run_child(train_fsdp_full_child, card, "train_fsdp_full_child")
+    TRAIN_RESULTS["train_fsdp_full"] = cut
+    errs = [abs(a - b) / abs(b) for a, b in zip(cut["loss"][:2],
+                                                one["loss"][:2])]
+    for i, (e, tol) in enumerate(zip(errs, DP_LOSS_TOL)):
+        check(e <= tol, f"train_fsdp_full step {i}: loss {cut['loss'][i]} "
+                        f"vs train_full's {one['loss'][i]} (> {tol})")
+    check(cut["peak_memory_allocated"] < 80e9,
+          f"peak memory {cut['peak_memory_allocated']} does not fit 80 GB")
+    emit(phase="train_fsdp_full", card=card, arch=LM_ARCH,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+         step_ms_steps=f"{TRAIN_WARM + 1}-{TRAIN_STEPS}",
+         loss_rel_err_steps_0_1=errs,
+         loss_tol=f"{DP_LOSS_TOL[0]} (step 0), {DP_LOSS_TOL[1]} (step 1) "
+                  "relative",
+         **cut, one_device={k: one[k] for k in (
+             "step_ms_p50", "tokens_per_s", "mfu", "peak_memory_allocated",
+             "loss")})
+
+
+def phase_dryrun_fit(card: str) -> None:
+    """The dry run (``launch.dryrun``: the port's step on fake tensors
+    under ``MemTracker``, no allocation) on ``train_full``'s cell
+    (qwen3-4b, 8 × 128, one card, remat, fp32 moments) and on
+    ``train_fsdp_full``'s (the same over two slots on the card), its
+    reckoned peak beside the peak ``torch.cuda.max_memory_allocated``
+    measured in those phases of this run (they run first if they have
+    not), and its state bytes beside theirs."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    if "train_full" not in TRAIN_RESULTS:
+        phase_train_full(card)
+    if "train_fsdp_full" not in TRAIN_RESULTS:
+        phase_train_fsdp_full(card)
+    shape = ShapeSpec("train_full", "train", TRAIN_SEQ, TRAIN_BATCH)
+    cells = {}
+    for tag, mesh in (("train_full", "1x1"), ("train_fsdp_full", Mesh(
+            np.full((2, 1), torch.device("cuda", 0), dtype=object),
+            ("data", "model")))):
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(LM_ARCH, shape, mesh, device="cuda")
+        fake = rec["peak_bytes"]["cuda:0"]
+        measured = TRAIN_RESULTS[tag]["peak_memory_allocated"]
+        cells[tag] = {"mesh": rec["mesh"], "fake_peak_bytes": fake,
+                      "measured_peak_bytes": measured,
+                      "fake_over_measured": fake / measured,
+                      "state_bytes": rec["state_bytes"],
+                      "collective_bytes": rec["collectives"]["total_bytes"],
+                      "roofline_s": rec["roofline_s"],
+                      "seconds": time.perf_counter() - t0}
+    emit(phase="dryrun_fit", card=card, arch=LM_ARCH,
+         tokens=[TRAIN_BATCH, TRAIN_SEQ], cells=cells,
+         how="launch.dryrun.lower_cell on fake cuda tensors (FakeTensorMode "
+             "+ MemTracker), no card memory used; measured: "
+             "torch.cuda.max_memory_allocated of the phase's process")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3261,7 +3550,8 @@ def main() -> int:
     if PHASES is not None:
         if "edges" in PHASES:
             phase_edges()
-        for name, phase in {**TRAIN_PHASES, **DP_PHASES}.items():
+        for name, phase in {**TRAIN_PHASES, **DP_PHASES,
+                            **FSDP_PHASES}.items():
             if name in PHASES:
                 phase(card)
         emit(phase="done", partial=sorted(PHASES),
@@ -3322,6 +3612,10 @@ def run_index_phases(card, lm_run):
     torch.cuda.empty_cache()
     phase_graphs()
     torch.cuda.empty_cache()
+    # while the LM index builds in its child (one host core): the FSDP
+    # phases report no parent-process host time but their own child's
+    for phase in FSDP_PHASES.values():
+        phase(card)
     launches, shapes = phase_lm_serve(card, lm_run)
     phase_lm_profile(card)
     for line in kernels:
@@ -3338,14 +3632,20 @@ TRAIN_PHASES = {"train_parity": phase_train_parity,
 DP_PHASES = {"train_dp_parity": phase_train_dp_parity,
              "train_dp_full": phase_train_dp_full,
              "psum": phase_psum}
+FSDP_PHASES = {"train_fsdp_parity": phase_train_fsdp_parity,
+               "train_fsdp_full": phase_train_fsdp_full,
+               "dryrun_fit": phase_dryrun_fit}
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phases":
         PHASES = set(sys.argv[2].split(","))
-        check(PHASES <= {"build", "edges", *TRAIN_PHASES, *DP_PHASES},
-              f"--phases takes build, edges, {sorted(TRAIN_PHASES)} and "
-              f"{sorted(DP_PHASES)}, not {sorted(PHASES)}")
+        check(PHASES <= {"build", "edges", *TRAIN_PHASES, *DP_PHASES,
+                         *FSDP_PHASES},
+              f"--phases takes build, edges, {sorted(TRAIN_PHASES)}, "
+              f"{sorted(DP_PHASES)} and {sorted(FSDP_PHASES)}, not "
+              f"{sorted(PHASES)}")
     elif len(sys.argv) != 1:
         sys.exit("usage: chip_smoke.py [--phases build,edges,"
-                 + ",".join([*TRAIN_PHASES, *DP_PHASES]) + "]")
+                 + ",".join([*TRAIN_PHASES, *DP_PHASES, *FSDP_PHASES])
+                 + "]")
     sys.exit(main())

@@ -1,5 +1,6 @@
 """Activation-sharding context — the pins at the reference's layer
-boundaries.  Port of ``src/repro/distributed/actctx.py`` without JAX.
+boundaries and the per-layer FSDP all-gather.  Port of
+``src/repro/distributed/actctx.py`` without JAX.
 
 In the reference, ``shard(x, kind)`` is a ``with_sharding_constraint``
 that tells GSPMD how an activation is laid out over the mesh, and
@@ -8,12 +9,16 @@ layout.  The port places nothing by a pin: the data-parallel train step
 (``train.step``) cuts the batch into shards itself and runs each
 shard's forward on its device.  So here a pin is a check: under that
 step, ``shard`` verifies that ``x`` is the local shard its spec
-implies (its rows, its other axes, its device) and returns it.
+implies (its rows, its other axes, its device) and returns it.  With
+``gather_rules`` set (FSDP placement, ``distributed.fsdp``),
+``gather_params`` is the all-gather itself: every sharded leaf of the
+layer is concatenated from its owners onto the calling shard's device,
+and its backward reduce-scatters the cotangent to them.
 
 State is set by the launcher (``configure``, ``use``) and by the step
-around each shard's forward (``local_shard``).  Without a configured
-mesh — every serving path, every one-device run — ``shard`` and
-``gather_params`` return their input after one dictionary lookup.
+around each shard's forward and backward (``local_shard``).  Without a
+configured mesh — every serving path, every one-device run — ``shard``
+and ``gather_params`` return their input after one dictionary lookup.
 """
 
 from __future__ import annotations
@@ -21,24 +26,30 @@ from __future__ import annotations
 from contextlib import contextmanager
 from typing import Optional, Tuple
 
+import torch
+from torch import nn
+
+from . import fsdp
 from .sharding import P
 
-_STATE = {"mesh": None, "dp": None, "tp": "model", "local": None}
+_STATE = {"mesh": None, "dp": None, "tp": "model", "gather_rules": None,
+          "local": None}
 
 
-def configure(mesh, dp: Optional[Tuple[str, ...]], tp: str = "model"
-              ) -> None:
-    """The mesh, its data-parallel axes and its TP axis (the
-    reference's ``gather_rules`` come with FSDP placement)."""
+def configure(mesh, dp: Optional[Tuple[str, ...]], tp: str = "model",
+              gather_rules=None) -> None:
+    """The mesh, its data-parallel axes, its TP axis and, under FSDP
+    placement, the ``ShardingRules`` the leaves were placed by."""
     _STATE["mesh"] = mesh
     _STATE["dp"] = dp
     _STATE["tp"] = tp
+    _STATE["gather_rules"] = gather_rules
 
 
 @contextmanager
-def use(mesh, dp, tp: str = "model"):
+def use(mesh, dp, tp: str = "model", gather_rules=None):
     old = dict(_STATE)
-    configure(mesh, dp, tp)
+    configure(mesh, dp, tp, gather_rules)
     try:
         yield
     finally:
@@ -59,10 +70,31 @@ def local_shard(split: int, device):
 
 
 def gather_params(tree):
-    """The reference's per-layer FSDP all-gather.  Every device holds a
-    full replica of the weights (the port has no FSDP placement yet), so
-    the gathered layout is the held one and this returns ``tree``."""
-    return tree
+    """The reference's per-layer FSDP all-gather.  With ``gather_rules``
+    and a mesh configured: ``tree`` (a layer's ``ParamTree``, or a dict
+    or list of its parts) as nested dicts and lists whose leaves that
+    FSDP placement cut (``fsdp.group``) are gathered whole onto the
+    calling shard's device, along the axis ``gathered_rule`` releases
+    (``fsdp.gather``: its backward is the gradient reduce-scatter); the
+    leaves the spec tables replicate pass through.  Otherwise ``tree``
+    itself.  Called inside the region ``layers.remat`` recomputes, so no
+    layer's gathered weights outlive the layer."""
+    if _STATE["gather_rules"] is None or _STATE["mesh"] is None:
+        return tree
+    local = _STATE["local"]
+    device = None if local is None else local[1]
+
+    def one(node):
+        if isinstance(node, torch.Tensor):
+            return fsdp.gather(node, node.device if device is None
+                               else device)
+        if isinstance(node, (list, tuple, nn.ModuleList)):
+            return [one(v) for v in node]
+        if isinstance(node, dict):
+            return {k: one(v) for k, v in node.items()}
+        return {k: one(v) for k, v in (*node.named_parameters(recurse=False),
+                                       *node.named_children())}
+    return one(tree)
 
 
 def _size(mesh, axes) -> int:

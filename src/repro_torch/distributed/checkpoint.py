@@ -36,7 +36,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.convert import BF16_RAW, to_numpy, to_tensor
+from . import fsdp
+from ..models.convert import (BF16_RAW, from_reference_state, to_numpy,
+                              to_tensor)
 
 
 def save_vectormaton(vm, path: str,
@@ -289,10 +291,13 @@ class CheckpointManager:
     A data-parallel run (``train.step`` over a mesh) saves one replica,
     the one on the mesh's first device: every replica holds the same
     weights and moments, as the reference's replicated arrays are saved
-    once.  So the layout does not depend on the mesh, and a run on one
-    device and a run over any data mesh resume from each other's
-    checkpoints (the step copies the restored state to its other
-    replicas at its next call)."""
+    once.  An FSDP run saves whole leaves too, each gathered from its
+    shards' owners (``convert.to_numpy``).  So the layout does not
+    depend on the mesh, and a run on one device and a run over any data
+    mesh, either placement, resume from each other's checkpoints:
+    ``restore_train_state`` scatters every leaf into the shards of the
+    model it resumes (the step copies the replicated leaves to its other
+    devices at its next call)."""
 
     def __init__(self, directory: str, keep: int = 3) -> None:
         self.directory = directory
@@ -378,6 +383,25 @@ class CheckpointManager:
                 t = to_tensor(a)
                 flat[k] = t if device is None else t.to(device)
         return _unflatten(flat)
+
+    def restore_train_state(self, model, step: Optional[int] = None):
+        """Resume ``model`` (an ``LM`` or ``EncDec``, placed or not) from
+        checkpoint ``step`` (default latest): its parameters are loaded
+        in place — an FSDP-placed model's cut into its shards, over
+        whatever data count it was placed on (``fsdp.load_whole``) — and
+        its optimizer state is returned with every moment laid out as its
+        parameter is (``fsdp.place_like``) and ``step`` on the model's
+        device.  Returns (opt_state, the checkpoint's ``meta`` step)."""
+        state = self.restore(step)
+        sd, ostate = from_reference_state(model.cfg, state)
+        fsdp.load_whole(model, sd)
+        del sd
+        params = dict(model.named_parameters())
+        opt_state = {part: {k: fsdp.place_like(t, params[k])
+                            for k, t in ostate[part].items()}
+                     for part in ("m", "v")}
+        opt_state["step"] = ostate["step"].to(model.device)
+        return opt_state, int(state["meta"]["step"])
 
 
 __all__ = ["save_vectormaton", "load_checkpoint_meta", "load_vectormaton",

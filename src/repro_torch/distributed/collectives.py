@@ -4,7 +4,11 @@ compression and the all-reduces of the data-parallel step — port of
 
 Wire format: per-tensor symmetric int8 quantization (absmax scale) with
 an error-feedback accumulator, so the quantization residual re-enters
-the next step's gradient.
+the next step's gradient.  The tensor is the reference's leaf: the
+port's per-layer gradients of one stacked leaf (``layers.3.attn.wq``
+for every layer index) share one scale, the absmax over every layer,
+and under FSDP placement over every slot's shard too (one max
+all-reduce a leaf), as GSPMD sees the global array.
 
   * ``compress_decompress(grads)`` — a drop-in ``grad_transform`` for
     ``train.step.make_train_step`` (a mapping of names to gradients):
@@ -30,17 +34,37 @@ from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
+from . import fsdp
+
 f32 = torch.float32
-
-
-def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.max(torch.abs(x)) / 127.0 + 1e-12
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q, scale
 
 
 def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(f32) * scale
+
+
+def _stacked(name: str) -> str:
+    """The reference's leaf of a port gradient's name: the name without
+    its layer indices."""
+    return ".".join(p for p in name.split(".") if not p.isdigit())
+
+
+def _leaf_scales(grads: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """The quantization scale of each gradient: ``max|g|/127 + 1e-12``
+    over its whole reference leaf — every layer's gradient in
+    ``grads``, and every slot's shard of an FSDP-sharded one — on the
+    gradient's device."""
+    amax: Dict[str, torch.Tensor] = {}
+    for k, g in grads.items():
+        g_group = fsdp.group(g)
+        for part in ([g] if g_group is None else g_group.shards):
+            m = torch.max(torch.abs(part.to(f32))).to(g.device)
+            key = _stacked(k)
+            amax[key] = m if key not in amax else torch.maximum(
+                amax[key], m.to(amax[key].device))
+    return {k: (amax[_stacked(k)] / 127.0 + 1e-12).to(g.device)
+            for k, g in grads.items()}
 
 
 def make_error_feedback_transform() -> Tuple[Callable, Callable]:
@@ -55,10 +79,14 @@ def make_error_feedback_transform() -> Tuple[Callable, Callable]:
 
     def transform(grads: Mapping[str, torch.Tensor],
                   ef: Mapping[str, torch.Tensor]):
+        if any(fsdp.group(g) is not None for g in grads.values()):
+            raise NotImplementedError(
+                "error feedback on FSDP-sharded gradients")
+        fed = {k: g.to(f32) + ef[k] for k, g in grads.items()}
         comp, new_ef = {}, {}
-        for k, g in grads.items():
-            g = g.to(f32) + ef[k]
-            q, s = _quantize(g)
+        for k, s in _leaf_scales(fed).items():
+            g = fed[k]
+            q = torch.clamp(torch.round(g / s), -127, 127).to(torch.int8)
             comp[k] = _dequantize(q, s)
             new_ef[k] = g - comp[k]
         return comp, new_ef
@@ -69,10 +97,13 @@ def make_error_feedback_transform() -> Tuple[Callable, Callable]:
 def compress_decompress(grads: Mapping[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
     """Stateless wire-format simulation (no error feedback); each
-    gradient keeps its dtype."""
+    gradient keeps its dtype.  One scale a reference leaf
+    (``_leaf_scales``): the absmax over its layers and its shards."""
     out = {}
-    for k, g in grads.items():
-        q, s = _quantize(g.to(f32))
+    for k, s in _leaf_scales(grads).items():
+        g = grads[k]
+        q = torch.clamp(torch.round(g.to(f32) / s), -127, 127
+                        ).to(torch.int8)
         out[k] = _dequantize(q, s).to(g.dtype)
     return out
 

@@ -22,10 +22,12 @@ last dict key on its path, as the reference's ``DictKey`` lookup does.
 The mesh is anything with a ``shape`` mapping of axis sizes and
 ``axis_names``: ``launch.mesh.Mesh`` here.
 
-The port places no parameter by these tables yet: the data-parallel
-train step (``train.step``) keeps one full replica of the weights a
-device and uses ``batch_specs`` to split the batch.  ``param_specs``
-and ``gathered_rule`` are what FSDP placement will read.
+The data-parallel train step (``train.step``) splits the batch by
+``batch_specs``; with ``placement="fsdp"`` it also places the
+parameters and moments by ``param_specs`` / ``opt_specs`` and gathers
+each layer along the axis ``gathered_rule`` releases
+(``distributed.fsdp``).  The dry run (``launch.dryrun``) reckons
+per-device state bytes from the same tables on any layout.
 """
 
 from __future__ import annotations

@@ -18,7 +18,11 @@ machine every shard is on that card.  ``make_host_mesh(data=4,
 device="cuda:0")`` (or ``device="cpu"``) puts every shard on one device
 on any machine.
 
-``make_production_mesh`` (the TPU pod's 16 × 16 grid) is not ported.
+``make_production_mesh`` gives the reference's production layouts,
+``(16, 16)`` over ``("data", "model")`` and ``(2, 16, 16)`` over
+``("pod", "data", "model")``, with a placeholder ``meta`` device in
+every slot: a layout for the spec tables and the dry run
+(``launch.dryrun``), not a set of cards.
 """
 
 from __future__ import annotations
@@ -87,6 +91,14 @@ class Mesh:
                 f"devices={sorted({str(d) for d in self.devices.flat})})")
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh shape and axis names, every slot
+    a placeholder ``torch.device("meta")``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(np.full(shape, torch.device("meta"), dtype=object), axes)
+
+
 def make_host_mesh(data: int = 1, model: int = 1,
                    device: str = "cuda") -> Mesh:
     """A ``(data, model)`` mesh.  ``device="cuda"`` (no index) lays the
@@ -125,4 +137,4 @@ def axis_size(mesh: Mesh, names) -> int:
     return out
 
 
-__all__ = ["Mesh", "make_host_mesh", "dp_axes", "axis_size"]
+__all__ = ["Mesh", "make_production_mesh", "make_host_mesh", "dp_axes", "axis_size"]

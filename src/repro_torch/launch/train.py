@@ -9,15 +9,21 @@ Runs any registered arch (full or --smoke reduced config) on the
 available devices, as the reference does: a ``(data, model=1)`` mesh
 over every visible card (``launch.mesh.make_host_mesh``), its
 ``ShardingRules``, the activation pins configured (``actctx``), and the
-data-parallel train step over that mesh, one replica of the weights and
-moments a card (on the CPU, or on a one-card machine, one device: the
-plain step).  With microbatch accumulation, async checkpointing every
---ckpt-every steps (in the reference's layout, one replica, so either
-package, and a run on any number of devices, resumes from it),
-resume-from-latest, straggler monitoring, and optional int8 gradient
-compression.  ``run(args, mesh=...)`` trains over another mesh, such as
+data-parallel train step over that mesh with the parameters and AdamW
+moments placed by the spec tables (``--placement fsdp``: each layer
+weight cut over the cards, gathered layer by layer inside the
+recomputed region; the reference's ``param_shardings``).  On the CPU,
+or on a one-card machine, the mesh is one slot: the plain step.  With
+microbatch accumulation, async checkpointing every --ckpt-every steps
+(in the reference's layout, whole leaves gathered from their shards, so
+either package, and a run on any number of devices, resumes from it;
+a resume scatters them into the shards), resume-from-latest, straggler
+monitoring, and optional int8 gradient compression.
+
+``run(args, mesh=...)`` trains over another mesh, such as
 ``make_host_mesh(data=2, device="cuda:0")``, two batch shards on one
-card.
+card.  ``--placement replicated`` keeps one replica of the weights and
+moments a device instead.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from ..distributed.checkpoint import CheckpointManager
 from ..distributed.collectives import compress_decompress
 from ..distributed.elastic import StragglerMonitor
 from ..distributed.sharding import ShardingRules
-from ..models.convert import from_reference_state, to_reference_state
+from ..models.convert import to_reference_state
 from ..models.encdec import EncDec
 from ..models.transformer import LM
 from ..train import optimizer as opt
@@ -60,17 +66,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--placement", choices=("fsdp", "replicated"),
+                    default="fsdp",
+                    help="parameters and moments over the data axis: cut "
+                         "by the spec tables (the reference launcher's "
+                         "layout) or one replica a device")
     return ap.parse_args(argv)
 
 
 def run(args: argparse.Namespace, mesh=None) -> types.SimpleNamespace:
     """Train as ``args`` say, over ``mesh`` — by default the reference
     launcher's: ``data`` = every visible card when ``args.device`` is
-    ``cuda``, ``model`` = 1 (one slot on the CPU or a named card);
-    returns the model (the replica on the mesh's first device), the
-    optimizer state, the step function, the pipeline, the mesh and the
-    history (one dict a step: ``step``, ``loss``, ``ms``, and
-    ``metrics``, the step's device scalars)."""
+    ``cuda``, ``model`` = 1 (one slot on the CPU or a named card), FSDP
+    placement; returns the model (the module on the mesh's first
+    device), the optimizer state (that device's), the step function, the
+    pipeline, the mesh and the history (one dict a step: ``step``,
+    ``loss``, ``ms``, and ``metrics``, the step's device scalars).
+
+    Under FSDP placement the model's sharded leaves, and their moments,
+    are the first device's shards; the step's ``slots`` holds every
+    slot's module.  Whole tensors come back through
+    ``convert.to_reference_state(cfg, dict(run.model.named_parameters()),
+    run.opt_state)``, which gathers each leaf from its owners (the
+    checkpoint's layout), or ``fsdp.whole`` on one of them."""
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if mesh is None:
         dev = torch.device(args.device)
@@ -82,30 +100,22 @@ def run(args: argparse.Namespace, mesh=None) -> types.SimpleNamespace:
     rules = ShardingRules(cfg, mesh)
     model = (EncDec if cfg.is_encoder_decoder else LM)(
         cfg, device=mesh.devices.flat[0], seed=0)
-    params = dict(model.named_parameters())
-    opt_state = opt.init(params)
-
     ocfg = opt.OptConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                          total_steps=args.steps)
     # one slot is one device: the plain step is the data-parallel one
     step_fn = make_train_step(
         model, ocfg, accum_steps=args.accum, remat=True,
         grad_transform=compress_decompress if args.compress_grads else None,
-        mesh=mesh if mesh.size > 1 else None)
+        mesh=mesh if mesh.size > 1 else None, placement=args.placement)
+    # after the step is built: under FSDP the parameters are its shards
+    params = dict(model.named_parameters())
+    opt_state = opt.init(params)
 
     pipe = TokenPipeline(cfg, args.batch, args.seq)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0
     if ckpt and args.resume and ckpt.latest_step() is not None:
-        state = ckpt.restore()
-        sd, ostate = from_reference_state(cfg, state)
-        model.load_state_dict(sd)
-        opt_state = {"m": {k: t.to(model.device)
-                           for k, t in ostate["m"].items()},
-                     "v": {k: t.to(model.device)
-                           for k, t in ostate["v"].items()},
-                     "step": ostate["step"].to(model.device)}
-        start = int(state["meta"]["step"])
+        opt_state, start = ckpt.restore_train_state(model)
         print(f"[train] resumed from step {start}")
 
     def snapshot(step):

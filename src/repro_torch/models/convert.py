@@ -15,7 +15,11 @@ and changes no tensor's per-layer shape.  numpy has no bfloat16 of its
 own: bf16 arrives as ``ml_dtypes.bfloat16`` or as the raw 2-byte
 ``|V2`` that a reference checkpoint restores to, and leaves as ``|V2``
 (``.view(ml_dtypes.bfloat16)`` gives the reference's dtype); the bits
-are copied exactly.  Imports no JAX.
+are copied exactly.  The parameters and moments of an FSDP-placed
+model are shards (``distributed.fsdp``): ``to_numpy``, and so
+``to_reference_params`` and ``to_reference_state``, gather each into
+its whole leaf (pass ``dict(model.named_parameters())``, whose tensors
+carry their shards; ``state_dict()`` detaches them).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from ..distributed import fsdp
 
 
 BF16_RAW = np.dtype("V2")      # a bf16 array's bytes, as numpy holds them
@@ -50,8 +55,10 @@ def to_tensor(a) -> torch.Tensor:
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy of one tensor; bf16 becomes raw ``|V2`` bytes."""
-    t = t.detach().cpu()
+    """A host copy of one tensor; bf16 becomes raw ``|V2`` bytes.  An
+    FSDP shard (``distributed.fsdp``) is gathered: the copy is its whole
+    leaf."""
+    t = fsdp.whole(t, "cpu").detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(BF16_RAW).copy()
     return t.numpy().copy()
@@ -146,15 +153,17 @@ def _nest(sd: Dict[str, torch.Tensor], leaf=to_numpy) -> Dict:
 
 
 class ShapeLeaf:
-    """A leaf of ``reference_shapes``: only a ``shape``."""
+    """A leaf of ``reference_shapes``: a ``shape`` and, where known, a
+    torch ``dtype`` (the counterpart of ``jax.ShapeDtypeStruct``)."""
 
-    __slots__ = ("shape",)
+    __slots__ = ("shape", "dtype")
 
-    def __init__(self, shape):
+    def __init__(self, shape, dtype=None):
         self.shape = tuple(shape)
+        self.dtype = dtype
 
     def __repr__(self) -> str:
-        return f"ShapeLeaf{self.shape}"
+        return f"ShapeLeaf({self.shape}, {self.dtype})"
 
 
 def _stack(entries):
@@ -164,7 +173,7 @@ def _stack(entries):
     if isinstance(first, dict):
         return {k: _stack([e[k] for e in entries]) for k in first}
     if isinstance(first, ShapeLeaf):
-        return ShapeLeaf((len(entries),) + first.shape)
+        return ShapeLeaf((len(entries),) + first.shape, first.dtype)
     return np.stack(entries)
 
 
@@ -196,7 +205,8 @@ def reference_shapes(cfg: ModelConfig, sd: Dict[str, torch.Tensor]
     """``to_reference_params``' tree with ``ShapeLeaf`` leaves in place
     of arrays: the reference's leaf shapes, no tensor copied (what
     ``distributed.sharding.ShardingRules.param_specs`` reads)."""
-    return _stack_layers(cfg, _nest(sd, leaf=lambda t: ShapeLeaf(t.shape)))
+    return _stack_layers(cfg, _nest(
+        sd, leaf=lambda t: ShapeLeaf(t.shape, getattr(t, "dtype", None))))
 
 
 def from_reference_state(cfg: ModelConfig, state: Dict):

@@ -123,10 +123,12 @@ class EncDec(nn.Module):
         """Per-decoder-layer cross K/V, stacked (L, B, S_enc, G, hd)."""
         ks, vs = [], []
         for p in self.dec_layers:
-            ks.append(L.contract(enc_out, p["cross"]["wk"], False
-                                 ).to(self.dtype))
-            vs.append(L.contract(enc_out, p["cross"]["wv"], False
-                                 ).to(self.dtype))
+            # the reference contracts the sharded leaves in place (GSPMD
+            # adds the collective); the port gathers them first
+            p = actctx.gather_params({"wk": p["cross"]["wk"],
+                                      "wv": p["cross"]["wv"]})
+            ks.append(L.contract(enc_out, p["wk"], False).to(self.dtype))
+            vs.append(L.contract(enc_out, p["wv"], False).to(self.dtype))
         return torch.stack(ks), torch.stack(vs)
 
     def decode(self, tokens: torch.Tensor, cross_kv,

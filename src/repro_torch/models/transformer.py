@@ -196,6 +196,7 @@ class LM(nn.Module):
 
     def _attn_layer(self, p, x, positions, window, cache, cache_pos):
         cfg = self.cfg
+        p = actctx.gather_params(p)   # inside the region remat recomputes
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         a, new_cache = L.attention(
             p["attn"], h, positions=positions, window=window,
@@ -256,7 +257,6 @@ class LM(nn.Module):
         aux = self._zero()
         for l, p in enumerate(self.layers):
             x = actctx.shard(x, "btd_sp" if x.shape[1] > 1 else "btd")
-            p = actctx.gather_params(p)
             c = None if cache is None else {"k": cache["k"][l],
                                             "v": cache["v"][l]}
             args = (p, x, positions, self.cfg.layer_window(l, x.shape[1]),
@@ -267,6 +267,7 @@ class LM(nn.Module):
         return x, aux
 
     def _ssm_layer(self, p, x):
+        p = actctx.gather_params(p)   # inside the region remat recomputes
         y, _ = SSM.mamba2_block(p["mamba"],
                                 L.rms_norm(x, p["ln"], self.cfg.norm_eps),
                                 self.cfg)
@@ -277,11 +278,11 @@ class LM(nn.Module):
         for l, p in enumerate(self.layers):
             x = actctx.shard(x, "btd_fsdp" if cache is None
                              or x.shape[1] > 1 else "btd")
-            p = actctx.gather_params(p)
             if cache is None:
                 x = (L.remat(self._ssm_layer, p, x) if remat
                      else self._ssm_layer(p, x))
                 continue
+            p = actctx.gather_params(p)
             h = L.rms_norm(x, p["ln"], cfg.norm_eps)
             y, new_st = SSM.mamba2_block(p["mamba"], h, cfg,
                                          state={k: v[l]
@@ -295,7 +296,6 @@ class LM(nn.Module):
         aux = self._zero()
         for bi, p in enumerate(self.layers):
             x = actctx.shard(x, "btd_fsdp" if x.shape[1] > 1 else "btd")
-            p = actctx.gather_params(p)
             args = (p, x, positions, cache, cache_pos, bi, remat)
             x, a = (L.remat(self._hybrid_block, *args) if remat
                     else self._hybrid_block(*args))
@@ -307,9 +307,14 @@ class LM(nn.Module):
         ``attn_index``, else mamba) and an FFN (MoE on the period-aligned
         pattern).  With ``remat`` and no cache each mixer and FFN is
         recomputed on its own inside the block's recompute (the
-        reference's nested ``jax.checkpoint``)."""
+        reference's nested ``jax.checkpoint``).  Each mixer and FFN gathers
+        its own weights inside the region it recomputes (the reference
+        gathers the block's at its top, inside the block's checkpoint;
+        here a closure over the block's gathered weights would keep them
+        alive through the sublayers' checkpoints until the backward)."""
         cfg = self.cfg
         aux = self._zero()
+        gather = actctx.gather_params
         mi = di = ei = 0
         for j in range(cfg.attn_period):
             gl_moe = cfg.is_moe_layer(j)  # period-aligned pattern
@@ -321,14 +326,15 @@ class LM(nn.Module):
                         "k": cache["attn"]["k"][bi],
                         "v": cache["attn"]["v"][bi]}
                     a, _ = L.attention(
-                        p["attn"], h, positions=positions, window=0,
+                        gather(p["attn"]), h, positions=positions, window=0,
                         num_kv_heads=cfg.num_kv_heads, rope=cfg.rope,
                         rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
                         cache=c_j, cache_pos=cache_pos)
                     return x + a
                 c_j = None if cache is None else {
                     k: v[bi, mi] for k, v in cache["mamba"].items()}
-                a, nc = SSM.mamba2_block(p["mamba"][mi], h, cfg, state=c_j)
+                a, nc = SSM.mamba2_block(gather(p["mamba"][mi]), h, cfg,
+                                         state=c_j)
                 if nc is not None:
                     for k, v in nc.items():
                         cache["mamba"][k][bi, mi].copy_(v)
@@ -338,11 +344,11 @@ class LM(nn.Module):
                 h = L.rms_norm(x, p["ln2"][j], cfg.norm_eps)
                 if gl_moe:
                     f, a2 = MOE.moe_ffn(
-                        p["moe"][ei], h, top_k=cfg.experts_per_token,
+                        gather(p["moe"][ei]), h, top_k=cfg.experts_per_token,
                         capacity_factor=cfg.capacity_factor,
                         chunk=cfg.moe_dispatch_chunk)
                 else:
-                    f, a2 = L.mlp(p["mlp"][di], h), self._zero()
+                    f, a2 = L.mlp(gather(p["mlp"][di]), h), self._zero()
                 return x + f, a2
 
             if remat and cache is None:

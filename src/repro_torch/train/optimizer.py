@@ -12,15 +12,22 @@ works leaf by leaf with the clip scale fused in and writes the
 parameters and moments in place (the PyTorch counterpart of the
 reference's buffer donation): its fp32 temporaries never exceed one
 leaf's, where a whole-tree update would hold an fp32 copy of the model.
+
+Under FSDP placement (``distributed.fsdp``) a parameter may be one
+shard of a leaf cut over the data axis: ``init`` gives it moments of
+every slot's shard, linked the same way, and ``update`` takes the
+global gradient norm from the step, which alone sees every shard.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+
+from ..distributed import fsdp
 
 f32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -58,11 +65,20 @@ def lr_schedule(cfg: OptConfig, step) -> torch.Tensor:
 
 def init(params: Mapping[str, torch.Tensor], moment_dtype=f32) -> Dict:
     """Zero moments of the parameters' shapes, on their devices, and
-    ``step`` = 0 (int32, on the first parameter's device)."""
+    ``step`` = 0 (int32, on the first parameter's device).  The moments
+    of an FSDP shard are zeros of every slot's shard, linked as the
+    parameter's shards are."""
     if isinstance(moment_dtype, str):
         moment_dtype = _DTYPES[moment_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype,
-                                  device=p.device)
+
+    def zeros(p):
+        g = fsdp.group(p)
+        if g is None:
+            return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+        at = fsdp.slot(p)
+        return fsdp.link([torch.zeros(s.shape, dtype=moment_dtype,
+                                      device=s.device) for s in g.shards],
+                         g.dim, anchor=at)[at]
     dev = next(iter(params.values())).device
     return {"m": {k: zeros(p) for k, p in params.items()},
             "v": {k: zeros(p) for k, p in params.items()},
@@ -86,14 +102,18 @@ def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
 
 @torch.no_grad()
 def update(cfg: OptConfig, grads: Mapping[str, torch.Tensor],
-           opt_state: Dict, params: Mapping[str, torch.Tensor]
+           opt_state: Dict, params: Mapping[str, torch.Tensor],
+           gnorm: Optional[torch.Tensor] = None
            ) -> Tuple[Mapping[str, torch.Tensor], Dict, Dict]:
     """One AdamW step: returns (params, opt_state, metrics), the first
     two the objects passed in, updated in place (``step`` too).
     ``metrics``: ``grad_norm`` (before clipping) and ``lr``, device
     scalars.  Weight decay applies to every leaf, as in the
-    reference."""
-    gnorm = global_norm(grads)
+    reference.  ``gnorm``: the global norm of the whole gradient, where
+    ``grads`` is one device's part of it (FSDP shards); by default the
+    norm of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     opt_state["step"].add_(1)
     step = opt_state["step"].to(f32)

@@ -1,6 +1,7 @@
-"""The port's data-parallel train step (``make_train_step(..., mesh=)``)
-and the launcher over a mesh, on the CPU, beside the single-device step
-of both packages.
+"""The port's data-parallel train step with replicated weights
+(``make_train_step(..., mesh=, placement="replicated")``) and the
+launcher over a mesh with ``--placement replicated``, on the CPU, beside
+the single-device step of both packages.
 
 A mesh here is ``make_host_mesh(data=n, device="cpu")``: n batch shards
 on the one CPU device, sharing its one replica of the weights.  Inputs
@@ -107,6 +108,7 @@ def port_run(name, params0, mesh, steps=STEPS, batch=B, **kw):
     model = port_model(name, params0)
     seen = []
     step = make_train_step(model, opt.OptConfig(lr=LR), mesh=mesh,
+                           placement="replicated",
                            grad_transform=lambda g: seen.append(g) or g,
                            **kw)
     ostate = opt.init(dict(model.named_parameters()))
@@ -236,7 +238,8 @@ def test_accumulation_inside_the_shards(runs, family):
 def _args(*extra):
     return launch_train.parse_args(
         ["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu",
-         "--batch", "8", "--seq", "16", "--log-every", "1", *extra])
+         "--batch", "8", "--seq", "16", "--log-every", "1",
+         "--placement", "replicated", *extra])
 
 
 def test_launcher_over_a_mesh(capsys):
@@ -328,7 +331,7 @@ def test_gpu_dp_step_matches_one_device(cuda, family):
             cfg, device="cuda:0", seed=2)
         seen = []
         step = make_train_step(
-            model, opt.OptConfig(lr=LR), mesh=mesh,
+            model, opt.OptConfig(lr=LR), mesh=mesh, placement="replicated",
             grad_transform=lambda g: seen.append(
                 {k: t.cpu() for k, t in g.items()}) or g)
         ostate = opt.init(dict(model.named_parameters()))
@@ -343,8 +346,8 @@ def test_gpu_dp_step_matches_one_device(cuda, family):
                     for k, p in model.named_parameters()}))
         if mesh is not None:
             # one replica a distinct card, each with the same weights
-            assert set(step.replicas) == set(mesh.devices.flat)
-            for d, other in step.replicas.items():
+            for s, other in enumerate(step.slots):
+                d = mesh.devices.flat[s]
                 for (k, p), q in zip(model.named_parameters(),
                                      other.parameters()):
                     assert q.device == d

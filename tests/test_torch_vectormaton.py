@@ -168,7 +168,8 @@ def test_import_leaves_jax_and_reference_out():
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "new = ['repro_torch.distributed.sharding',"
-        " 'repro_torch.distributed.actctx']\n"
+        " 'repro_torch.distributed.actctx', 'repro_torch.launch.shapes',"
+        " 'repro_torch.launch.analysis', 'repro_torch.launch.dryrun']\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))")
     env = dict(os.environ)
