@@ -200,13 +200,31 @@ host core; the timed full-depth run is a child process of its own):
      ``train_full``'s and ``train_fsdp_full``'s cells, the reckoned peak
      beside the measured ``torch.cuda.max_memory_allocated``.
 
+The tensor-parallel phases (heads, FFN columns, experts and the
+vocabulary cut over the model axis of a ``(data, model)`` mesh; no
+kernel of the port runs in them either) run last, after the
+data-parallel ones:
+  P1. ``train_tp_parity`` — ``train_dp_parity``'s models and shape (2
+     layers at published width, bf16, 8 × 128), 3 steps over
+     ``make_host_mesh(data, model)`` at ``(1, 2)``, ``(2, 2)`` and
+     ``(1, 4)``, every slot on the card, against the one-device steps:
+     losses, aux losses and grad norms within ``FULL_LOSS_TOL`` (1e-3,
+     2e-2, 5e-2 relative at steps 0, 1, 2); every slot's leaves of the
+     spec tables' local shapes;
+  P2. ``train_tp_full`` — ``train_full``'s run over ``(1, 2)`` on the
+     card in a spawned process: step ms p50, tokens/s, ``mfu``, peak
+     memory, one step with the TP collectives and the update timed by
+     CUDA events, kernels a step (profiler); its first two losses within
+     ``FULL_LOSS_TOL`` of ``train_full``'s.
+
 ``--phases build`` or ``--phases build,edges`` runs only those phases
 and stops without the ``kernels`` and ``ok`` lines: a short check of new
 kernels on the card; ``--phases`` also takes ``train_parity``,
 ``train_full``, ``train_embedder``, ``train_dp_parity``,
 ``train_dp_full`` (which runs ``train_full`` first), ``psum``,
-``train_fsdp_parity``, ``train_fsdp_full`` (``train_full`` first) and
-``dryrun_fit`` (both full runs first).
+``train_fsdp_parity``, ``train_fsdp_full`` (``train_full`` first),
+``dryrun_fit`` (both full runs first), ``train_tp_parity`` and
+``train_tp_full`` (``train_full`` first).
 """
 
 from __future__ import annotations
@@ -3532,6 +3550,250 @@ def phase_dryrun_fit(card: str) -> None:
              "torch.cuda.max_memory_allocated of the phase's process")
 
 
+# --------------------------------------------------------------------- #
+# tensor parallelism — heads, FFN, experts and vocabulary cut over the
+# model axis of a (data, model) mesh
+# --------------------------------------------------------------------- #
+
+TP_MESHES = ((1, 2), (2, 2), (1, 4))   # (data, model), every slot on card 0
+TP_STEPS = 3
+FULL_LOSS_TOL = (1e-3, 2e-2, 5e-2)    # steps 0, 1, 2, relative
+TP_FULL_MODEL = 2
+
+
+def _spec_local_shapes(cfg, mesh, whole):
+    """Each parameter's local shape on ``mesh`` as the spec tables say:
+    its reference leaf's spec (``ShardingRules.param_specs`` over
+    ``convert.reference_shapes``), the leading layer axes dropped, each
+    cut axis divided by its mesh axis."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.models.convert import ShapeLeaf, reference_shapes
+    leaves = {k: ShapeLeaf(v) for k, v in whole.items()}
+    specs = ShardingRules(cfg, mesh).param_specs(
+        reference_shapes(cfg, leaves))
+    out = {}
+    for k, shape in whole.items():
+        parts = k.split(".")
+        spec = specs
+        for part in [q for q in parts if not q.isdigit()]:
+            spec = spec[part]
+        tail = tuple(spec)[sum(q.isdigit() for q in parts):]
+        out[k] = tuple(n // (1 if ax is None else mesh.shape[ax])
+                       for n, ax in zip(shape, tail))
+    return out
+
+
+def _tp_run(cfg, init, batches, mesh, lr):
+    """``len(batches)`` steps of a fresh model loaded with ``init``, over
+    ``mesh`` (None: one device): (each step's metrics as floats, the
+    number of slot leaves off the spec's local shape, the slots' count
+    of leaves cut over the model axis)."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    model = LM(cfg, device="cuda", seed=3)
+    model.load_state_dict(init)
+    whole = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    step = make_train_step(model, opt.OptConfig(lr=lr), mesh=mesh)
+    ostate = opt.init(dict(model.named_parameters()))
+    metrics = []
+    for batch in batches:
+        m = step(ostate, batch)
+        metrics.append({k: float(m[k]) for k in ("loss", "aux",
+                                                 "grad_norm")})
+    off = tp_cut = 0
+    if mesh is not None:
+        want = _spec_local_shapes(cfg, mesh, whole)
+        for s, module in enumerate(step.slots):
+            for k, p in module.named_parameters():
+                off += tuple(p.shape) != want[k]
+                g = fsdp.group(p)
+                tp_cut += g is not None and g.tp_dim is not None
+    del step, model, ostate
+    torch.cuda.empty_cache()
+    return metrics, off, tp_cut
+
+
+def phase_train_tp_parity(card: str) -> None:
+    """The tensor-parallel step over ``make_host_mesh(data, model)`` for
+    ``TP_MESHES`` (every slot on the card) against the one-device step
+    from the same weights and batches: qwen3-4b and qwen3-moe-30b-a3b at
+    their published widths cut to 2 layers, bf16, 8 × 128 tokens, 3
+    steps; losses, MoE aux losses and grad norms within
+    ``FULL_LOSS_TOL`` relative at steps 0, 1, 2; and every slot's every
+    leaf of the local shape the spec tables give on its mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import LM
+    rng = np.random.default_rng(19)
+    lr = 1e-3
+    for arch in DP_ARCHS:
+        cfg = get_config(arch).replace(num_layers=2)
+        batches = [{"tokens": rng.integers(0, cfg.vocab_size,
+                                           (DP_BATCH, DP_SEQ)
+                                           ).astype(np.int32)}
+                   for _ in range(TP_STEPS)]
+        t0 = time.perf_counter()
+        model = LM(cfg, device="cuda", seed=3)
+        init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        del model
+        one, _, _ = _tp_run(cfg, init, batches, None, lr)
+        cases = {}
+        for data, model_size in TP_MESHES:
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            got, off, tp_cut = _tp_run(
+                cfg, init, batches,
+                make_host_mesh(data=data, model=model_size,
+                               device="cuda:0"), lr)
+            tag = f"{arch} ({data}, {model_size})"
+            check(off == 0, f"{tag}: {off} slot leaves off the spec's "
+                            "local shapes")
+            check(tp_cut > 0, f"{tag}: no leaf cut over the model axis")
+            errs = {}
+            for key in ("loss", "aux", "grad_norm"):
+                errs[key] = [abs(g[key] - w[key]) / max(abs(w[key]), 1e-30)
+                             for g, w in zip(got, one)]
+                for i, (e, tol) in enumerate(zip(errs[key], FULL_LOSS_TOL)):
+                    check(e <= tol, f"{tag} step {i}: {key} {got[i][key]} "
+                                    f"vs {one[i][key]} (> {tol})")
+            cases[f"{data}x{model_size}"] = {
+                "loss": [g["loss"] for g in got],
+                "aux": [g["aux"] for g in got],
+                "grad_norm": [g["grad_norm"] for g in got],
+                **{f"{k}_rel_err": v for k, v in errs.items()},
+                "slot_leaves_off_spec": off, "tp_cut_slot_leaves": tp_cut,
+                "peak_memory_allocated": torch.cuda.max_memory_allocated(),
+                "seconds": time.perf_counter() - t1}
+        emit(phase="train_tp_parity", card=card, arch=arch,
+             case=f"{arch} 2 layers, bf16, full width", steps=TP_STEPS,
+             tokens=[DP_BATCH, DP_SEQ], lr=lr,
+             one_device={k: [m[k] for m in one]
+                         for k in ("loss", "aux", "grad_norm")},
+             meshes=cases,
+             tol=f"loss, aux and grad norm {list(FULL_LOSS_TOL)} relative "
+                 "at steps 0, 1, 2; every slot leaf the spec's local shape",
+             seconds=time.perf_counter() - t0)
+        del init
+        torch.cuda.empty_cache()
+
+
+def train_tp_full_child(card: str, results=None) -> None:
+    """``launch.train.run`` on qwen3-4b at full width and depth over
+    ``make_host_mesh(data=1, model=TP_FULL_MODEL)`` (the TP ranks on the
+    card), the launcher's defaults otherwise (bf16, fp32 moments, remat,
+    8 × 128), 10 steps, in its own process.  Then one more step with the
+    TP collectives (``distributed.tp``'s autograd functions, forward
+    and backward) and the update timed by CUDA events (their calls
+    summed), and one under the profiler."""
+    import contextlib
+    import io
+    from repro_torch.distributed import fsdp, tp
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import optimizer as opt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    args = launch_train.parse_args(
+        ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
+         "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+         "--log-every", "1"])
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        run = launch_train.run(args, mesh=make_host_mesh(
+            data=1, model=TP_FULL_MODEL, device="cuda:0"))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = run.history
+    losses = [h["loss"] for h in hist]
+    gnorms = [float(h["metrics"]["grad_norm"]) for h in hist]
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"non-finite train metrics: {losses} {gnorms}")
+    step_ms = float(np.median([h["ms"] for h in hist[TRAIN_WARM:]]))
+    n = sum(fsdp.whole(p, "meta").numel() for p in run.model.parameters())
+    flop = train_flops(run.cfg, n, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batch = run.pipe.batch_at(TRAIN_STEPS)
+    spans = {"tp": [], "update": []}
+    fns = [tp._Copy, tp._Reduce, tp._AllGather, tp._ReduceScatter,
+           tp._GatherRow, tp._Split]
+    saved = [(f, f.forward, f.backward) for f in fns]
+    for f, fwd, bwd in saved:
+        f.forward = staticmethod(_timed(fwd, spans["tp"]))
+        f.backward = staticmethod(_timed(bwd, spans["tp"]))
+    update = opt.update
+    opt.update = _timed(update, spans["update"])
+    run.step_fn(run.opt_state, batch)
+    torch.cuda.synchronize()
+    for f, fwd, bwd in saved:
+        f.forward, f.backward = staticmethod(fwd), staticmethod(bwd)
+    opt.update = update
+    span_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+               for k, v in spans.items()}
+    prof = {}
+    wall_ms, busy, top = device_profile(
+        lambda: run.step_fn(run.opt_state, batch), prof)
+    cut = [p for p in run.model.parameters()
+           if fsdp.group(p) is not None and fsdp.group(p).tp_dim is not None]
+    out = {"mesh": dict(run.mesh.shape),
+           "devices": sorted({str(d) for d in run.mesh.devices.flat}),
+           "slots": len(run.step_fn.slots), "params": n,
+           "tp_cut_leaves": len(cut),
+           "tp_cut_share": sum(fsdp.whole(p, "meta").numel()
+                               for p in cut) / n,
+           "loss": losses, "grad_norm": gnorms,
+           "step_ms": [h["ms"] for h in hist], "step_ms_p50": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "model_tflops": flop / step_ms / 1e9,
+           "mfu": flop / (step_ms / 1e3) / PEAK_BF16,
+           "peak_memory_allocated": peak, "run_s": wall_s,
+           "tp_collective_ms": span_ms["tp"],
+           "tp_collective_calls": len(spans["tp"]),
+           "update_ms": span_ms["update"],
+           "update_calls": len(spans["update"]),
+           "profiled_step_wall_ms": wall_ms, "profiled_step_busy_ms": busy,
+           "profiled_step_idle_share": None if busy is None
+           else 1 - busy / wall_ms,
+           "kernels_per_step": prof["device_kernels"],
+           "launch_calls": {k: v["count"] for k, v in prof.items()
+                            if k != "device_kernels"}, "top": top,
+           "log": log.getvalue().splitlines()}
+    if results is not None:
+        results.put(out)
+
+
+def phase_train_tp_full(card: str) -> None:
+    """``train_tp_full_child`` in a spawned process, beside
+    ``train_full``'s numbers from this run (``train_full`` runs first if
+    it has not): step ms p50, tokens/s, ``mfu``, the TP collectives' ms
+    and calls, kernels a step, peak memory (must fit 80 GB); steps 0 and
+    1's losses equal ``train_full``'s within ``FULL_LOSS_TOL``."""
+    if "train_full" not in TRAIN_RESULTS:
+        phase_train_full(card)
+    one = TRAIN_RESULTS["train_full"]
+    cut = run_child(train_tp_full_child, card, "train_tp_full_child")
+    TRAIN_RESULTS["train_tp_full"] = cut
+    errs = [abs(a - b) / abs(b) for a, b in zip(cut["loss"][:2],
+                                                one["loss"][:2])]
+    for i, (e, tol) in enumerate(zip(errs, FULL_LOSS_TOL)):
+        check(e <= tol, f"train_tp_full step {i}: loss {cut['loss'][i]} "
+                        f"vs train_full's {one['loss'][i]} (> {tol})")
+    check(cut["peak_memory_allocated"] < 80e9,
+          f"peak memory {cut['peak_memory_allocated']} does not fit 80 GB")
+    emit(phase="train_tp_full", card=card, arch=LM_ARCH,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+         step_ms_steps=f"{TRAIN_WARM + 1}-{TRAIN_STEPS}",
+         loss_rel_err_steps_0_1=errs,
+         loss_tol=f"{FULL_LOSS_TOL[0]} (step 0), {FULL_LOSS_TOL[1]} "
+                  "(step 1) relative",
+         **cut, one_device={k: one[k] for k in (
+             "step_ms_p50", "tokens_per_s", "mfu", "peak_memory_allocated",
+             "loss")})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3551,7 +3813,7 @@ def main() -> int:
         if "edges" in PHASES:
             phase_edges()
         for name, phase in {**TRAIN_PHASES, **DP_PHASES,
-                            **FSDP_PHASES}.items():
+                            **FSDP_PHASES, **TP_PHASES}.items():
             if name in PHASES:
                 phase(card)
         emit(phase="done", partial=sorted(PHASES),
@@ -3569,7 +3831,7 @@ def main() -> int:
             phase(card)
         kernels = run_index_phases(card, lm_run)
         # after every phase whose host times are reported
-        for phase in DP_PHASES.values():
+        for phase in (*DP_PHASES.values(), *TP_PHASES.values()):
             phase(card)
     finally:
         lm_run.stop()
@@ -3635,17 +3897,20 @@ DP_PHASES = {"train_dp_parity": phase_train_dp_parity,
 FSDP_PHASES = {"train_fsdp_parity": phase_train_fsdp_parity,
                "train_fsdp_full": phase_train_fsdp_full,
                "dryrun_fit": phase_dryrun_fit}
+TP_PHASES = {"train_tp_parity": phase_train_tp_parity,
+             "train_tp_full": phase_train_tp_full}
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phases":
         PHASES = set(sys.argv[2].split(","))
         check(PHASES <= {"build", "edges", *TRAIN_PHASES, *DP_PHASES,
-                         *FSDP_PHASES},
+                         *FSDP_PHASES, *TP_PHASES},
               f"--phases takes build, edges, {sorted(TRAIN_PHASES)}, "
-              f"{sorted(DP_PHASES)} and {sorted(FSDP_PHASES)}, not "
-              f"{sorted(PHASES)}")
+              f"{sorted(DP_PHASES)}, {sorted(FSDP_PHASES)} and "
+              f"{sorted(TP_PHASES)}, not {sorted(PHASES)}")
     elif len(sys.argv) != 1:
         sys.exit("usage: chip_smoke.py [--phases build,edges,"
-                 + ",".join([*TRAIN_PHASES, *DP_PHASES, *FSDP_PHASES])
+                 + ",".join([*TRAIN_PHASES, *DP_PHASES, *FSDP_PHASES,
+                             *TP_PHASES])
                  + "]")
     sys.exit(main())

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The port's dry-run table: every arch × shape on the ``1x1`` and
-``4x1`` meshes, one ``python -m repro_torch.launch.dryrun`` process an
+``4x1`` meshes (``--mesh``: any of the dry run's, ``1x4`` and ``2x2``
+among them), one ``python -m repro_torch.launch.dryrun`` process an
 arch (``--jobs`` at a time), then a markdown table of the JSON records:
 one row an arch, a column a shape and mesh, each cell the per-device
 state and peak GB and whether the peak fits 80 GB.
@@ -25,6 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import arch_names  # noqa: E402
+from repro_torch.launch.dryrun import TP_QUEUED  # noqa: E402
 from repro_torch.launch.shapes import SHAPES  # noqa: E402
 
 
@@ -44,9 +46,10 @@ def run(out: str, device: str, jobs: int, meshes: str) -> None:
 
 def cell(out: str, arch: str, shape: str, mesh: str) -> str:
     """``state / peak`` GB a device, ``✓`` where the peak fits 80 GB;
-    ``—`` for a peak not run (the state alone exceeds 80 GB); ``n/a``
-    where the slots shared one device (``--device cpu``), so no peak is
-    one card's."""
+    ``—`` for a peak not run (the state alone exceeds 80 GB); ``queued``
+    for one the port cannot run yet (``dryrun.TP_QUEUED``: prefill and
+    decode at ``model`` > 1, the pods); ``n/a`` where the slots shared
+    one device (``--device cpu``), so no peak is one card's."""
     path = os.path.join(out, f"{arch}__{shape}__{mesh}.json")
     if not os.path.exists(path):
         return "missing"
@@ -58,7 +61,8 @@ def cell(out: str, arch: str, shape: str, mesh: str) -> str:
     pk = rec["per_device_peak_bytes"]
     text = f"{rec['state_bytes']['total'] / 1e9:.1f} / " + (
         f"{pk / 1e9:.1f}" if pk is not None
-        else "n/a" if rec["peak_bytes"] else "—")
+        else "n/a" if rec["peak_bytes"]
+        else "queued" if rec["peak_reason"] == TP_QUEUED else "—")
     return text + (" ✓" if rec["fits_80gb"] else "")
 
 

@@ -15,6 +15,17 @@ implies (its rows, its other axes, its device) and returns it.  With
 layer is concatenated from its owners onto the calling shard's device,
 and its backward reduce-scatters the cotangent to them.
 
+Under tensor parallelism (a ``model`` axis > 1) a batch shard is a data
+row of slots, one a TP rank, and the models run each layer's ranks in
+turn (``tp_ranks``, ``on_rank``).  A pin then checks the local shape
+with the TP cut: ``btd_sp`` cuts the sequence, ``btd_fsdp`` the
+features, ``bthd`` the heads, ``btf`` the vocabulary; the row's
+residual is the list of the ranks' cuts where the spec cuts it over
+``model`` (``shard_ranks`` moves it between layouts with
+``distributed.tp``'s collectives, as GSPMD reshards at a constraint,
+and then pins it).  ``gather_params`` gathers over the data axis only,
+onto the rank's device: the gathered leaf stays the rank's TP cut.
+
 State is set by the launcher (``configure``, ``use``) and by the step
 around each shard's forward and backward (``local_shard``).  Without a
 configured mesh — every serving path, every one-device run — ``shard``
@@ -24,7 +35,7 @@ and ``gather_params`` return their input after one dictionary lookup.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,7 +44,7 @@ from . import fsdp
 from .sharding import P
 
 _STATE = {"mesh": None, "dp": None, "tp": "model", "gather_rules": None,
-          "local": None}
+          "local": None, "rank": None}
 
 
 def configure(mesh, dp: Optional[Tuple[str, ...]], tp: str = "model",
@@ -57,37 +68,83 @@ def use(mesh, dp, tp: str = "model", gather_rules=None):
 
 
 @contextmanager
-def local_shard(split: int, device):
+def local_shard(split: int, device, ranks: Optional[Sequence] = None,
+                devices: Optional[Sequence] = None):
     """Inside: the forward of one batch shard on ``device``, whose rows
     are 1/``split`` of the batch the reference's forward would see
-    (``split`` = 1 for a replicated batch)."""
-    old = _STATE["local"]
-    _STATE["local"] = (split, device)
+    (``split`` = 1 for a replicated batch).  Under tensor parallelism
+    (a ``model`` axis > 1) the shard is a data row of slots: ``ranks``
+    are their modules in TP-rank order and ``devices`` their devices,
+    rank 0's being ``device``; the models run each rank's part of a
+    layer there (``tp_ranks``)."""
+    old = _STATE["local"], _STATE["rank"]
+    _STATE["local"] = (split, torch.device(device),
+                       None if ranks is None or len(ranks) < 2
+                       else list(ranks),
+                       None if devices is None
+                       else [torch.device(d) for d in devices])
+    _STATE["rank"] = None
     try:
         yield
     finally:
-        _STATE["local"] = old
+        _STATE["local"], _STATE["rank"] = old
 
 
-def gather_params(tree):
+def tp_ranks() -> Optional[List[nn.Module]]:
+    """The modules of the running data row's TP ranks, or None outside a
+    tensor-parallel row."""
+    local = _STATE["local"]
+    return None if local is None else local[2]
+
+
+def tp_devices() -> List[torch.device]:
+    """The devices of the running row's TP ranks."""
+    return list(_STATE["local"][3])
+
+
+@contextmanager
+def on_rank(rank: int):
+    """Inside: TP rank ``rank``'s part of a layer (its pins and its
+    FSDP gathers are that rank's)."""
+    old = _STATE["rank"]
+    _STATE["rank"] = rank
+    try:
+        yield
+    finally:
+        _STATE["rank"] = old
+
+
+def _device():
+    local = _STATE["local"]
+    if local is None:
+        return None
+    rank = _STATE["rank"]
+    return local[1] if rank is None or local[3] is None else local[3][rank]
+
+
+def gather_params(tree, rank: Optional[int] = None):
     """The reference's per-layer FSDP all-gather.  With ``gather_rules``
     and a mesh configured: ``tree`` (a layer's ``ParamTree``, or a dict
     or list of its parts) as nested dicts and lists whose leaves that
-    FSDP placement cut (``fsdp.group``) are gathered whole onto the
-    calling shard's device, along the axis ``gathered_rule`` releases
+    FSDP placement cut over data (``fsdp.group``) are gathered onto the
+    calling shard's device — TP rank ``rank``'s (default: the running
+    rank's, else rank 0's) — along the axis ``gathered_rule`` releases
     (``fsdp.gather``: its backward is the gradient reduce-scatter); the
-    leaves the spec tables replicate pass through.  Otherwise ``tree``
-    itself.  Called inside the region ``layers.remat`` recomputes, so no
-    layer's gathered weights outlive the layer."""
+    gathered leaf stays that rank's TP cut, and the leaves not cut over
+    data pass through.  Otherwise ``tree`` itself.  Called inside the
+    region ``layers.remat`` recomputes, so no layer's gathered weights
+    outlive the layer."""
     if _STATE["gather_rules"] is None or _STATE["mesh"] is None:
         return tree
-    local = _STATE["local"]
-    device = None if local is None else local[1]
+    if rank is None:
+        rank = _STATE["rank"] or 0
+    with on_rank(rank):
+        device = _device()
 
     def one(node):
         if isinstance(node, torch.Tensor):
             return fsdp.gather(node, node.device if device is None
-                               else device)
+                               else device, rank)
         if isinstance(node, (list, tuple, nn.ModuleList)):
             return [one(v) for v in node]
         if isinstance(node, dict):
@@ -153,25 +210,87 @@ def _local_shape(shape: Tuple[int, ...], sp: P) -> Tuple[int, ...]:
                  for n, ax in zip(shape, sp))
 
 
-def shard(x, kind: str):
+# the axis a spec cuts over the TP axis, for each kind that cuts one
+_TP_AXIS = {"btd_sp": 1, "btd_fsdp": -1, "bthd": 2, "btf": -1}
+
+
+def _check(x, want, device, kind, shape, sp):
+    if tuple(x.shape) != want or x.device != device:
+        raise RuntimeError(
+            f"actctx.shard({kind!r}): a shard of {shape} under {sp} is "
+            f"{want} on {device}, got {tuple(x.shape)} on {x.device}")
+
+
+def shard(x, kind: str, size: Optional[int] = None):
     """Pin ``x`` to ``spec(global shape, kind)``; returns ``x``.  Under
     ``local_shard`` it raises unless ``x`` has the local shape that spec
-    implies and lies on the shard's device."""
+    implies and lies on the shard's device.  In a tensor-parallel row
+    ``x`` is one tensor (the running rank's — ``size``, where given, is
+    the global size of the axis ``kind`` may cut over ``model``: a
+    rank's heads of ``num_heads``, its logits of the vocabulary —, or,
+    outside a rank, the row's replicated value on rank 0's device) or
+    the list of the ranks' cuts along the axis the spec cuts over
+    ``model``."""
     if _STATE["mesh"] is None:
         return x
     local = _STATE["local"]
     if local is None:
         return x
-    split, device = local
-    shape = (x.shape[0] * split,) + tuple(x.shape[1:])
+    split = local[0]
+    if isinstance(x, (list, tuple)):
+        axis = _TP_AXIS[kind] % x[0].dim()
+        shape = [n * (split if i == 0 else 1) * (len(x) if i == axis else 1)
+                 for i, n in enumerate(x[0].shape)]
+        sp = spec(tuple(shape), kind)
+        if sp[axis] != _STATE["tp"]:
+            raise RuntimeError(
+                f"actctx.shard({kind!r}): {len(x)} cuts along axis {axis} "
+                f"of {tuple(shape)}, which {sp} does not cut over "
+                f"{_STATE['tp']!r}")
+        want = _local_shape(tuple(shape), sp)
+        for part, device in zip(x, local[3]):
+            _check(part, want, device, kind, tuple(shape), sp)
+        return x
+    shape = [x.shape[0] * split] + list(x.shape[1:])
+    if size is not None:
+        shape[_TP_AXIS[kind] % x.dim()] = size
+    shape = tuple(shape)
     sp = spec(shape, kind)
-    want = _local_shape(shape, sp)
-    if tuple(x.shape) != want or x.device != device:
-        raise RuntimeError(
-            f"actctx.shard({kind!r}): a shard of {shape} under {sp} is "
-            f"{want} on {device}, got {tuple(x.shape)} on {x.device}")
+    _check(x, _local_shape(shape, sp), _device(), kind, shape, sp)
     return x
 
 
-__all__ = ["configure", "use", "local_shard", "gather_params", "spec",
-           "shard"]
+def tp_axis(shape: Tuple[int, ...], kind: str) -> Optional[int]:
+    """The axis of an activation of the global ``shape`` that
+    ``spec(shape, kind)`` cuts over the TP axis, or None."""
+    sp = spec(shape, kind)
+    hits = [i for i, e in enumerate(sp) if e == _STATE["tp"]]
+    return hits[0] if hits else None
+
+
+def shard_ranks(xs: List[torch.Tensor], axis: Optional[int], kind: str):
+    """A tensor-parallel row's residual laid out as the pin ``kind``
+    asks, and pinned (``shard``): ``xs`` is the row's replicated value
+    (``[x]``, ``axis`` None) or the ranks' cuts along ``axis``.  Returns
+    (the residual, its axis): moved between the layouts by the
+    collectives of ``distributed.tp`` (a split, a gather), as GSPMD
+    reshards at a ``with_sharding_constraint``."""
+    from . import tp
+    split = _STATE["local"][0]
+    part = xs[0]
+    shape = [n * (split if i == 0 else 1)
+             * (len(xs) if axis is not None and i == axis else 1)
+             for i, n in enumerate(part.shape)]
+    want = tp_axis(tuple(shape), kind)
+    if want != axis:
+        row = xs[0] if axis is None else tp.gather_seq(xs, axis)
+        xs = [row] if want is None else tp.split_to_ranks(
+            row, want, tp_devices())
+        axis = want
+    shard(xs[0] if axis is None else xs, kind)
+    return xs, axis
+
+
+__all__ = ["configure", "use", "local_shard", "tp_ranks", "tp_devices",
+           "on_rank", "gather_params", "spec", "shard", "tp_axis",
+           "shard_ranks"]

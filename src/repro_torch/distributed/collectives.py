@@ -7,8 +7,9 @@ an error-feedback accumulator, so the quantization residual re-enters
 the next step's gradient.  The tensor is the reference's leaf: the
 port's per-layer gradients of one stacked leaf (``layers.3.attn.wq``
 for every layer index) share one scale, the absmax over every layer,
-and under FSDP placement over every slot's shard too (one max
-all-reduce a leaf), as GSPMD sees the global array.
+and under FSDP and tensor-parallel placement over every slot's shard
+too, the TP ranks' included (one max all-reduce a leaf), as GSPMD sees
+the global array.
 
   * ``compress_decompress(grads)`` — a drop-in ``grad_transform`` for
     ``train.step.make_train_step`` (a mapping of names to gradients):
@@ -53,12 +54,12 @@ def _leaf_scales(grads: Mapping[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
     """The quantization scale of each gradient: ``max|g|/127 + 1e-12``
     over its whole reference leaf — every layer's gradient in
-    ``grads``, and every slot's shard of an FSDP-sharded one — on the
-    gradient's device."""
+    ``grads``, and every distinct shard of a cut one (its data shards
+    and its TP ranks) — on the gradient's device."""
     amax: Dict[str, torch.Tensor] = {}
     for k, g in grads.items():
         g_group = fsdp.group(g)
-        for part in ([g] if g_group is None else g_group.shards):
+        for part in ([g] if g_group is None else g_group.unique()):
             m = torch.max(torch.abs(part.to(f32))).to(g.device)
             key = _stacked(k)
             amax[key] = m if key not in amax else torch.maximum(

@@ -1,64 +1,113 @@
-"""FSDP placement over the data axis — what the reference's launcher
-asks of GSPMD with ``ShardingRules.param_shardings`` on a ``(data = n,
-model = 1)`` mesh (``src/repro/launch/train.py``), done by hand.
+"""FSDP and tensor-parallel placement over a ``(data, model)`` mesh —
+what the reference's launcher asks of GSPMD with
+``ShardingRules.param_shardings`` (``src/repro/launch/train.py``),
+done by hand.
 
-A parameter whose spec shards it over the FSDP axes is held as n
-shards, slot s of the mesh holding the s-th cut of the leaf along the
-axis the spec names, on that slot's device; every other parameter is
-one replica a distinct device.  The port's parameters are the
-reference's stacked ``(L, …)`` leaves sliced by layer, so a leaf's spec
-is the stacked leaf's spec without its leading layer axes
-(``shard_dims``).
+A parameter whose spec cuts it over ``model`` is held as TP rank j's
+part (heads, FFN columns or rows, experts, SSD heads, vocabulary) on
+the slots of column j; one whose spec cuts it over the FSDP axes is
+cut again into data index i's part on slot (i, j); slots that would
+hold the same part on one device share one tensor.  Every other
+parameter is one replica a distinct device.  The port's parameters are
+the reference's stacked ``(L, …)`` leaves sliced by layer, so a leaf's
+spec is the stacked leaf's spec without its leading layer axes
+(``cut_dims``).
 
-Each shard leads to its ``Group`` (the cut axis and every slot's shard,
-in slot order) through the attribute ``_fsdp``, so any one of them
-leads to the others: ``gather`` all-gathers a leaf onto a device (an
-autograd function whose backward is the reduce-scatter of the
-cotangent), and ``whole`` concatenates it for a host copy.  AdamW
-moments are linked the same way, and so are a step's gradients for its
-``grad_transform``.  The references run one way only: the anchor shard
-(the one its caller keeps: slot 0's parameter, slot 0's moment) holds
-its group, the group holds the other shards, and the rest are weak
-references.  So no reference cycle forms, and a leaf's shards are freed
-as soon as its anchor is dropped.
+Each shard leads to its ``Group`` (the cut axes, the grid and every
+slot's shard, in slot order) through the attribute ``_fsdp``, so any
+one of them leads to the others: ``gather`` all-gathers a TP rank's
+data shards onto a device (an autograd function whose backward is the
+reduce-scatter of the cotangent), and ``whole`` joins every part for a
+host copy.  AdamW moments are linked the same way (``like``), and so
+are a step's gradients for its ``grad_transform``.  The references run
+one way only: the anchor shard (the one its caller keeps: slot 0's
+parameter, slot 0's moment) holds its group, the group holds the other
+shards, and the rest are weak references.  So no reference cycle
+forms, and a leaf's shards are freed as soon as its anchor is dropped.
 
 ``place(model, mesh, rules)`` cuts a model in place and returns one
-module a slot (``cut=False``: every leaf a replica); ``train.step``
-runs its data-parallel step over them and
-``launch.dryrun`` runs the same placement on fake tensors.
+module a slot (``cut=False``: nothing cut over data); ``train.step``
+runs its mesh step over them and ``launch.dryrun`` runs the same
+placement on fake tensors.
 """
 
 from __future__ import annotations
 
 import copy
 import weakref
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 
 class Group:
-    """The shards of one leaf: ``shards[s]`` on slot s's device, the
-    leaf cut into equal parts along ``dim``.  The group refers to its
-    anchor weakly (the anchor holds the group) and to the others
-    strongly."""
+    """The shards of one leaf, in slot order over a ``(data, model)``
+    grid of ``shape`` (slot s = i·model + j): slot (i, j) holds the i-th
+    cut along ``dim`` (the FSDP axis; None: not cut over data) of the
+    j-th cut along ``tp_dim`` (the TP axis; None: not cut over model).
+    Slots that hold the same cut on one device share one tensor (a leaf
+    replicated over ``model``, such as ``wk``, is one tensor a data cut
+    a device), so ``shards`` may repeat a tensor.  The group refers to
+    its anchor weakly (the anchor holds the group) and to the other
+    distinct tensors strongly."""
 
-    __slots__ = ("dim", "_anchor", "_at", "_others", "__weakref__")
+    __slots__ = ("dim", "tp_dim", "shape", "_index", "_at", "_anchor",
+                 "_others", "__weakref__")
 
-    def __init__(self, dim: int, shards: Sequence[torch.Tensor],
-                 anchor: int):
+    def __init__(self, dim: Optional[int], shards: Sequence[torch.Tensor],
+                 anchor: int, tp_dim: Optional[int] = None, shape=None):
         self.dim = dim
-        self._at = anchor
+        self.tp_dim = tp_dim
+        self.shape = tuple(shape) if shape is not None else (len(shards), 1)
+        uniq: List[torch.Tensor] = []
+        index = []
+        for t in shards:
+            u = next((u for u, o in enumerate(uniq) if o is t), None)
+            if u is None:
+                u = len(uniq)
+                uniq.append(t)
+            index.append(u)
+        self._index = index
+        self._at = index[anchor]
         self._anchor = weakref.ref(shards[anchor])
-        self._others = [None if i == anchor else t
-                        for i, t in enumerate(shards)]
+        self._others = [None if u == self._at else t
+                        for u, t in enumerate(uniq)]
 
-    @property
-    def shards(self) -> List[torch.Tensor]:
+    def unique(self) -> List[torch.Tensor]:
+        """The distinct tensors, in the order of their first slot."""
         out = list(self._others)
         out[self._at] = self._anchor()
         return out
+
+    @property
+    def shards(self) -> List[torch.Tensor]:
+        uniq = self.unique()
+        return [uniq[u] for u in self._index]
+
+    def first_slots(self) -> List[int]:
+        """The first slot of each distinct tensor (``unique``'s order)."""
+        return [self._index.index(u) for u in range(len(self._others))]
+
+    def column(self, j: int) -> List[torch.Tensor]:
+        """The shards of TP rank ``j``, one a data index."""
+        data, model = self.shape
+        sh = self.shards
+        return [sh[i * model + j] for i in range(data)]
+
+    def piece(self, t: torch.Tensor, s: int) -> torch.Tensor:
+        """Slot ``s``'s cut of ``t``, a whole tensor of the leaf (a view)."""
+        return _piece(t, s, self.dim, self.tp_dim, self.shape)
+
+
+def _piece(t, s: int, dim, tp_dim, shape) -> torch.Tensor:
+    data, model = shape
+    i, j = divmod(s, model)
+    if tp_dim is not None:
+        t = t.chunk(model, tp_dim)[j]
+    if dim is not None:
+        t = t.chunk(data, dim)[i]
+    return t
 
 
 def group(t) -> Optional[Group]:
@@ -72,19 +121,22 @@ def group(t) -> Optional[Group]:
     return g
 
 
-def link(shards: Sequence[torch.Tensor], dim: int, anchor: int = 0
+def link(shards: Sequence[torch.Tensor], dim: Optional[int],
+         anchor: int = 0, tp_dim: Optional[int] = None, shape=None
          ) -> List[torch.Tensor]:
-    """Make ``shards`` (slot order) one group, held by
+    """Make ``shards`` (slot order; a tensor may repeat) one group over a
+    ``shape`` grid (default: ``len(shards)`` data slots), held by
     ``shards[anchor]``; returns them."""
-    g = Group(dim, shards, anchor)
+    g = Group(dim, shards, anchor, tp_dim, shape)
     ref = weakref.ref(g)
-    for i, t in enumerate(shards):
-        t._fsdp = g if i == anchor else ref
+    held = shards[anchor]
+    for t in shards:
+        t._fsdp = g if t is held else ref
     return list(shards)
 
 
 def slot(t) -> int:
-    """The slot of a shard in its group (found by identity)."""
+    """The first slot of a shard in its group (found by identity)."""
     return next(i for i, s in enumerate(group(t).shards) if s is t)
 
 
@@ -98,14 +150,32 @@ def split(t: torch.Tensor, dim: int, devices: Sequence[torch.device]
 
 
 def whole(t: torch.Tensor, device=None) -> torch.Tensor:
-    """The whole leaf of a shard, concatenated on ``device`` (default
-    the shard's); a whole tensor is returned as it is, or detached and
-    moved to ``device``."""
+    """The whole leaf of a shard, joined on ``device`` (default the
+    shard's): each TP rank's data cuts, then the ranks; a whole tensor
+    is returned as it is, or detached and moved to ``device``."""
     g = group(t)
     if g is None:
         return t if device is None else t.detach().to(device)
     dev = t.device if device is None else torch.device(device)
-    return torch.cat([s.detach().to(dev) for s in g.shards], g.dim)
+    cols = []
+    for j in (range(g.shape[1]) if g.tp_dim is not None else [0]):
+        col = [s.detach().to(dev) for s in g.column(j)]
+        cols.append(col[0] if g.dim is None else torch.cat(col, g.dim))
+    return cols[0] if g.tp_dim is None else torch.cat(cols, g.tp_dim)
+
+
+def like(p: torch.Tensor, make) -> torch.Tensor:
+    """A tensor laid out as parameter ``p``: ``make(shard, slot)`` for
+    each distinct shard of ``p``'s group (its first slot), linked with
+    the same grid and sharing, the one in ``p``'s slot returned; or
+    ``make(p, 0)`` for a whole ``p``."""
+    g = group(p)
+    if g is None:
+        return make(p, 0)
+    made = [make(u, s) for u, s in zip(g.unique(), g.first_slots())]
+    grid = [made[u] for u in g._index]
+    at = slot(p)
+    return link(grid, g.dim, anchor=at, tp_dim=g.tp_dim, shape=g.shape)[at]
 
 
 class _Gather(torch.autograd.Function):
@@ -137,36 +207,44 @@ def place_like(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     g = group(p)
     if g is None:
         return t.to(p.device)
-    at = slot(p)
-    return link(split(t, g.dim, [s.device for s in g.shards]), g.dim,
-                anchor=at)[at]
+    return like(p, lambda u, s: g.piece(t.detach(), s).to(
+        u.device, copy=True, memory_format=torch.contiguous_format))
 
 
-def gather(t: torch.Tensor, device) -> torch.Tensor:
-    """The whole leaf of shard ``t`` on ``device``, differentiable into
-    every shard; a whole tensor is returned as it is."""
+def gather(t: torch.Tensor, device, rank: Optional[int] = None
+           ) -> torch.Tensor:
+    """The leaf of shard ``t`` gathered over the data axis only (what
+    ``gathered_rule`` releases) on ``device``, differentiable into each
+    data shard: TP rank ``rank``'s cut of the leaf (default: the rank of
+    ``t``'s first slot).  A whole tensor, or one not cut over data, is
+    returned as it is."""
     g = group(t)
-    if g is None:
+    if g is None or g.dim is None:
         return t
-    return _Gather.apply(g.dim, torch.device(device), *g.shards)
+    if rank is None:
+        rank = slot(t) % g.shape[1]
+    return _Gather.apply(g.dim, torch.device(device), *g.column(rank))
 
 
 # --------------------------------------------------------------------- #
 # placement
 # --------------------------------------------------------------------- #
 
-def _released(spec, gathered) -> List[int]:
-    return [i for i, (a, b) in enumerate(zip(spec, gathered)) if a != b]
+def _axis_of(entries, axis) -> List[int]:
+    return [i for i, e in enumerate(entries)
+            if e == axis or (isinstance(e, tuple) and axis in e)]
 
 
-def shard_dims(cfg, rules, params: Dict[str, torch.Tensor]
-               ) -> Dict[str, Optional[int]]:
-    """For each of the port's parameter names: the axis of its
-    per-layer tensor that ``rules`` shard over the FSDP axes (the one
-    ``gathered_rule`` releases), or None.  The spec is the reference's
-    stacked leaf's (``convert.reference_shapes``), its leading layer
-    axes dropped: one for each list index in the name."""
+def cut_dims(cfg, rules, params: Dict[str, torch.Tensor]
+             ) -> Dict[str, Tuple[Optional[int], Optional[int]]]:
+    """For each of the port's parameter names: (the axis of its
+    per-layer tensor that ``rules`` shard over the FSDP axes — the one
+    ``gathered_rule`` releases —, the axis they shard over ``model``),
+    each None where there is none.  The spec is the reference's stacked
+    leaf's (``convert.reference_shapes``), its leading layer axes
+    dropped: one for each list index in the name."""
     from ..models.convert import reference_shapes
+    from .sharding import TP
     ref = reference_shapes(cfg, params)
     specs = rules.param_specs(ref)
     out = {}
@@ -177,13 +255,21 @@ def shard_dims(cfg, rules, params: Dict[str, torch.Tensor]
         leaf, spec = ref, specs
         for p in path:
             leaf, spec = leaf[p], spec[p]
-        dims = _released(spec[lead:], rules.gathered_rule(
-            path[-1], leaf.shape)[lead:])
-        if len(dims) > 1:
+        gathered = rules.gathered_rule(path[-1], leaf.shape)
+        dims = [i for i, (a, b) in enumerate(zip(spec[lead:],
+                                                 gathered[lead:])) if a != b]
+        tps = _axis_of(tuple(gathered)[lead:], TP)
+        if len(dims) > 1 or len(tps) > 1:
             raise ValueError(f"{name}: spec {spec} shards more than one "
-                             "axis of a layer over the FSDP axes")
-        out[name] = dims[0] if dims else None
+                             "axis of a layer over an axis of the mesh")
+        out[name] = (dims[0] if dims else None, tps[0] if tps else None)
     return out
+
+
+def shard_dims(cfg, rules, params: Dict[str, torch.Tensor]
+               ) -> Dict[str, Optional[int]]:
+    """The FSDP half of ``cut_dims``: each name's axis cut over data."""
+    return {k: d for k, (d, _) in cut_dims(cfg, rules, params).items()}
 
 
 def set_param(module: nn.Module, name: str, param: nn.Parameter) -> None:
@@ -194,22 +280,28 @@ def set_param(module: nn.Module, name: str, param: nn.Parameter) -> None:
 
 def place(model: nn.Module, mesh, rules, *, cut: bool = True
           ) -> List[nn.Module]:
-    """Lay ``model``'s parameters over the slots of ``mesh`` (``model``
-    axis 1; slot s is ``mesh.devices.flat[s]``): every leaf that
-    ``rules`` shard over the FSDP axes becomes n linked shards, the
-    others one replica a distinct device; ``cut=False`` makes every
-    leaf a replica (the replicated layout).  Returns one module a slot;
-    slot 0's is ``model`` itself, whose sharded leaves are replaced by
-    slot 0's shards (so the whole leaves are freed).  ``model`` must
-    lie on slot 0's device."""
+    """Lay ``model``'s parameters over the slots of a ``(data, model)``
+    ``mesh`` (slot s = i·model + j is ``mesh.devices.flat[s]``): a leaf
+    the spec tables cut over ``model`` is cut into TP rank j's part
+    (``cut_dims``' TP axis: heads, FFN columns or rows, experts, SSD
+    heads, vocabulary), and one they cut over the FSDP axes is cut into
+    data index i's part of that; slots holding the same part on one
+    device share one tensor, and the parts are linked (``Group``).
+    Every other leaf is one replica a distinct device.  ``cut=False``
+    (the replicated layout) cuts nothing over data; the model axis is
+    always cut.  Returns one module a slot; slot 0's is ``model``
+    itself, whose cut leaves are replaced by slot 0's shards (so the
+    whole leaves are freed).  ``model`` must lie on slot 0's device."""
     slots = list(mesh.devices.flat)
     n = len(slots)
+    model_size = mesh.shape.get("model", 1)
+    data = n // model_size
     if model.device != slots[0]:
         raise ValueError(f"the model lies on {model.device}; slot 0 of "
                          f"the mesh is {slots[0]}")
     params = dict(model.named_parameters())
-    dims = (shard_dims(model.cfg, rules, params) if cut and n > 1
-            else dict.fromkeys(params))
+    dims = (cut_dims(model.cfg, rules, params) if n > 1
+            else {k: (None, None) for k in params})
     # the other slots' modules, their parameters placeholders until cut
     memo = {id(p): nn.Parameter(torch.empty(0, device="meta"))
             for p in params.values()}
@@ -218,8 +310,12 @@ def place(model: nn.Module, mesh, rules, *, cut: bool = True
     replicas: Dict[torch.device, Dict[str, nn.Parameter]] = {}
     for name in list(params):
         p = params.pop(name)
-        dim = dims[name]
-        if dim is None:
+        dim, tp_dim = dims[name]
+        if not cut or data == 1:
+            dim = None
+        if model_size == 1:
+            tp_dim = None
+        if dim is None and tp_dim is None:
             for s, d in enumerate(slots[1:], 1):
                 rep = replicas.setdefault(d, {})
                 if name not in rep:
@@ -228,34 +324,55 @@ def place(model: nn.Module, mesh, rules, *, cut: bool = True
                         requires_grad=p.requires_grad)
                 set_param(modules[s], name, rep[name])
             continue
-        if p.shape[dim] % n:
-            raise ValueError(f"{name}: axis {dim} of {tuple(p.shape)} does "
-                             f"not divide over {n} slots")
-        shards = link([nn.Parameter(t, requires_grad=p.requires_grad)
-                       for t in split(p, dim, slots)], dim)
+        for ax, size in ((dim, data), (tp_dim, model_size)):
+            if ax is not None and p.shape[ax] % size:
+                raise ValueError(f"{name}: axis {ax} of {tuple(p.shape)} "
+                                 f"does not divide over {size} slots")
+        shape = (data, model_size)
+        made: Dict[tuple, nn.Parameter] = {}
+        grid = []
+        for s, d in enumerate(slots):
+            i, j = divmod(s, model_size)
+            key = (i if dim is not None else 0,
+                   j if tp_dim is not None else 0, d)
+            if key not in made:
+                made[key] = nn.Parameter(
+                    _piece(p.detach(), s, dim, tp_dim, shape).to(
+                        d, copy=True, memory_format=torch.contiguous_format),
+                    requires_grad=p.requires_grad)
+            grid.append(made[key])
+        link(grid, dim, tp_dim=tp_dim, shape=shape)
         for s in range(n):
-            set_param(modules[s], name, shards[s])
+            set_param(modules[s], name, grid[s])
         del p
+    for m in modules:
+        m.tp_size = model_size
     return modules
 
 
 def batch_slots(rules, batch: int):
-    """(the slot of each batch shard, the split of the rows) on
-    ``rules``' mesh: one shard a slot where ``batch_specs`` cuts the
-    batch, else the whole batch once on each distinct device (its first
-    slot)."""
+    """(the first slot of each data row that runs a batch shard, the
+    split of the rows) on ``rules``' mesh: one shard a data row where
+    ``batch_specs`` cuts the batch (every rank of a row sees the row's
+    rows), else the whole batch once on each distinct device of the
+    rows' first slots."""
     from ..models.convert import ShapeLeaf
     slots = list(rules.mesh.devices.flat)
+    model_size = rules.mesh.shape.get("model", 1)
+    rows = list(range(0, len(slots), model_size))
     spec = rules.batch_specs({"x": ShapeLeaf((batch,))}, batch)["x"]
     if spec[0] is None:
-        return [slots.index(d) for d in dict.fromkeys(slots)], 1
-    return list(range(len(slots))), len(slots)
+        seen = {}
+        for r in rows:
+            seen.setdefault(slots[r], r)
+        return list(seen.values()), 1
+    return rows, len(rows)
 
 
 def load_whole(model: nn.Module, state: Dict[str, torch.Tensor]) -> None:
     """Copy whole tensors (a state dict) into ``model``'s parameters:
-    a sharded leaf receives its cut in every slot's shard; a whole one
-    is copied as ``load_state_dict`` does.  The step copies the
+    every distinct shard of a cut leaf receives its slot's cut; a whole
+    one is copied as ``load_state_dict`` does.  The step copies the
     replicated leaves to its other devices at its next new optimizer
     state."""
     params = dict(model.named_parameters())
@@ -269,10 +386,10 @@ def load_whole(model: nn.Module, state: Dict[str, torch.Tensor]) -> None:
             if g is None:
                 p.copy_(t)
                 continue
-            for s, part in zip(g.shards, t.chunk(len(g.shards), g.dim)):
-                s.copy_(part)
+            for u, s in zip(g.unique(), g.first_slots()):
+                u.copy_(g.piece(t, s))
 
 
-__all__ = ["Group", "group", "link", "slot", "split", "whole",
-           "place_like", "gather",
-           "shard_dims", "set_param", "place", "batch_slots", "load_whole"]
+__all__ = ["Group", "group", "link", "slot", "split", "whole", "like",
+           "place_like", "gather", "cut_dims", "shard_dims", "set_param",
+           "place", "batch_slots", "load_whole"]

@@ -1,0 +1,260 @@
+"""Tensor-parallel collectives over the ``model`` axis of one data row —
+what GSPMD inserts for the reference's specs that cut heads, FFN
+columns, experts, SSD heads and the vocabulary over ``model``
+(``ShardingRules._param_rule``), written out as autograd functions.
+
+One Python thread drives every rank of a row (``train.step``), so a
+collective takes the list of the ranks' tensors, in rank order, and
+returns one tensor a rank on that rank's device; a sum is a fold in
+fp32, rank 0 first, cast once to the parts' dtype (the style of
+``collectives.all_reduce_mean``).  Where every rank lies on one device
+(the CPU tests, one card), each copy is a view, never a second
+allocation.
+
+  * ``copy_to_ranks(x, devices)`` — Megatron's *f*: each rank gets
+    ``x``; the backward sums the ranks' gradients;
+  * ``reduce_from_ranks(parts)`` — Megatron's *g*: the sum of the
+    row-parallel partials.  The sum lands once, on rank 0's device:
+    what follows it is replicated work, which the port runs once a row
+    (so a shared replica's gradient is not counted once a rank); its
+    backward hands that gradient to every rank — the identity a rank of
+    Megatron's, whose copy would take the same gradient;
+  * ``all_gather(parts, dim)`` / ``reduce_scatter_seq(parts, dim)`` —
+    the sequence-parallel pair, along axis 1 for the ``btd_sp``
+    residual and along the feature axis for ``btd_fsdp``; each is the
+    other's backward;
+  * ``gather_seq(parts, dim)`` — the cut parts joined once, on rank 0's
+    device (its backward cuts the gradient back);
+  * ``split_to_ranks(x, dim, devices)`` — rank j takes the j-th cut of
+    ``x`` (a replicated residual entering the sequence-parallel layout,
+    the routing tensors cut over the experts); the backward joins the
+    gradients on ``x``'s device.
+
+``enter`` and ``leave`` put them together at a sublayer's edges: the
+ranks' normed inputs from the row's residual, and the residual's
+update from the ranks' outputs.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+f32 = torch.float32
+
+
+def _fold(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """Σ parts in fp32 on ``device``, rank 0 first, cast once to the
+    parts' dtype."""
+    total = parts[0].to(device, f32, copy=True)
+    for p in parts[1:]:
+        total.add_(p.to(device, f32))
+    return total.to(parts[0].dtype)
+
+
+def _to(x: torch.Tensor, device) -> torch.Tensor:
+    """``x`` on ``device``: a view where it lies there already."""
+    return x.view_as(x) if x.device == device else x.to(device)
+
+
+def _dim(dim: int, nd: int) -> int:
+    return dim % nd
+
+
+def _bounds(n: int, t: int, dim: int) -> List[int]:
+    if n % t:
+        raise ValueError(f"axis {dim} of size {n} does not divide over "
+                         f"{t} ranks")
+    return [n // t] * t
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, x):
+        ctx.device = x.device
+        return tuple(_to(x, d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, _fold(grads, ctx.device)
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.devices = [p.device for p in parts]
+        return _fold(parts, parts[0].device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(_to(g, d) for d in ctx.devices)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *parts):
+        ctx.dim = dim
+        ctx.devices = [p.device for p in parts]
+        ctx.sizes = [p.shape[dim] for p in parts]
+        joined = {}
+        out = []
+        for d in ctx.devices:
+            if d not in joined:
+                joined[d] = torch.cat([p.to(d) for p in parts], dim)
+                out.append(joined[d])
+            else:
+                out.append(joined[d].view_as(joined[d]))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out, start = [], 0
+        for d, n in zip(ctx.devices, ctx.sizes):
+            out.append(_fold([g.narrow(ctx.dim, start, n) for g in grads],
+                             d))
+            start += n
+        return (None,) + tuple(out)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *parts):
+        ctx.dim = dim
+        ctx.devices = [p.device for p in parts]
+        n = parts[0].shape[dim]
+        sizes = _bounds(n, len(parts), dim)
+        out, start = [], 0
+        for d, size in zip(ctx.devices, sizes):
+            out.append(_fold([p.narrow(dim, start, size) for p in parts], d))
+            start += size
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        joined = {}
+        for d in ctx.devices:
+            if d not in joined:
+                joined[d] = torch.cat([g.to(d) for g in grads], ctx.dim)
+        return (None,) + tuple(joined[d] for d in ctx.devices)
+
+
+class _GatherRow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *parts):
+        ctx.dim = dim
+        ctx.devices = [p.device for p in parts]
+        ctx.sizes = [p.shape[dim] for p in parts]
+        return torch.cat([p.to(parts[0].device) for p in parts], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(_to(p, d) for p, d in zip(
+            torch.split(g, ctx.sizes, ctx.dim), ctx.devices))
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, devices, x):
+        ctx.dim = dim
+        ctx.device = x.device
+        sizes = _bounds(x.shape[dim], len(devices), dim)
+        return tuple(_to(p, d) for p, d in zip(torch.split(x, sizes, dim),
+                                               devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, None, torch.cat([g.to(ctx.device) for g in grads],
+                                     ctx.dim)
+
+
+def copy_to_ranks(x: torch.Tensor, devices: Sequence) -> List[torch.Tensor]:
+    """Megatron's *f*: ``x`` on every rank's device (views where it lies
+    there); the backward sums the ranks' gradients onto ``x``."""
+    return list(_Copy.apply(list(devices), x))
+
+
+def reduce_from_ranks(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Megatron's *g*: Σ of the row-parallel partials in fp32, rank 0
+    first, cast once, on rank 0's device; every rank's partial takes its
+    gradient."""
+    if len(parts) == 1:
+        return parts[0]
+    return _Reduce.apply(*parts)
+
+
+def all_gather(parts: Sequence[torch.Tensor], dim: int
+               ) -> List[torch.Tensor]:
+    """The parts joined along ``dim`` on every rank's device (one join a
+    distinct device, views for the ranks that share it); the backward is
+    the reduce-scatter of the ranks' gradients."""
+    return list(_AllGather.apply(_dim(dim, parts[0].dim()), *parts))
+
+
+def reduce_scatter_seq(parts: Sequence[torch.Tensor], dim: int
+                       ) -> List[torch.Tensor]:
+    """Rank j's cut of Σ parts along ``dim`` (fp32, rank 0 first, cast
+    once), on rank j's device; the backward all-gathers the gradient."""
+    return list(_ReduceScatter.apply(_dim(dim, parts[0].dim()), *parts))
+
+
+def gather_seq(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    """The parts joined along ``dim`` once, on rank 0's device."""
+    return _GatherRow.apply(_dim(dim, parts[0].dim()), *parts)
+
+
+def split_to_ranks(x: torch.Tensor, dim: int, devices: Sequence
+                   ) -> List[torch.Tensor]:
+    """Rank j's j-th equal cut of ``x`` along ``dim``, on rank j's device
+    (a view where it lies there)."""
+    return list(_Split.apply(_dim(dim, x.dim()), list(devices), x))
+
+
+# --------------------------------------------------------------------- #
+# a sublayer's entry and exit on a data row's residual
+# --------------------------------------------------------------------- #
+
+def enter(xs: Sequence[torch.Tensor], axis, norm, devices: Sequence
+          ) -> List[torch.Tensor]:
+    """Each rank's whole normed input of a sublayer from the row's
+    residual ``xs`` — ``[x]``, the replicated value (``axis`` None), or
+    the ranks' cuts along ``axis``.  ``norm(x, rank)`` norms with that
+    rank's replica of the weights.  Replicated: normed once, then *f*
+    (its backward sums the ranks' gradients before the norm's, as one
+    device does, and a replica shared by the ranks takes one gradient).
+    Cut along the sequence (the ``btd_sp`` layout): each rank norms its
+    cut, then the all-gather (Megatron's sequence parallelism; each
+    rank's weight gradient is its rows' share).  Cut along the feature
+    axis (``btd_fsdp``), which a norm needs whole: joined on rank 0
+    (``gather_seq``), normed once, then *f*."""
+    if axis is None:
+        return copy_to_ranks(norm(xs[0], 0), devices)
+    if axis == 1:
+        return all_gather([norm(x, j) for j, x in enumerate(xs)], 1)
+    return copy_to_ranks(norm(gather_seq(xs, axis), 0), devices)
+
+
+def ranks_to_run(partial: bool, axis, t: int) -> range:
+    """The ranks that compute a sublayer: all of them, save for a whole
+    (uncut) sublayer on a replicated residual, which rank 0 runs once."""
+    return range(t if partial or axis is not None else 1)
+
+
+def leave(outs: Sequence[torch.Tensor], axis, partial: bool
+          ) -> List[torch.Tensor]:
+    """The residual's update in its layout from the ranks' sublayer
+    outputs: row-parallel partials are summed (the reduce-scatter along
+    ``axis``, or *g* to the replicated value); whole outputs are cut to
+    each rank's part (no collective), or rank 0's is taken."""
+    if partial:
+        return (reduce_scatter_seq(outs, axis) if axis is not None
+                else [reduce_from_ranks(outs)])
+    if axis is None:
+        return [outs[0]]
+    n = outs[0].shape[axis] // len(outs)
+    return [o.narrow(axis, j * n, n) for j, o in enumerate(outs)]
+
+
+__all__ = ["copy_to_ranks", "reduce_from_ranks", "all_gather",
+           "reduce_scatter_seq", "gather_seq", "split_to_ranks", "enter",
+           "ranks_to_run", "leave"]

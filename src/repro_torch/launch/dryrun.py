@@ -11,29 +11,34 @@ compiles each cell on 512 placeholder TPU devices and reads
     accumulators) and the AdamW moments; a decode cell adds its cache
     (``cache_specs``);
   * peak bytes — where the state fits the card, the port's own train
-    step (FSDP placement over the data axis), prefill or decode, run on
-    fake tensors
+    step (FSDP placement over the data axis; on ``1x4`` and ``2x2``
+    tensor parallelism over the model axis too), prefill or decode, run
+    on fake tensors
     (``FakeTensorMode``) under ``MemTracker``, over a fake mesh of the
-    cell's devices (``cuda:0``…``cuda:3`` for ``4x1``), so each device's
+    cell's devices (``cuda:0``…``cuda:3`` for ``4x1``, ``1x4`` and
+    ``2x2``), so each device's
     peak is its own.  The fake ``cuda`` tensors take the port's card
     path (bf16 GEMMs with fp32 outputs) — the dry run's explicit
     ``device`` argument, not a fallback: the model entry points asked
     for ``cuda`` without a card still raise.  Fake ``cuda`` tensors
     need a PyTorch built with CUDA and as many visible cards as the mesh
     has slots (their memory unused); ``device="cpu"`` runs anywhere, but
-    there the slots of ``4x1`` share one device: the record keeps their
-    summed peak (``peak_mode`` says so) and gives no per-card peak and
-    no ``fits_80gb``.  A cell whose state alone
+    there the slots of a four-slot mesh share one device: the record
+    keeps their summed peak (``peak_mode`` says so) and gives no
+    per-card peak and no ``fits_80gb``.  A cell whose state alone
     exceeds 80 GB a device does not fit (the peak holds the state) and
-    runs no step; the ``pod`` and ``multipod`` layouts (``model`` = 16)
-    carry the state bytes only: the port runs no tensor parallelism;
+    runs no step; prefill and decode at ``model`` > 1 and the ``pod``
+    and ``multipod`` layouts (``model`` = 16) carry the state bytes only
+    (``TP_QUEUED``);
   * roofline — ``analysis.step_flops`` and ``analysis.hbm_bytes`` (the
     reference's analytic terms), and a collective term reckoned from the
-    FSDP step's own traffic: each layer's all-gathers (twice under
+    step's own traffic: each layer's FSDP all-gathers (twice under
     remat: the forward and the recomputation), the reduce-scatter of the
     sharded leaves' gradients and the all-reduce of the replicated
-    leaves' — with no HLO to parse, ``analysis.parse_collectives`` is
-    not used — over the NVIDIA H100 SXM's datasheet rates.
+    leaves', and at ``model`` > 1 the tensor-parallel collectives
+    (``tp_collectives``) — with no HLO to parse,
+    ``analysis.parse_collectives`` is not used — over the NVIDIA H100
+    SXM's datasheet rates.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k \\
@@ -96,8 +101,11 @@ ACCUM_DTYPE = {
     "jamba-1.5-large-398b": "bfloat16",
 }
 
-MESHES = ("1x1", "4x1", "pod", "multipod")
-NO_TP = "the port runs no tensor parallelism (model axis 16)"
+MESHES = ("1x1", "4x1", "1x4", "2x2", "pod", "multipod")
+TP_QUEUED = ("queued in the port: prefill and decode under tensor "
+             "parallelism (the sequence-parallel cache) and the pod layouts' "
+             "per-slot peak (one slot's local program of 256); the train "
+             "step at model > 1 runs on 1x4 / 2x2")
 
 # ------------------------------------------------------------------------ #
 
@@ -118,9 +126,10 @@ def model_flops(cfg, shape: ShapeSpec) -> float:
 
 
 def make_mesh(name: str, device: str = "cuda") -> Mesh:
-    """A cell's mesh: ``1x1`` / ``4x1`` (data × model) over fake devices
-    ``<device>:0``… (all one device for ``cpu``), or the reference's
-    production layouts (placeholder devices)."""
+    """A cell's mesh: ``1x1`` / ``4x1`` / ``1x4`` / ``2x2`` (data ×
+    model) over fake devices ``<device>:0``… (all one device for
+    ``cpu``), or the reference's production layouts (placeholder
+    devices)."""
     if name in ("pod", "multipod"):
         return make_production_mesh(multi_pod=name == "multipod")
     data, model = (int(x) for x in name.split("x"))
@@ -179,17 +188,23 @@ def state_bytes(cfg, ref_shapes, rules, shape: ShapeSpec, *, accum: int,
 
 
 def fsdp_collectives(ref_shapes, dims, n: int, kind: str, *, accum: int,
-                     remat: bool, grad_bytes: int) -> Dict[str, Any]:
+                     remat: bool, grad_bytes: int, tp: int = 1
+                     ) -> Dict[str, Any]:
     """Per-device wire bytes of the FSDP step's own collectives
     (``analysis._wire_bytes``' ring factors): the layers' all-gathers
     (each microbatch; twice under remat), the reduce-scatter of the
     sharded leaves' gradients (each microbatch) and the all-reduce of
     the replicated leaves' gradients (``grad_bytes`` an element, once);
-    prefill and decode gather once."""
+    prefill and decode gather once.  ``dims``: each stacked leaf's
+    (cut over data, cut over model); a leaf cut over ``model`` moves its
+    TP rank's 1/``tp`` over the data axis."""
     sharded = replicated = 0
     for name, leaf in _named_leaves(ref_shapes):
         b = int(np.prod(leaf.shape)) * leaf.dtype.itemsize
-        if dims[name]:
+        data_cut, tp_cut = dims[name]
+        if tp_cut:
+            b //= tp
+        if data_cut:
             sharded += b
         else:
             replicated += b // leaf.dtype.itemsize * grad_bytes
@@ -217,13 +232,63 @@ def _named_leaves(tree, prefix=""):
             yield prefix + k, v
 
 
-def _stacked_dims(cfg, rules, params) -> Dict[str, bool]:
+def tp_collectives(cfg, shape: ShapeSpec, mesh: Mesh, *, accum: int,
+                   remat: bool) -> Dict[str, Any]:
+    """Per-device wire bytes of the tensor-parallel step's collectives
+    over the model axis (``analysis._wire_bytes``' ring factors), for
+    one data row's rows (B / data) of S tokens in the model's dtype:
+    each sublayer (attention, FFN, SSD mixer; whisper's cross-attention
+    too) enters with an all-gather of the residual cut over ``model``
+    and leaves with a reduce-scatter of its row-parallel partials (the
+    sequence-parallel pair of ``distributed.tp``; an all-reduce each
+    where the sequence does not divide), in the forward, again in the
+    recomputation under remat, and swapped in the backward; the SSD
+    mixers also all-gather B and C (their convs' outputs); the
+    vocabulary-parallel loss all-reduces three fp32 numbers a token
+    (max, sum of exponentials, gold logit)."""
+    t = mesh.shape["model"]
+    rows = shape.batch // mesh.shape["data"]
+    item = _dtype_bytes(cfg.dtype)
+    act = rows * shape.seq * cfg.d_model * item
+    if cfg.is_encoder_decoder:
+        sub = 2 * cfg.num_encoder_layers + 3 * cfg.num_layers
+    elif cfg.family == "ssm":
+        sub = cfg.num_layers
+    else:
+        sub = 2 * cfg.num_layers
+    passes = (3 if remat else 2) * accum
+    sp = shape.seq % t == 0
+    per_op = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
+    if sp:
+        per_op["all-gather"] = analysis._wire_bytes(
+            "all-gather", act, t) * sub * passes
+        per_op["reduce-scatter"] = analysis._wire_bytes(
+            "reduce-scatter", act / t, t) * sub * passes
+    else:
+        per_op["all-reduce"] = analysis._wire_bytes(
+            "all-reduce", act, t) * 2 * sub * passes
+    mixers = (cfg.num_layers if cfg.family == "ssm" else
+              cfg.num_layers - cfg.num_layers // cfg.attn_period
+              if cfg.attn_period else 0)
+    gn = cfg.ssm_groups * cfg.ssm_state
+    if mixers and gn % t == 0:
+        per_op["all-gather"] += analysis._wire_bytes(
+            "all-gather", 2 * rows * shape.seq * gn * item, t) \
+            * mixers * passes
+    per_op["all-reduce"] += analysis._wire_bytes(
+        "all-reduce", 3 * rows * shape.seq * 4, t) * passes
+    return {"bytes_per_op": per_op, "total_bytes": sum(per_op.values()),
+            "sublayers": sub, "sequence_parallel": sp}
+
+
+def _stacked_dims(cfg, rules, params) -> Dict[str, tuple]:
     """Whether each reference leaf (dotted stacked name) is cut over the
-    FSDP axes."""
+    FSDP axes, and whether over ``model``."""
     out = {}
-    for name, dim in fsdp.shard_dims(cfg, rules, params).items():
+    for name, (dim, tp_dim) in fsdp.cut_dims(cfg, rules, params).items():
         key = ".".join(p for p in name.split(".") if not p.isdigit())
-        out[key] = out.get(key, False) or dim is not None
+        data_cut, tp_cut = out.get(key, (False, False))
+        out[key] = (data_cut or dim is not None, tp_cut or tp_dim is not None)
     return out
 
 
@@ -364,12 +429,14 @@ def lower_cell(arch: str, shape, mesh, *, device: str = "cuda",
                         moment_dtype=mdt, accum_dtype=adt,
                         cache_struct=cache_struct)
 
-    tp = mesh.shape["model"] > 1
+    tp = mesh.shape["model"]
+    queued = tp > 1 and (shape.kind != "train" or "pod" in mesh.axis_names
+                         or mesh.size > 4)
     over = state["total"] >= HBM_CAPACITY
     t0 = time.time()
     peaks, peak_reason = None, None
-    if tp:
-        peak_reason = NO_TP
+    if queued:
+        peak_reason = TP_QUEUED
     elif over:
         # the port holds at least the spec tables' state on each device
         peak_reason = (f"the state alone, {state['total'] / 1e9:.1f} GB a "
@@ -403,9 +470,15 @@ def lower_cell(arch: str, shape, mesh, *, device: str = "cuda",
                                      shape.kind, n,
                                      cache_bytes_total=cache_bytes)
     grad_item = _dtype_bytes(adt) if accum > 1 else _dtype_bytes(cfg.dtype)
-    coll = None if tp else fsdp_collectives(
-        ref_shapes, dims, rules.fsdp_size, shape.kind, accum=accum,
-        remat=True, grad_bytes=grad_item)
+    coll = None
+    if not queued:
+        coll = fsdp_collectives(
+            ref_shapes, dims, rules.fsdp_size, shape.kind, accum=accum,
+            remat=True, grad_bytes=grad_item, tp=tp)
+        if tp > 1:
+            coll["tp"] = tp_collectives(cfg, shape, mesh, accum=accum,
+                                        remat=True)
+            coll["total_bytes"] += coll["tp"]["total_bytes"]
     mf = model_flops(cfg, shape)
     compute_t = a_flops_total / n / PEAK_FLOPS
     memory_t = a_bytes_dev / HBM_BW
@@ -449,13 +522,14 @@ def main(argv=None) -> None:
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
-        help="the fake devices of the 1x1 / 4x1 meshes.  cuda: fake "
-             "cuda:0..3 tensors, one device a slot, so each peak is one "
+        help="the fake devices of the 1x1 / 4x1 / 1x4 / 2x2 meshes.  cuda: "
+             "fake cuda:0..3 tensors, one device a slot, so each peak is one "
              "card's; needs a PyTorch built with CUDA and as many visible "
-             "cards as the mesh has slots (four for 4x1), whose memory it "
-             "does not use.  cpu: the CPU path, runs anywhere; the slots "
-             "of 4x1 share the one CPU device, so its record holds their "
-             "summed peak and no per-card peak or fit")
+             "cards as the mesh has slots (four for 4x1, 1x4, 2x2), whose "
+             "memory it does not use.  cpu: the CPU path, runs anywhere; "
+             "the slots of a four-slot mesh share the one CPU device, so "
+             "its record holds their summed peak and no per-card peak or "
+             "fit")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)

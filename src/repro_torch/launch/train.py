@@ -22,7 +22,9 @@ monitoring, and optional int8 gradient compression.
 
 ``run(args, mesh=...)`` trains over another mesh, such as
 ``make_host_mesh(data=2, device="cuda:0")``, two batch shards on one
-card.  ``--placement replicated`` keeps one replica of the weights and
+card, or ``make_host_mesh(data=2, model=2)``, tensor parallelism over
+the model axis too (heads, FFN, experts, SSD heads and vocabulary cut
+over it, as the spec tables say).  ``--placement replicated`` keeps one replica of the weights and
 moments a device instead.
 """
 

@@ -29,9 +29,10 @@ from torch import nn
 
 from . import layers as L
 from .config import ModelConfig
-from ..distributed import actctx
-from .transformer import (check_device, register_tree, seeded_generator,
-                          shifted_labels)
+from ..distributed import actctx, tp
+from .transformer import (attention_run, check_device, check_not_tp,
+                          embed_tp, head_loss_tp, mlp_run, register_tree,
+                          seeded_generator, shifted_labels, sublayer_tp)
 
 f32 = torch.float32
 
@@ -100,6 +101,7 @@ class EncDec(nn.Module):
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, S_enc, d_model) stub embeddings -> encoder states."""
         cfg = self.cfg
+        check_not_tp(self, None)
         b, s, _ = frames.shape
         positions = self._positions(b, s)
         x = (frames.to(self.device, self.dtype)
@@ -138,6 +140,7 @@ class EncDec(nn.Module):
         """Decoder hidden states (B, S, d) and the self-attention cache
         (updated in place)."""
         cfg = self.cfg
+        check_not_tp(self, cache)
         b, s = tokens.shape
         positions = self._positions(b, s, 0 if cache_pos is None
                                     else int(cache_pos))
@@ -174,11 +177,77 @@ class EncDec(nn.Module):
         The head is the padded ``embed.T``.  ``remat`` is accepted and
         unused, as in the reference."""
         dev = self.device
+        if actctx.tp_ranks() is not None:
+            return self._loss_tp(
+                torch.as_tensor(batch["frames"], device=dev),
+                torch.as_tensor(batch["tokens"], device=dev))
         enc_out = self.encode(torch.as_tensor(batch["frames"], device=dev))
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         hidden, _ = self.decode(tokens, self._cross_kv(enc_out))
         labels, mask = shifted_labels(tokens)
         return L.chunked_ce_loss(hidden, self.embed.t(), labels, mask)
+
+    # ------------------------------------------------------------------ #
+    def _loss_tp(self, frames: torch.Tensor, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+        """``loss`` over the running data row's TP ranks (the train step
+        of a ``(data, model)`` mesh): both stacks' layers over the ranks,
+        the residuals cut along the sequence where their pins ask
+        (``btd_sp``), the encoder's output and the cross K/V computed
+        once a row and handed to the ranks, the decoder's
+        vocabulary-parallel embedding and loss.  This module is rank 0's;
+        the others are ``actctx.tp_ranks()``."""
+        cfg = self.cfg
+        ranks, devices = actctx.tp_ranks(), actctx.tp_devices()
+
+        def ln(ps, key):
+            return lambda h, j: self._ln(h, ps[j][key])
+
+        def attn(ps, key, positions, causal, kv=None):
+            return attention_run(cfg, [p[key] for p in ps], positions,
+                                 window=0, rope=False, causal=causal, kv=kv)
+
+        b, s, _ = frames.shape
+        positions = self._positions(b, s)
+        x = (frames.to(self.dtype)
+             + sinusoidal(positions, cfg.d_model).to(self.dtype))
+        xs, axis = [actctx.shard(x, "btd")], None
+        for l in range(cfg.num_encoder_layers):
+            xs, axis = actctx.shard_ranks(xs, axis, "btd_sp")
+            ps = [actctx.gather_params(m.enc_layers[l], rank=j)
+                  for j, m in enumerate(ranks)]
+            xs = sublayer_tp(xs, axis, ln(ps, "ln1"),
+                             attn(ps, "attn", positions, False))
+            xs = sublayer_tp(xs, axis, ln(ps, "ln2"),
+                             mlp_run(cfg, [p["mlp"] for p in ps]))
+        enc = self._ln(xs[0] if axis is None else tp.gather_seq(xs, axis),
+                       self.enc_norm)
+        ck, cv = self._cross_kv(enc)
+
+        b, s = tokens.shape
+        positions = self._positions(b, s)
+        x = (embed_tp([m.embed for m in ranks], tokens, self.vocab_padded
+                      ).to(self.dtype)
+             + sinusoidal(positions, cfg.d_model).to(self.dtype))
+        xs, axis = [actctx.shard(x, "btd")], None
+        for l in range(cfg.num_layers):
+            xs, axis = actctx.shard_ranks(xs, axis,
+                                          "btd_sp" if s > 1 else "btd")
+            ps = [actctx.gather_params(m.dec_layers[l], rank=j)
+                  for j, m in enumerate(ranks)]
+            xs = sublayer_tp(xs, axis, ln(ps, "ln1"),
+                             attn(ps, "self", positions, True))
+            kv = list(zip(tp.copy_to_ranks(ck[l], devices),
+                          tp.copy_to_ranks(cv[l], devices)))
+            xs = sublayer_tp(xs, axis, ln(ps, "ln2"),
+                             attn(ps, "cross", positions, False, kv))
+            xs = sublayer_tp(xs, axis, ln(ps, "ln3"),
+                             mlp_run(cfg, [p["mlp"] for p in ps]))
+        hiddens = tp.enter(xs, axis, lambda h, j: self._ln(
+            h, ranks[j].dec_norm), devices)
+        labels, mask = shifted_labels(tokens)
+        return head_loss_tp(hiddens, [m.embed.t() for m in ranks], labels,
+                            mask, self.vocab_padded)
 
     def logits(self, hidden_last: torch.Tensor) -> torch.Tensor:
         """(B, d) -> (B, vocab) fp32 logits against the tied embedding."""

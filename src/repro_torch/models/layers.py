@@ -255,7 +255,8 @@ def attention(params: Mapping, x: torch.Tensor, *,
               rope: bool, rope_theta: float, norm_eps: float,
               cache: Optional[dict] = None, cache_pos: Optional[int] = None,
               kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              causal: bool = True) -> Tuple[torch.Tensor, Optional[dict]]:
+              causal: bool = True, num_heads: Optional[int] = None,
+              head_offset: int = 0) -> Tuple[torch.Tensor, Optional[dict]]:
     """GQA attention (``params``: the layer's weights; the reference's
     ``params`` pytree becomes any mapping of tensors).
 
@@ -273,15 +274,40 @@ def attention(params: Mapping, x: torch.Tensor, *,
     (``dynamic_update_slice``), overwriting earlier entries — the port
     raises ``ValueError`` instead.  ``window`` is this layer's integer
     window (0 = full).  Returns (output (B,S,d), cache or None).
+
+    Tensor parallelism: ``params["wq"]`` / ``["wo"]`` may hold a TP
+    rank's heads, global heads ``head_offset`` … of ``num_heads``; the
+    rank takes the kv heads its query heads map to under the global GQA
+    grouping (head h ↦ h // (num_heads / G)), slicing the whole
+    ``wk``/``wv`` (or ``kv_override``) for the compute only, and the
+    output is the rank's row-parallel partial of the sum over heads.
     """
     b, s, d = x.shape
     wide = s > 1        # decode accumulates in the activation dtype
     q = contract(x, params["wq"], wide).to(f32)
+    local = params["wq"].shape[-2]
+    heads = local if num_heads is None else num_heads
+    kv_idx = None
+    if local != heads:
+        if cache is not None:
+            raise ValueError("attention of a TP rank's heads with a cache: "
+                             "serving under tensor parallelism is not "
+                             "ported")
+        rep = heads // num_kv_heads
+        lo = head_offset // rep
+        hi = (head_offset + local - 1) // rep + 1
+        kv_idx = (torch.arange(local, device=x.device) + head_offset
+                  ) // rep - lo
     if kv_override is None:
-        k = contract(x, params["wk"], wide).to(f32)
-        v = contract(x, params["wv"], wide).to(f32)
+        wk, wv = params["wk"], params["wv"]
+        if kv_idx is not None:
+            wk, wv = wk[..., lo:hi, :], wv[..., lo:hi, :]
+        k = contract(x, wk, wide).to(f32)
+        v = contract(x, wv, wide).to(f32)
     else:
         k, v = kv_override
+        if kv_idx is not None:
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], norm_eps)
         k = (rms_norm(k, params["k_norm"], norm_eps)
@@ -328,9 +354,13 @@ def attention(params: Mapping, x: torch.Tensor, *,
                        params["wo"].reshape(num_heads * hd, d), False)
         return out.to(x.dtype), new_cache
 
-    kh = _expand_kv(k, num_heads).to(x.dtype)                  # (B,T,H,hd)
-    vh = _expand_kv(v, num_heads).to(x.dtype)
-    qc = actctx.shard(q.to(x.dtype), "bthd")
+    if kv_idx is None:
+        kh = _expand_kv(k, num_heads).to(x.dtype)              # (B,T,H,hd)
+        vh = _expand_kv(v, num_heads).to(x.dtype)
+    else:
+        kh = k.index_select(2, kv_idx).to(x.dtype)
+        vh = v.index_select(2, kv_idx).to(x.dtype)
+    qc = actctx.shard(q.to(x.dtype), "bthd", size=heads)
     t_pos = torch.arange(kh.shape[1], device=x.device)
     if s <= Q_CHUNK:
         ctx = _attend_block(qc, kh, vh, positions, t_pos, window, causal,
@@ -408,6 +438,69 @@ def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-__all__ = ["mm_f32", "remat", "chunked_ce_loss", "contract", "rms_norm", "layer_norm", "swiglu", "gelu",
+def vocab_parallel_ce_loss(hiddens, heads, labels: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None,
+                           chunk: int = 512) -> torch.Tensor:
+    """``chunked_ce_loss`` with the head cut over the TP ranks by
+    vocabulary: rank j holds ``hiddens[j]`` (B, S, d), its copy of the
+    hidden state, and ``heads[j]`` (d, V_j), the head's columns
+    V_0 + … + V_{j-1} onwards, on its device.  Each rank builds only its
+    (B, chunk, V_j) fp32 slab; the logsumexp is the global max plus the
+    log of the ranks' sums of exponentials, and the gold logit comes from
+    the rank that owns the label, both joined by
+    ``tp.reduce_from_ranks`` (fp32).  ``labels``/``mask`` and the
+    result lie on rank 0's device; chunks as ``chunked_ce_loss``'s,
+    recomputed in the backward pass over every rank."""
+    from ..distributed import tp
+    b, s, d = hiddens[0].shape
+    dev = labels.device
+    devices = [h.device for h in hiddens]
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.bool, device=dev)
+    offsets = np.cumsum([0] + [w.shape[1] for w in heads[:-1]]).tolist()
+    vocab = sum(w.shape[1] for w in heads)
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    rem = s - n_chunks * chunk
+
+    def one(y, m, *hs):
+        logits = []
+        for j, (h, w) in enumerate(zip(hs, heads)):
+            with actctx.on_rank(j):
+                lj = mm_f32(h.reshape(-1, d), w).reshape(
+                    h.shape[0], h.shape[1], -1)
+                logits.append(actctx.shard(lj, "btf", size=vocab))
+        with torch.no_grad():
+            top = torch.stack([lj.amax(-1).to(dev) for lj in logits]
+                              ).amax(0)                        # (B, c)
+        sums, golds = [], []
+        for j, (lj, off) in enumerate(zip(logits, offsets)):
+            yj = y.to(devices[j]).long() - off
+            inside = (yj >= 0) & (yj < lj.shape[-1])
+            sums.append(torch.exp(lj - top.to(devices[j])[..., None]
+                                  ).sum(-1))
+            gold = torch.gather(lj, -1, yj.clamp(0, lj.shape[-1] - 1
+                                                 )[..., None])[..., 0]
+            golds.append(torch.where(inside, gold, torch.zeros_like(gold)))
+        lse = top + torch.log(tp.reduce_from_ranks(sums))
+        m = m.to(f32)
+        return (torch.sum((lse - tp.reduce_from_ranks(golds)) * m),
+                torch.sum(m))
+
+    tot = torch.zeros((), dtype=f32, device=dev)
+    cnt = torch.zeros((), dtype=f32, device=dev)
+    for i in range(0, n_chunks * chunk, chunk):
+        tl, tc = remat(one, labels[:, i:i + chunk], mask[:, i:i + chunk],
+                       *[h[:, i:i + chunk] for h in hiddens])
+        tot, cnt = tot + tl, cnt + tc
+    if rem:
+        tl, tc = one(labels[:, -rem:], mask[:, -rem:],
+                     *[h[:, -rem:] for h in hiddens])
+        tot, cnt = tot + tl, cnt + tc
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+__all__ = ["mm_f32", "remat", "chunked_ce_loss", "vocab_parallel_ce_loss",
+           "contract", "rms_norm", "layer_norm", "swiglu", "gelu",
            "rope_frequencies", "apply_rope", "normal", "init_attention",
            "init_mlp", "init_embedding", "attention", "mlp", "Q_CHUNK"]

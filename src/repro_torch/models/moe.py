@@ -23,7 +23,7 @@ runs in the backward pass, after the collector has closed.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import List, Mapping, NamedTuple, Tuple
+from typing import List, Mapping, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,32 +96,38 @@ def moe_ffn(params: Mapping, x: torch.Tensor, *, top_k: int,
     with its own capacity (the reference's checkpointed ``lax.scan``
     becomes a loop of ``remat`` calls); S must then be a multiple of
     ``chunk``."""
-    b, s, d = x.shape
-    if s > chunk:
-        if s % chunk:
-            raise ValueError(f"moe_ffn: S={s} is not a multiple of the "
-                             f"dispatch window {chunk}")
-        nc = s // chunk
-        stats = _COLLECT["stats"]
-        first = None if stats is None else len(stats)
-        outs, aux = [], torch.zeros((), dtype=f32, device=x.device)
-        for i in range(nc):
-            out, a = remat(_moe_window, params,
-                           x[:, i * chunk:(i + 1) * chunk], top_k,
-                           capacity_factor)
-            outs.append(out)
-            aux = aux + a
-        if stats is not None:
-            stats[first:] = [st._replace(weight=st.weight / nc)
-                             for st in stats[first:]]
-        return torch.cat(outs, dim=1), aux / nc
-    return _moe_core(params, x, top_k=top_k,
-                     capacity_factor=capacity_factor)
+    (out,), aux = _windows(lambda w: _moe_core(
+        params, w, top_k=top_k, capacity_factor=capacity_factor), [x], chunk)
+    return out, aux
 
 
-def _moe_window(params, x, top_k, capacity_factor):
-    return _moe_core(params, x, top_k=top_k,
-                     capacity_factor=capacity_factor)
+def _windows(fn, xs: Sequence[torch.Tensor], chunk: int):
+    """``fn(*xs) -> (*outs, aux)`` — one output an input — over the
+    inputs' ``chunk``-token windows when S exceeds ``chunk``, each
+    recomputed in the backward pass and its ``AuxStat`` records weighted
+    by 1/windows; the outputs joined, the aux the mean.  Returns (outs,
+    aux)."""
+    s = xs[0].shape[1]
+    if s <= chunk:
+        *outs, aux = fn(*xs)
+        return outs, aux
+    if s % chunk:
+        raise ValueError(f"moe_ffn: S={s} is not a multiple of the "
+                         f"dispatch window {chunk}")
+    nc = s // chunk
+    stats = _COLLECT["stats"]
+    first = None if stats is None else len(stats)
+    outs = [[] for _ in xs]
+    aux = torch.zeros((), dtype=f32, device=xs[0].device)
+    for i in range(nc):
+        *out, a = remat(fn, *[x[:, i * chunk:(i + 1) * chunk] for x in xs])
+        for o, part in zip(outs, out):
+            o.append(part)
+        aux = aux + a
+    if stats is not None:
+        stats[first:] = [st._replace(weight=st.weight / nc)
+                         for st in stats[first:]]
+    return [torch.cat(o, dim=1) for o in outs], aux / nc
 
 
 def top_k_lower_first(values: torch.Tensor, k: int):
@@ -152,8 +158,10 @@ def route(params: Mapping, x: torch.Tensor, *, top_k: int, cap: int):
     return probs, gate_vals * keep.to(f32), gate_idx, pos, keep
 
 
-def _moe_core(params: Mapping, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _dispatch(params: Mapping, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float):
+    """One window's routing: (dispatch (B,S,E,C), combine (B,S,E,C), both
+    in ``x``'s dtype, the aux loss); records its ``AuxStat``."""
     b, s, d = x.shape
     e = params["router"].shape[-1]
     cap = _capacity(s, e, top_k, capacity_factor)
@@ -176,10 +184,16 @@ def _moe_core(params: Mapping, x: torch.Tensor, *, top_k: int,
                             ).to(x.dtype)                     # (B,S,E,C)
     combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals, onehot, pos_oh
                            ).to(x.dtype)
+    return dispatch, combine, aux
 
+
+def _experts(params: Mapping, x: torch.Tensor, dispatch: torch.Tensor,
+             combine: torch.Tensor) -> torch.Tensor:
+    """The experts of ``params`` (E_local of them, matching the E axis of
+    ``dispatch``/``combine``) on their tokens, combined back: (B,S,d)."""
     # prefill keeps gate/up in fp32; decode (S == 1) accumulates in the
     # activation dtype, as the reference does
-    wide = s > 1
+    wide = x.shape[1] > 1
     xin = torch.einsum("bsd,bsec->becd", x, dispatch).to(x.dtype)
     if wide:
         g = torch.einsum("becd,edf->becf", xin.to(f32),
@@ -191,10 +205,49 @@ def _moe_core(params: Mapping, x: torch.Tensor, *, top_k: int,
         u = torch.einsum("becd,edf->becf", xin, params["w_up"])
     h = (F.silu(g.to(f32)) * u.to(f32)).to(x.dtype)
     eo = torch.einsum("becf,efd->becd", h, params["w_down"]).to(x.dtype)
-    out = torch.einsum("becd,bsec->bsd", eo, combine).to(x.dtype)
-    return out, aux
+    return torch.einsum("becd,bsec->bsd", eo, combine).to(x.dtype)
 
 
-__all__ = ["init_moe", "moe_ffn", "_moe_core", "_capacity", "route",
-           "top_k_lower_first", "MOE_CHUNK", "AuxStat", "collect_aux_stats",
+def _moe_core(params: Mapping, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    dispatch, combine, aux = _dispatch(params, x, top_k=top_k,
+                                       capacity_factor=capacity_factor)
+    return _experts(params, x, dispatch, combine), aux
+
+
+def moe_ffn_tp(params: Sequence[Mapping], xs: Sequence[torch.Tensor], *,
+               top_k: int, capacity_factor: float = 1.25,
+               chunk: int = MOE_CHUNK):
+    """``moe_ffn`` over the TP ranks of a data row: rank j holds
+    ``params[j]`` (the replicated router; its E/t experts where the spec
+    cuts them over ``model``) and ``xs[j]``, its copy of the input
+    (B, S, d).  The row routes once, on rank 0 (so the aux loss and its
+    ``AuxStat`` count once); each rank takes the cut of ``dispatch`` /
+    ``combine`` of its experts (``tp.split_to_ranks``) and returns its
+    partial of the output.  Returns (the ranks' outputs, aux, whether
+    they are partials to sum); experts the axis does not cut run whole
+    on every rank.  Windows as ``moe_ffn``'s."""
+    from ..distributed import tp
+    e = params[0]["router"].shape[-1]
+    partial = params[0]["w_gate"].shape[-3] < e
+    devices = [x.device for x in xs]
+
+    def window(*ws):
+        dispatch, combine, aux = _dispatch(params[0], ws[0], top_k=top_k,
+                                           capacity_factor=capacity_factor)
+        if partial:
+            dsp = tp.split_to_ranks(dispatch, 2, devices)
+            cmb = tp.split_to_ranks(combine, 2, devices)
+        else:
+            dsp = tp.copy_to_ranks(dispatch, devices)
+            cmb = tp.copy_to_ranks(combine, devices)
+        return (*[_experts(p, w, dj, cj) for p, w, dj, cj
+                  in zip(params, ws, dsp, cmb)], aux)
+
+    outs, aux = _windows(window, xs, chunk)
+    return outs, aux, partial
+
+
+__all__ = ["init_moe", "moe_ffn", "moe_ffn_tp", "_moe_core", "_capacity",
+           "route", "top_k_lower_first", "MOE_CHUNK", "AuxStat", "collect_aux_stats",
            "aux_from_stats"]

@@ -16,7 +16,7 @@ segment (z, x, B, C, dt) as in the reference.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -224,6 +224,80 @@ def mamba2_block(params: Mapping, x: torch.Tensor, cfg,
     return out, new_state
 
 
+def mamba2_block_tp(params: Sequence[Mapping], xs: Sequence[torch.Tensor],
+                    cfg):
+    """The train-mode ``mamba2_block`` (no state) over the TP ranks of a
+    data row: rank j holds ``params[j]`` and ``xs[j]``, its copy of the
+    input (B, L, d).  Where the spec cuts the SSD heads over ``model``
+    each rank projects, convolves and scans its heads (``z_proj`` /
+    ``x_proj`` / ``dt_proj`` columns, ``conv_x_*``, ``A_log`` / ``D`` /
+    ``dt_bias``) and returns its row-parallel partial through its rows
+    of ``out_proj``.  B and C are shared by every head of a group, so
+    where the spec also cuts ``b_proj`` / ``c_proj`` and their convs (a
+    storage layout: GSPMD keeps the global semantics) the ranks' conv
+    outputs are all-gathered before the scan, and each rank scans with
+    the groups its heads map to.  Returns (outputs, whether they are
+    partials to sum); heads the axis does not cut run whole on every
+    rank."""
+    from ..distributed import actctx, tp
+    heads, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
+    p = cfg.ssm_head_dim
+    local = params[0]["A_log"].shape[-1]
+    if local == heads:
+        if params[0]["b_proj"].shape[-1] < g * n:
+            raise ValueError(f"SSD heads ({heads}) that the model axis does "
+                             "not cut, with B/C projections that it does")
+        return [mamba2_block(pj, x, cfg)[0] for pj, x in zip(params, xs)], \
+            False
+    rep = heads // g
+    b, l, d = xs[0].shape
+
+    def proj(x, w):
+        return contract(x, w, False).to(x.dtype)
+
+    parts = []
+    for j, (pj, x) in enumerate(zip(params, xs)):
+        with actctx.on_rank(j):
+            parts.append({
+                "z": proj(x, pj["z_proj"]), "dt_r": proj(x, pj["dt_proj"]),
+                "xc": _causal_conv(proj(x, pj["x_proj"]), pj["conv_x_w"],
+                                   pj["conv_x_b"]),
+                "bc": _causal_conv(proj(x, pj["b_proj"]), pj["conv_b_w"],
+                                   pj["conv_b_b"]),
+                "cc": _causal_conv(proj(x, pj["c_proj"]), pj["conv_c_w"],
+                                   pj["conv_c_b"])})
+    if params[0]["b_proj"].shape[-1] < g * n:
+        for key in ("bc", "cc"):
+            for part, full in zip(parts, tp.all_gather(
+                    [q[key] for q in parts], -1)):
+                part[key] = full
+    chunk = min(cfg.ssm_chunk, l)
+    pad = (-l) % chunk
+    outs = []
+    for j, (pj, x, q) in enumerate(zip(params, xs, parts)):
+        off = j * local
+        lo, hi = off // rep, (off + local - 1) // rep + 1
+        if local % (hi - lo) or (hi - lo > 1 and (off % rep or local % rep)):
+            raise ValueError(f"TP rank {j}'s SSD heads {off}..{off + local} "
+                             f"straddle the groups of {rep} heads")
+        xh = F.silu(q["xc"].to(f32)).to(x.dtype).reshape(b, l, local, p)
+        Bm = F.silu(q["bc"].to(f32)).to(x.dtype).reshape(b, l, g, n)[
+            :, :, lo:hi]
+        Cm = F.silu(q["cc"].to(f32)).to(x.dtype).reshape(b, l, g, n)[
+            :, :, lo:hi]
+        dt = F.softplus(q["dt_r"].to(f32) + pj["dt_bias"][None, None, :])
+        if pad:  # inert padding: dt=0 => a=1, Δx=0
+            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+            dt = F.pad(dt, (0, 0, 0, pad))
+            Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+            Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+        y, _ = _ssd_chunked(xh, dt, pj["A_log"], Bm, Cm, pj["D"], chunk)
+        y = y[:, :l].reshape(b, l, local * p).to(x.dtype)
+        y = y * F.silu(q["z"].to(f32)).to(x.dtype)
+        outs.append(contract(y, pj["out_proj"], False).to(x.dtype))
+    return outs, True
+
+
 def init_mamba_state(cfg, batch: int, dtype: torch.dtype,
                      device="cpu") -> dict:
     di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
@@ -237,5 +311,5 @@ def init_mamba_state(cfg, batch: int, dtype: torch.dtype,
     }
 
 
-__all__ = ["init_mamba2", "mamba2_block", "_ssd_chunked", "_causal_conv",
+__all__ = ["init_mamba2", "mamba2_block", "mamba2_block_tp", "_ssd_chunked", "_causal_conv",
            "_conv_step", "init_mamba_state"]

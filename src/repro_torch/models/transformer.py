@@ -36,10 +36,99 @@ from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
 from .config import ModelConfig
-from ..distributed import actctx
+from ..distributed import actctx, tp
 
 f32 = torch.float32
 AUX_WEIGHT = 0.01          # the MoE aux loss's weight in ``LM.loss``
+SERVE_TP = ("prefill and decode under tensor parallelism (a model axis > 1: "
+            "the KV cache's sequence cut over the model axis, attention's "
+            "softmax spread over its ranks) are the port's next slice; this "
+            "module holds one TP rank's weights, which train only")
+
+
+def check_not_tp(module, cache) -> None:
+    """Refuse a forward outside the train step's tensor-parallel loss on
+    a module placed over a model axis > 1 (its leaves are one rank's),
+    or any forward with a cache inside it."""
+    if getattr(module, "tp_size", 1) > 1 or actctx.tp_ranks() is not None:
+        raise ValueError(("a cache passed under tensor parallelism: "
+                          if cache is not None else "") + SERVE_TP)
+
+
+def embed_tp(embeds, tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The embedding lookup over a row's TP ranks: rank j looks up the
+    tokens among its rows of the vocabulary (``embeds[j]``, a cut of the
+    ``vocab`` rows, or all of them where the spec does not cut it) and
+    zeroes the others; *g* joins the ranks (one nonzero term a token, so
+    the sum is exact).  Returns the rows on rank 0's device."""
+    if embeds[0].shape[0] == vocab:
+        return embeds[0][tokens.to(embeds[0].device)]
+    parts, off = [], 0
+    for e in embeds:
+        tok = tokens.to(e.device).long() - off
+        inside = (tok >= 0) & (tok < e.shape[0])
+        rows = e[tok.clamp(0, e.shape[0] - 1)]
+        parts.append(rows * inside[..., None].to(rows.dtype))
+        off += e.shape[0]
+    return tp.reduce_from_ranks(parts)
+
+
+def sublayer_tp(xs, axis, norm, run):
+    """One sublayer over the running row's TP ranks: ``tp.enter`` (``norm(x,
+    rank)``), ``run(rank, input) -> output`` on the ranks that compute
+    it, ``tp.leave`` and the residual add.  ``run.partial``: whether the
+    outputs are row-parallel partials."""
+    devices = actctx.tp_devices()
+    hs = tp.enter(xs, axis, norm, devices)
+    outs = []
+    for j in tp.ranks_to_run(run.partial, axis, len(devices)):
+        with actctx.on_rank(j):
+            outs.append(run(j, hs[j]))
+    return add_tp(xs, axis, outs, run.partial)
+
+
+def add_tp(xs, axis, outs, partial: bool):
+    """The residual ``xs`` plus a sublayer's update from the ranks'
+    outputs (``tp.leave``; outputs of ranks that need not run are
+    dropped)."""
+    outs = outs[:len(tp.ranks_to_run(partial, axis, len(outs)))]
+    return [x + u for x, u in zip(xs, tp.leave(outs, axis, partial))]
+
+
+def attention_run(cfg, ps, positions, *, window: int, rope: bool,
+                  causal: bool = True, kv=None):
+    """A ``sublayer_tp`` runner: rank j's attention heads (``ps[j]``, its
+    weights; ``kv``: the ranks' copies of a cross-attention's K/V)."""
+    local = ps[0]["wq"].shape[-2]
+
+    def run(j, h):
+        a, _ = L.attention(
+            ps[j], h, positions=positions.to(h.device), window=window,
+            num_kv_heads=cfg.num_kv_heads, rope=rope,
+            rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps, causal=causal,
+            kv_override=None if kv is None else kv[j],
+            num_heads=cfg.num_heads,
+            head_offset=j * local if local < cfg.num_heads else 0)
+        return a
+    run.partial = local < cfg.num_heads
+    return run
+
+
+def mlp_run(cfg, ps):
+    """A ``sublayer_tp`` runner: rank j's FFN columns and rows."""
+    def run(j, h):
+        return L.mlp(ps[j], h)
+    w = ps[0]["w_gate"] if "w_gate" in ps[0] else ps[0]["w_in"]
+    run.partial = w.shape[-1] < cfg.d_ff
+    return run
+
+
+def head_loss_tp(hiddens, heads, labels, mask, vocab: int) -> torch.Tensor:
+    """The cross entropy of a TP row: vocabulary-parallel where the spec
+    cuts the head, else rank 0's whole head on its copy."""
+    if heads[0].shape[1] == vocab:
+        return L.chunked_ce_loss(hiddens[0], heads[0], labels, mask)
+    return L.vocab_parallel_ce_loss(hiddens, heads, labels, mask)
 
 
 # --------------------------------------------------------------------- #
@@ -231,6 +320,7 @@ class LM(nn.Module):
         set; ``remat`` recomputes each layer (each hybrid block, and each
         of its sublayers) in the backward pass."""
         cfg = self.cfg
+        check_not_tp(self, cache)
         x = self.embed[tokens.to(self.device)].to(self.dtype)
         if patch_embeds is not None:  # vlm stub prefix
             x = torch.cat([patch_embeds.to(self.device, self.dtype), x],
@@ -394,12 +484,165 @@ class LM(nn.Module):
         pe = batch.get("patch_embeds")
         if pe is not None:
             pe = torch.as_tensor(pe, device=dev)
+        if actctx.tp_ranks() is not None:
+            return self._loss_tp(tokens, pe, remat)
         hidden, _, aux = self.forward(tokens, patch_embeds=pe, remat=remat)
         if pe is not None:
             hidden = hidden[:, pe.shape[1]:]
         labels, mask = shifted_labels(tokens)
         ce = L.chunked_ce_loss(hidden, self._head(), labels, mask)
         return ce + AUX_WEIGHT * aux
+
+    # ------------------------------------------------------------------ #
+    # tensor parallelism: one data row's TP ranks (``actctx.tp_ranks``)
+    # ------------------------------------------------------------------ #
+
+    def _loss_tp(self, tokens, pe, remat):
+        """``loss`` over the running data row's TP ranks (the train step
+        of a ``(data, model)`` mesh): the vocabulary-parallel embedding,
+        each layer's ranks inside one recomputed region, the residual in
+        the layout its pins ask for (``actctx.shard_ranks``: the sequence
+        cut over ``model`` at ``btd_sp``, the features at ``btd_fsdp``),
+        the final norm and the vocabulary-parallel loss.  This module is
+        rank 0's; the others are ``actctx.tp_ranks()``."""
+        cfg = self.cfg
+        ranks, devices = actctx.tp_ranks(), actctx.tp_devices()
+        x = embed_tp([m.embed for m in ranks], tokens,
+                     self.vocab_padded).to(self.dtype)
+        if pe is not None:
+            x = torch.cat([pe.to(self.dtype), x], dim=1)
+        x = actctx.shard(x, "btd")
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=self.device)[None, :].expand(b, s)
+        xs, axis = [x], None
+        aux = self._zero()
+        if cfg.family == "ssm":
+            for l in range(cfg.num_layers):
+                xs, axis = actctx.shard_ranks(xs, axis, "btd_fsdp")
+                xs = self._tp_call(remat, self._ssm_layer_tp, l, axis, *xs)
+        elif cfg.attn_period:
+            for bi in range(len(self.layers)):
+                xs, axis = actctx.shard_ranks(
+                    xs, axis, "btd_fsdp" if s > 1 else "btd")
+                *xs, a = self._tp_call(remat, self._hybrid_block_tp, bi,
+                                       positions, remat, axis, *xs)
+                aux = aux + a
+        else:
+            for l in range(cfg.num_layers):
+                xs, axis = actctx.shard_ranks(
+                    xs, axis, "btd_sp" if s > 1 else "btd")
+                *xs, a = self._tp_call(
+                    remat, self._attn_layer_tp, l, positions,
+                    cfg.layer_window(l, s), axis, *xs)
+                aux = aux + a
+        hiddens = tp.enter(xs, axis, lambda h, j: L.rms_norm(
+            h, ranks[j].final_norm, cfg.norm_eps), devices)
+        if pe is not None:
+            hiddens = [h[:, pe.shape[1]:] for h in hiddens]
+        labels, mask = shifted_labels(tokens)
+        ce = head_loss_tp(hiddens, [m._head() for m in ranks], labels, mask,
+                          self.vocab_padded)
+        return ce + AUX_WEIGHT * aux
+
+    @staticmethod
+    def _tp_call(remat, fn, *args):
+        out = L.remat(fn, *args) if remat else fn(*args)
+        return list(out) if isinstance(out, tuple) else out
+
+    def _ffn_tp(self, xs, axis, ps, norm):
+        """The FFN sublayer over the row's ranks (MoE or MLP); returns
+        (residual, aux)."""
+        cfg = self.cfg
+        if "router" in ps[0]:
+            hs = tp.enter(xs, axis, norm, actctx.tp_devices())
+            outs, aux, partial = MOE.moe_ffn_tp(
+                ps, hs, top_k=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor,
+                chunk=cfg.moe_dispatch_chunk)
+            return add_tp(xs, axis, outs, partial), aux
+
+        return sublayer_tp(xs, axis, norm, mlp_run(cfg, ps)), self._zero()
+
+    def _attn_layer_tp(self, l, positions, window, axis, *xs):
+        cfg = self.cfg
+        ps = [actctx.gather_params(m.layers[l], rank=j)
+              for j, m in enumerate(actctx.tp_ranks())]
+        xs = sublayer_tp(
+            list(xs), axis,
+            lambda h, j: L.rms_norm(h, ps[j]["ln1"], cfg.norm_eps),
+            attention_run(cfg, [p["attn"] for p in ps], positions,
+                          window=window, rope=cfg.rope))
+        xs, aux = self._ffn_tp(
+            xs, axis, [p["ffn"] for p in ps],
+            lambda h, j: L.rms_norm(h, ps[j]["ln2"], cfg.norm_eps))
+        return (*xs, aux)
+
+    def _mixer_ssm_tp(self, xs, axis, ps, norm):
+        """The SSD mixer over the row's ranks: every rank's input first,
+        then ``mamba2_block_tp`` (B/C are gathered between the ranks'
+        projections and their scans), then ``tp.leave``."""
+        hs = tp.enter(xs, axis, norm, actctx.tp_devices())
+        return add_tp(xs, axis, *SSM.mamba2_block_tp(ps, hs, self.cfg))
+
+    def _ssm_layer_tp(self, l, axis, *xs):
+        cfg = self.cfg
+        ps = [actctx.gather_params(m.layers[l], rank=j)
+              for j, m in enumerate(actctx.tp_ranks())]
+        out = self._mixer_ssm_tp(
+            list(xs), axis, [p["mamba"] for p in ps],
+            lambda h, j: L.rms_norm(h, ps[j]["ln"], cfg.norm_eps))
+        return tuple(out)
+
+    def _hybrid_block_tp(self, bi, positions, remat, axis, *xs):
+        """``_hybrid_block`` over the row's ranks: each mixer and FFN
+        gathers its ranks' weights inside the region it recomputes."""
+        cfg = self.cfg
+        ranks = actctx.tp_ranks()
+        blocks = [m.layers[bi] for m in ranks]
+        aux = self._zero()
+        xs = list(xs)
+        mi = di = ei = 0
+        for j in range(cfg.attn_period):
+            gl_moe = cfg.is_moe_layer(j)  # period-aligned pattern
+
+            def norm(key, j=j):
+                return lambda h, r: L.rms_norm(h, blocks[r][key][j],
+                                               cfg.norm_eps)
+
+            def mixer(axis, *xs, j=j, mi=mi):
+                if j == cfg.attn_index:
+                    ps = [actctx.gather_params(b["attn"], rank=r)
+                          for r, b in enumerate(blocks)]
+                    return tuple(sublayer_tp(
+                        list(xs), axis, norm("ln1"),
+                        attention_run(cfg, ps, positions, window=0,
+                                      rope=cfg.rope)))
+                ps = [actctx.gather_params(b["mamba"][mi], rank=r)
+                      for r, b in enumerate(blocks)]
+                return tuple(self._mixer_ssm_tp(list(xs), axis, ps,
+                                                norm("ln1")))
+
+            def ffn(axis, *xs, gl_moe=gl_moe, di=di, ei=ei):
+                ps = [actctx.gather_params(
+                    b["moe"][ei] if gl_moe else b["mlp"][di], rank=r)
+                    for r, b in enumerate(blocks)]
+                out, a2 = self._ffn_tp(list(xs), axis, ps, norm("ln2"))
+                return (*out, a2)
+
+            xs = self._tp_call(remat, mixer, axis, *xs)
+            if xs[0].shape[1] > 1:
+                xs, axis = actctx.shard_ranks(xs, axis, "btd_fsdp")
+            *xs, a2 = self._tp_call(remat, ffn, axis, *xs)
+            if xs[0].shape[1] > 1:
+                xs, axis = actctx.shard_ranks(xs, axis, "btd_fsdp")
+            if j != cfg.attn_index:
+                mi += 1
+            if gl_moe:
+                ei += 1
+            else:
+                di += 1
+            aux = aux + a2
+        return (*xs, aux)
 
     def logits(self, hidden_last: torch.Tensor) -> torch.Tensor:
         """(B, d) -> (B, vocab) fp32 logits: fp32 products of the hidden
@@ -449,4 +692,6 @@ class LM(nn.Module):
 
 
 __all__ = ["LM", "ParamTree", "register_tree", "check_device",
-           "seeded_generator", "shifted_labels", "AUX_WEIGHT"]
+           "seeded_generator", "shifted_labels", "AUX_WEIGHT", "SERVE_TP",
+           "check_not_tp", "embed_tp", "sublayer_tp", "add_tp",
+           "attention_run", "mlp_run", "head_loss_tp"]

@@ -13,9 +13,9 @@ parameters and moments in place (the PyTorch counterpart of the
 reference's buffer donation): its fp32 temporaries never exceed one
 leaf's, where a whole-tree update would hold an fp32 copy of the model.
 
-Under FSDP placement (``distributed.fsdp``) a parameter may be one
-shard of a leaf cut over the data axis: ``init`` gives it moments of
-every slot's shard, linked the same way, and ``update`` takes the
+Under FSDP and tensor-parallel placement (``distributed.fsdp``) a
+parameter may be one shard of a leaf cut over the data and model axes:
+``init`` gives it moments of every distinct shard, linked the same way, and ``update`` takes the
 global gradient norm from the step, which alone sees every shard.
 """
 
@@ -66,19 +66,14 @@ def lr_schedule(cfg: OptConfig, step) -> torch.Tensor:
 def init(params: Mapping[str, torch.Tensor], moment_dtype=f32) -> Dict:
     """Zero moments of the parameters' shapes, on their devices, and
     ``step`` = 0 (int32, on the first parameter's device).  The moments
-    of an FSDP shard are zeros of every slot's shard, linked as the
-    parameter's shards are."""
+    of a shard are zeros of every distinct shard of its group, linked as
+    the parameter's shards are."""
     if isinstance(moment_dtype, str):
         moment_dtype = _DTYPES[moment_dtype]
 
     def zeros(p):
-        g = fsdp.group(p)
-        if g is None:
-            return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
-        at = fsdp.slot(p)
-        return fsdp.link([torch.zeros(s.shape, dtype=moment_dtype,
-                                      device=s.device) for s in g.shards],
-                         g.dim, anchor=at)[at]
+        return fsdp.like(p, lambda s, _: torch.zeros(
+            s.shape, dtype=moment_dtype, device=s.device))
     dev = next(iter(params.values())).device
     return {"m": {k: zeros(p) for k, p in params.items()},
             "v": {k: zeros(p) for k, p in params.items()},

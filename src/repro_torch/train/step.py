@@ -1,46 +1,51 @@
 """Train-step builder: forward + backward, clip, AdamW, optional
-microbatch accumulation, gradient compression and data parallelism over
-a mesh — port of ``src/repro/train/step.py``.
+microbatch accumulation, gradient compression and data and tensor
+parallelism over a mesh — port of ``src/repro/train/step.py``.
 
 The reference's step is a pure function that XLA compiles, its buffers
-donated, and GSPMD inserts the data-parallel collectives from the
-shardings of its inputs.  Here the weights live in the model and the
-step updates them, and the optimizer's moments, in place; it returns its
-metrics as device tensors and never waits on the host.  With a mesh
-(``model`` axis 1) the step does what GSPMD does for a batch sharded
-over ``data`` and the weights placed as the reference's launcher places
-them (``ShardingRules.param_specs``, ZeRO-3 over the data axis,
-``distributed.fsdp``):
+donated, and GSPMD inserts the collectives from the shardings of its
+inputs.  Here the weights live in the model and the step updates them,
+and the optimizer's moments, in place; it returns its metrics as device
+tensors and never waits on the host.  With a ``(data, model)`` mesh the
+step does what GSPMD does for a batch sharded over ``data`` and the
+weights placed as the reference's launcher places them
+(``ShardingRules.param_specs``: ZeRO-3 over the data axis, tensor
+parallelism over the model axis; ``distributed.fsdp``):
 
   * the batch (every key: ``tokens``, ``patch_embeds``, ``frames``) is
     cut along its leading axis as ``ShardingRules.batch_specs`` says,
-    one shard a slot of the data axis; a batch the axis does not divide
-    is replicated, as in the reference, and each distinct device runs
-    it whole;
-  * every leaf whose spec shards it over the FSDP axes is held as one
-    shard a slot, on the slot's device, and so are its AdamW moments;
-    every other leaf (with ``model`` = 1: the embedding, the head,
-    norms, routers) is one replica a distinct device, shared by the
-    slots on it.  ``placement="replicated"`` cuts no leaf: one replica
-    of every weight and moment a device;
-  * every shard runs its forward on its slot's device; inside each
-    layer's recomputed region the forward all-gathers the layer's
-    shards onto that device (``actctx.gather_params``).  The MoE
-    routing fractions of every dispatch window are all-reduced before
-    any backward, so each shard's loss carries the global Switch aux
-    loss (its gradient flows through the shard's own mean router
-    probabilities only, as in the single-device step); then each shard
-    runs its backward, in which the gather sends each owner its slice
-    of the cotangent: the sharded leaves' gradients arrive
-    reduce-scattered, the replicated leaves' summed on each device, and
-    those are all-reduced across devices in fp32;
-  * the global grad norm is the sum of every owner's local squares plus
-    the replicated leaves' counted once, the ``grad_transform`` runs on
-    each slot's gradients, and each slot runs AdamW on what it holds.
+    one shard a data row of slots (every TP rank of a row sees its
+    rows); a batch the axis does not divide is replicated, as in the
+    reference, and the rows on distinct devices each run it whole;
+  * every leaf the spec cuts over ``model`` (heads, FFN columns and
+    rows, experts, SSD heads, vocabulary) is held as TP rank j's part on
+    the slots of column j, and every leaf it cuts over the FSDP axes as
+    data index i's cut of that on slot (i, j), and so are its AdamW
+    moments; every other leaf is one replica a distinct device, shared
+    by the slots on it.  ``placement="replicated"`` cuts nothing over
+    data; the model axis is always cut;
+  * every data row runs its forward over its TP ranks
+    (``actctx.local_shard(..., ranks=)``: each layer's ranks inside one
+    recomputed region, joined by ``distributed.tp``'s collectives); in
+    each layer the forward all-gathers the layer's data shards onto each
+    rank's device (``actctx.gather_params``).  The MoE routing fractions
+    of every dispatch window are all-reduced over the data rows before
+    any backward, so each row's loss carries the global Switch aux loss
+    (its gradient flows through the row's own mean router
+    probabilities only, as in the single-device step); then each row
+    runs its backward, in which the gathers send each owner its slice of
+    the cotangent;
+  * the tensors that hold one part of a leaf — a replicated leaf's
+    devices, a leaf cut over data but not over ``model`` on the cards
+    of one data index, a replica every TP rank used — are summed in
+    fp32 and share the sum (the data axis's mean, the model axis's sum);
+  * the global grad norm counts each part of each leaf once, the
+    ``grad_transform`` runs on each slot's gradients, and each slot runs
+    AdamW on the tensors it is the first to hold.
 
 So the step's numbers are the single-device step's up to the order of
-sums.  Peak activation memory is the single-device step's too, not 1/n
-of it: every shard's forward is alive until the routing fractions are
+sums.  Peak activation memory is the single-device step's too, not
+1/n of it: every row's forward is alive until the routing fractions are
 reduced.
 """
 
@@ -86,14 +91,16 @@ def make_train_step(model, opt_cfg: opt.OptConfig, *, accum_steps: int = 1,
     reduce-scatter is the gather's backward) and no slot sees a whole
     raw gradient, so there it must be None.
 
-    ``mesh`` (``launch.mesh.Mesh``, ``model`` axis 1): the data-parallel
+    ``mesh`` (``launch.mesh.Mesh`` over ``(data, model)``): the mesh
     step of the module docstring, ``placement`` ``"fsdp"`` (the
-    reference launcher's layout) or ``"replicated"``.  With
+    reference launcher's layout) or ``"replicated"`` over the data axis,
+    tensor parallelism over the model axis.  With
     accumulation each microbatch is cut into the data shards, so
     microbatch i holds the same rows as on one device.  Building the
     step places ``model`` in place (``fsdp.place``; the model must lie
     on the mesh's first device): its cut leaves become slot 0's shards,
-    and the step's ``slots`` holds one module a slot.  ``opt_state`` is
+    and the step's ``slots`` holds one module a slot (slot i·model + j:
+    data row i, TP rank j).  ``opt_state`` is
     slot 0's: ``opt.init`` on the placed model links every slot's
     moments; a state of whole tensors (a restored checkpoint, or
     ``opt.init`` before the step was built) is cut at the first call
@@ -170,29 +177,49 @@ def _aux(stats, model, dev) -> torch.Tensor:
     return MOE.aux_from_stats(stats, model.cfg.num_experts).detach()
 
 
-def _model_axis_one(mesh) -> None:
-    if mesh.shape.get("model", 1) != 1:
-        raise ValueError(
-            f"the port's train step runs data parallelism only (no tensor "
-            f"parallelism); got a model axis of {mesh.shape['model']}")
+def _classes(params, names, mesh):
+    """For each leaf: the slots that hold a distinct tensor of it, in
+    slot order (``owner``: the first slot of each), grouped by the part
+    of the leaf they hold — slots on a column for a cut over ``model``,
+    on a row for a cut over data, all of them for a replicated leaf.
+    Every tensor of a group ends up with the group's summed gradient."""
+    t = mesh.shape.get("model", 1)
+    owners, classes = {}, {}
+    for k in names:
+        seen, per = {}, {}
+        g = fsdp.group(params[0][k])
+        for s, ps in enumerate(params):
+            obj = ps[k]
+            if id(obj) in seen:
+                continue
+            seen[id(obj)] = s
+            key = (None if g is None or g.dim is None else s // t,
+                   None if g is None or g.tp_dim is None else s % t)
+            per.setdefault(key, []).append(s)
+        owners[k] = sorted(seen.values())
+        classes[k] = list(per.values())
+    return owners, classes
 
 
 def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
                         accum_dtype, grad_transform, cut):
-    _model_axis_one(mesh)
     rules = ShardingRules(model.cfg, mesh)
     slots = list(mesh.devices.flat)
     n = len(slots)
+    t = mesh.shape.get("model", 1)
     modules = fsdp.place(model, mesh, rules, cut=cut)
     params = [dict(m.named_parameters()) for m in modules]
-    devices = list(dict.fromkeys(slots))
-    first = {d: slots.index(d) for d in devices}
-    dims = {k: fsdp.group(p).dim for k, p in params[0].items()
-            if fsdp.group(p) is not None}
-    # what slot s holds and updates: its shards, and the replicated
-    # leaves where it is the first slot on its device
-    owned = [[k for k in names if k in dims or first[slots[s]] == s]
-             for s in range(n)]
+    owners, classes = _classes(params, names, mesh)
+    # what slot s holds and updates: the leaves whose tensor it is the
+    # first slot to hold
+    owned = [[k for k in names if s in owners[k]] for s in range(n)]
+    gathers = any(fsdp.group(p) is not None and fsdp.group(p).dim is not None
+                  for p in params[0].values())
+    # a row whose TP ranks lie on several cards runs its backward on this
+    # thread: the recomputed regions switch ranks in ``actctx``'s state,
+    # which the autograd engine's device threads would share
+    spread = t > 1 and any(len(set(slots[r:r + t])) > 1
+                           for r in range(0, n, t))
     held = {"opt_id": None, "opt": None}
 
     def place_opt(opt_state):
@@ -200,40 +227,44 @@ def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
         states = [opt_state] + [{"m": {}, "v": {}} for _ in range(n - 1)]
         for part in ("m", "v"):
             for k in names:
-                t = opt_state[part][k]
-                if k not in dims:
-                    for d in devices[1:]:
-                        states[first[d]][part][k] = t.to(d, copy=True)
+                p0, m = params[0][k], opt_state[part][k]
+                if fsdp.group(p0) is None:
+                    for s in owners[k][1:]:
+                        states[s][part][k] = m.to(slots[s], copy=True)
                     continue
-                if fsdp.group(t) is None:
-                    shape = list(params[0][k].shape)
-                    shape[dims[k]] *= n
-                    if list(t.shape) != shape:
+                if fsdp.group(m) is None:
+                    whole = fsdp.whole(p0, "meta").shape
+                    if m.shape != whole:
                         raise ValueError(
-                            f"opt_state[{part!r}][{k!r}]: {tuple(t.shape)} "
+                            f"opt_state[{part!r}][{k!r}]: {tuple(m.shape)} "
                             "is neither linked shards nor the whole leaf")
-                    t = opt_state[part][k] = fsdp.link(
-                        fsdp.split(t, dims[k], slots), dims[k])[0]
-                for s, shard in enumerate(fsdp.group(t).shards[1:], 1):
-                    states[s][part][k] = shard
+                    m = opt_state[part][k] = fsdp.place_like(m, p0)
+                shards = fsdp.group(m).shards
+                for s in owners[k][1:]:
+                    states[s][part][k] = shards[s]
         for s in range(1, n):
             states[s]["step"] = opt_state["step"].to(slots[s], copy=True)
         with torch.no_grad():
-            for d in devices[1:]:
-                for k in names:
-                    if k not in dims:
-                        params[first[d]][k].copy_(params[0][k])
+            for k in names:
+                if fsdp.group(params[0][k]) is None:
+                    for s in owners[k][1:]:
+                        params[s][k].copy_(params[0][k])
         held.update(opt_id=id(opt_state), opt=states)
 
-    def in_shard(s, split):
+    def in_row(s, split):
+        """The contexts of the data row whose rank 0 is slot ``s``."""
+        row = range(s, s + t)
         return actctx.use(mesh, rules.dp,
-                          gather_rules=rules if dims else None), \
-            actctx.local_shard(split, slots[s])
+                          gather_rules=rules if gathers else None), \
+            actctx.local_shard(split, slots[s],
+                               ranks=[modules[r] for r in row],
+                               devices=[slots[r] for r in row])
 
     def microbatch(mb, runners, split):
-        """Forward every shard, all-reduce the routing fractions,
-        backward every shard (into the leaves' ``.grad``: the
-        reduce-scatter and the device sums).  Returns (loss, aux)."""
+        """Forward every data row (each over its TP ranks), all-reduce
+        the routing fractions, backward every row (into the leaves'
+        ``.grad``: the reduce-scatter, the TP collectives' backward and
+        the device sums).  Returns (loss, aux)."""
         b = next(iter(mb.values())).shape[0]
         outs = []
         for i, s in enumerate(runners):
@@ -241,17 +272,25 @@ def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
                 else (0, b)
             part = {k: torch.as_tensor(v[lo:hi]).to(slots[s])
                     for k, v in mb.items()}
-            use, local = in_shard(s, split)
+            use, local = in_row(s, split)
             with use, local, MOE.collect_aux_stats() as stats:
                 loss = modules[s].loss(part, remat=remat)
             outs.append((loss, stats))
         losses, aux = _global_aux(outs, split, model.cfg.num_experts)
         for i, s in enumerate(runners):
-            use, local = in_shard(s, split)
-            with use, local:      # the recomputed regions gather again
+            use, local = in_row(s, split)
+            with use, local, torch.autograd.set_multithreading_enabled(
+                    not spread):  # the recomputed regions gather again
                 torch.autograd.backward(losses[i])
         losses = [l.detach().to(slots[0]) for l in losses[:split]]
         return sum(losses) / split, aux.to(slots[0])
+
+    def grad_of(s, k):
+        p = params[s][k]
+        g = p.grad
+        p.grad = None
+        # a replica no rank's part reached (a router on a TP rank > 0)
+        return torch.zeros_like(p) if g is None else g
 
     def train_step(opt_state: Dict, batch: Dict) -> Dict:
         if held["opt_id"] != id(opt_state):
@@ -270,45 +309,45 @@ def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
             if accum_steps > 1:
                 for s in range(n):
                     for k in owned[s]:
-                        p = params[s][k]
+                        g = grad_of(s, k)
                         if k in acc[s]:
-                            acc[s][k].add_(p.grad)
+                            acc[s][k].add_(g)
                         else:
-                            acc[s][k] = p.grad.to(accum_dtype, copy=True)
-                        p.grad = None
-        grads = [{} for _ in range(n)]
-        for s in range(n):
-            for k in owned[s]:
-                p = params[s][k]
-                grads[s][k] = acc[s].pop(k) if accum_steps > 1 else p.grad
-                p.grad = None
-        # the mean over the batch shards and microbatches: the sharded
-        # leaves' sums are on their owners; the replicated leaves' device
-        # sums are all-reduced
+                            acc[s][k] = g.to(accum_dtype, copy=True)
+        grads = [{k: acc[s].pop(k) if accum_steps > 1 else grad_of(s, k)
+                  for k in owned[s]} for s in range(n)]
+        # the mean over the data rows and microbatches: the tensors that
+        # hold one part of a leaf (a data cut's model replicas, a
+        # replicated leaf's devices, a replica each TP rank used) are
+        # summed in fp32 and share the sum
         count = len(runners) * accum_steps
         for k in names:
-            if k in dims or len(devices) == 1:
-                for s in range(n):
-                    if k in grads[s] and count > 1:
-                        grads[s][k].div_(count)
-                continue
-            parts = [grads[first[d]][k] for d in devices]
-            total = parts[0].to(f32, copy=True)
-            for g in parts[1:]:
-                total.add_(g.to(slots[0], f32))
-            total.div_(count)
-            for d, g in zip(devices, parts):
-                g.copy_(total)
-        for k, dim in dims.items():
-            fsdp.link([grads[s][k] for s in range(n)], dim)
+            for cls in classes[k]:
+                parts = [grads[s][k] for s in cls]
+                if len(parts) == 1:
+                    if count > 1:
+                        parts[0].div_(count)
+                    continue
+                total = parts[0].to(f32, copy=True)
+                for g in parts[1:]:
+                    total.add_(g.to(total.device, f32))
+                total.div_(count)
+                for g in parts:
+                    g.copy_(total)
+        for k in names:
+            g0 = fsdp.group(params[0][k])
+            if g0 is not None:
+                first = {id(params[s][k]): s for s in owners[k]}
+                fsdp.link([grads[first[id(p)]][k] for p in g0.shards],
+                          g0.dim, tp_dim=g0.tp_dim, shape=g0.shape)
         if grad_transform is not None:
             # a slot that shares its device with an earlier one and
             # holds no shard owns nothing
             grads = [grad_transform(g) if g else g for g in grads]
-        # the global norm: each owner's squares, the replicated leaves once
-        sq = [torch.linalg.vector_norm(g, dtype=f32).square().to(slots[0])
-              for s in range(n) for k, g in grads[s].items()
-              if k in dims or s == 0]
+        # the global norm: each part of each leaf once
+        sq = [torch.linalg.vector_norm(grads[cls[0]][k], dtype=f32
+                                       ).square().to(slots[0])
+              for k in names for cls in classes[k]]
         gnorm = torch.sqrt(torch.stack(sq).sum())
         metrics = None
         for s in range(n):

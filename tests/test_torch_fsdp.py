@@ -357,13 +357,34 @@ def test_shards_freed_without_the_collector():
             gc.enable()
 
 
-def test_fsdp_needs_model_axis_one_and_the_first_slot():
-    cfg = smoke_config("qwen3-4b")
+def test_fsdp_needs_model_axis_one_and_the_first_slot(ref):
+    """A ``(2, 2)`` mesh builds a step whose slots hold the spec's local
+    shapes (data and model cuts; the step itself is held to the
+    one-device step in ``tests/test_torch_tp.py``), and an unknown
+    placement is refused."""
+    name = "qwen3-4b"
+    cfg = smoke_config(name)
     model = LM(cfg, device="cpu")
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        make_train_step(model, opt.OptConfig(),
-                        mesh=make_host_mesh(data=2, model=2, device="cpu"),
-                        placement="fsdp")
+    whole = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    step = make_train_step(model, opt.OptConfig(),
+                           mesh=make_host_mesh(data=2, model=2, device="cpu"),
+                           placement="fsdp")
+    rules = ref.Rules(ref.configs.smoke_config(name),
+                      ref.jax.sharding.AbstractMesh((2, 2),
+                                                    ("data", "model")))
+    specs = rules.param_specs(ref.jax.eval_shape(
+        lambda: ref_model(ref, name).init(ref.jax.random.PRNGKey(0))))
+    size = {"data": 2, "model": 2, None: 1}
+    assert len(step.slots) == 4
+    for s, module in enumerate(step.slots):
+        for k, p in module.named_parameters():
+            parts = k.split(".")
+            spec = specs
+            for part in [q for q in parts if not q.isdigit()]:
+                spec = spec[part]
+            tail = tuple(spec)[sum(q.isdigit() for q in parts):]
+            assert tuple(p.shape) == tuple(
+                n // size[ax] for n, ax in zip(whole[k], tail)), (s, k)
     with pytest.raises(ValueError, match="placement"):
         make_train_step(model, opt.OptConfig(), placement="zero")
 

@@ -308,7 +308,7 @@ def test_lower_cell_records_without_a_fake_run():
         analysis.step_flops(get_config("qwen3-4b"), 256, 4096, "train")
         / dryrun.PEAK_FLOPS)
     assert pod["peak_bytes"] is None and pod["collectives"] is None
-    assert pod["peak_reason"] == dryrun.NO_TP
+    assert pod["peak_reason"] == dryrun.TP_QUEUED
     assert pod["fits_80gb"] is None
     skipped = dryrun.lower_cell("qwen3-4b", "long_500k", "1x1")
     assert "skipped" in skipped
