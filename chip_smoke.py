@@ -217,6 +217,22 @@ data-parallel ones:
      CUDA events, kernels a step (profiler); its first two losses within
      ``FULL_LOSS_TOL`` of ``train_full``'s.
 
+The serving phases under tensor parallelism (the KV cache's sequence
+cut over the model axis, heads, FFN, experts and vocabulary as in
+training; no kernel of the port runs in them either) run last:
+  S1. ``serve_tp_parity`` — ``train_tp_parity``'s models (2 layers at
+     published width, bf16) and meshes, 8 prompts of 128 tokens and 16
+     greedy decode steps through ``make_prefill`` / ``make_decode(...,
+     mesh=)``, fed the one-device tokens: the last logits within
+     ``LM_TOL``·max|logit| of the one-device calls' at every step, the
+     tokens equal but at near ties; every slot's weights and cache
+     pieces of the spec tables' local shapes;
+  S2. ``serve_tp_full`` — qwen3-4b at full width and depth over ``(1,
+     2)`` on the card, ``lm_generate``'s prompts and steps fed its
+     tokens (equal but at near ties): prefill ms, decode ms a step, the
+     serving collectives' ms and calls a step, kernels a decode step
+     beside one device's, the peak and each slot's cache bytes.
+
 ``--phases build`` or ``--phases build,edges`` runs only those phases
 and stops without the ``kernels`` and ``ok`` lines: a short check of new
 kernels on the card; ``--phases`` also takes ``train_parity``,
@@ -224,11 +240,14 @@ kernels on the card; ``--phases`` also takes ``train_parity``,
 ``train_dp_full`` (which runs ``train_full`` first), ``psum``,
 ``train_fsdp_parity``, ``train_fsdp_full`` (``train_full`` first),
 ``dryrun_fit`` (both full runs first), ``train_tp_parity`` and
-``train_tp_full`` (``train_full`` first).
+``train_tp_full`` (``train_full`` first), ``serve_tp_parity`` and
+``serve_tp_full`` (one device's generation in its own phase when
+``lm_generate`` has not run).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1259,12 +1278,15 @@ BLOCKING = ("cudaStreamSynchronize", "cudaEventSynchronize",
             "aten::_local_scalar_dense")
 
 
-def device_profile(fn, blocking=None):
+def device_profile(fn, blocking=None, ranges=None):
     """``fn()`` once under ``torch.profiler``: (wall ms, device busy ms or
     None when the trace holds no device time, the top 8 device kernels
     by time).  With ``blocking`` (a dict), it also receives the host
     time and count of each ``BLOCKING`` call and of kernel launches, and
-    under ``"device_kernels"`` the count of kernels the device ran."""
+    under ``"device_kernels"`` the count of kernels the device ran.
+    ``ranges`` (a dict keyed by ``record_function`` names): each entry
+    receives that range's calls and the device ms of the kernels
+    launched inside it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1275,6 +1297,12 @@ def device_profile(fn, blocking=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
+        if ranges is not None and e.key in ranges and \
+                e.device_type != torch.autograd.DeviceType.CUDA:
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "cuda_time_total", 0)
+            ranges[e.key] = {"calls": e.count, "device_ms": dev_us / 1e3}
         if blocking is not None and (e.key in BLOCKING
                                      or e.key == "cudaLaunchKernel"):
             blocking[e.key] = {"ms": e.cpu_time_total / 1e3,
@@ -2099,10 +2127,73 @@ def phase_graphs() -> None:
     blocked = {}
     q = rng.standard_normal((len(patterns), vecs.shape[1])).astype(
         np.float32)
-    wall_ms, busy, top = device_profile(
-        lambda: vms["cuda"].query_batch(q, patterns, K), blocked)
+    beams, calls = _beam_ranges()
+    try:
+        wall_ms, busy, top = device_profile(
+            lambda: vms["cuda"].query_batch(q, patterns, K), blocked, beams)
+    finally:
+        _beam_ranges(restore=True)
     emit(phase="graphs_profile", wall_ms=wall_ms, device_busy_ms=busy,
-         top=top[:4], host_blocked=blocked)
+         top=top[:4], host_blocked=blocked,
+         beam={name: {**beams.get(name, {"calls": 0, "device_ms": 0.0}),
+                      **_beam_bound(calls[name])} for name in calls})
+
+
+_BEAMS = ("hnsw_search_fused", "hnsw_search_fused_filtered")
+
+
+def _beam_ranges(restore: bool = False):
+    """The executor's two beam entry points, each wrapped in a
+    ``record_function`` range of its name that keeps its calls'
+    arguments: ({name: {}} for ``device_profile``'s ``ranges``, {name:
+    [(args, kwargs)]}).  ``restore`` puts the originals back."""
+    from repro_torch.core import hnsw_torch, packed
+    if restore:
+        for name in _BEAMS:
+            setattr(packed, name, getattr(hnsw_torch, name))
+        return None
+    calls = {name: [] for name in _BEAMS}
+
+    def wrap(name):
+        fn = getattr(hnsw_torch, name)
+
+        def ranged(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return ranged
+    for name in _BEAMS:
+        setattr(packed, name, wrap(name))
+    return {name: {} for name in _BEAMS}, calls
+
+
+def _beam_bound(calls):
+    """The least time the beam calls could take: the bytes of every
+    vector they read — each visited node's, counted by running the same
+    search again with ``hnsw_torch._beam``'s visited count — plus the
+    queries and the results, over the card's memory rate."""
+    from repro_torch.core import hnsw_torch
+    nbytes, visited = 0, 0
+    for args, kw in calls:
+        out = []
+        if len(args) == 8:                          # the filtered variant
+            vectors, ids, level0, entry, masks, midx, gidx, queries = args
+            hnsw_torch._beam(vectors, ids, level0, entry, gidx, queries,
+                             masks=masks, midx=midx, visited_out=out,
+                             max_iter=kw.get("max_iter"),
+                             **{k: kw[k] for k in ("k", "ef", "metric")})
+        else:
+            vectors, ids, level0, entry, gidx, queries = args
+            hnsw_torch._beam(vectors, ids, level0, entry, gidx, queries,
+                             visited_out=out, max_iter=kw.get("max_iter"),
+                             **{k: kw[k] for k in ("k", "ef", "metric")})
+        n = int(out[0].sum())
+        visited += n
+        nbytes += (n * vectors.shape[1] * vectors.element_size()
+                   + queries.numel() * queries.element_size()
+                   + queries.shape[0] * kw["k"] * 8)
+    return {"visited_nodes": visited, "bound_bytes": nbytes,
+            "bound_ms": nbytes / PEAK_BYTES * 1e3}
 
 
 # --------------------------------------------------------------------- #
@@ -2428,6 +2519,8 @@ def phase_lm_generate(model, card: str) -> None:
         ties[t] = _near_tie_tokens(host(gen[:, t]), logits, tol[t])
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
+    LM_GENERATED.update(gen=host(gen), prefill_ms=prefill_ms,
+                        step_ms=step_ms)
     emit(phase="lm_generate", card=card, prompts=LM_PROMPTS,
          prompt_len=LM_PROMPT_LEN, max_len=max_len, steps=LM_STEPS,
          prefill_ms=prefill_ms,
@@ -2438,6 +2531,9 @@ def phase_lm_generate(model, card: str) -> None:
          decode_bound_ms=weight_bytes / PEAK_BYTES * 1e3,
          consistency_steps=sorted(ties), near_tie_gaps=ties,
          near_tie_tol=tol)
+
+
+LM_GENERATED = {}        # lm_generate's tokens and times, for serve_tp_full
 
 
 def phase_lm_profile(card: str) -> None:
@@ -3794,6 +3890,318 @@ def phase_train_tp_full(card: str) -> None:
              "loss")})
 
 
+# --------------------------------------------------------------------- #
+# serving under tensor parallelism — the KV cache's sequence cut over the
+# model axis, heads, FFN, experts and vocabulary as in training
+# --------------------------------------------------------------------- #
+
+SERVE_TP_STEPS = 16
+
+
+def _cache_bytes(placed):
+    """Each slot's cache bytes (its distinct pieces)."""
+    out = []
+    for tree in placed.slots:
+        seen = {}
+        stack = [tree]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, dict):
+                stack.extend(node.values())
+            else:
+                seen[id(node)] = node.numel() * node.element_size()
+        out.append(sum(seen.values()))
+    return out
+
+
+def _cache_off_spec(model, mesh, placed, batch, max_len) -> int:
+    """The slot cache leaves whose shape is not the local shape
+    ``cache_specs`` gives on ``mesh``."""
+    from repro_torch.distributed.sharding import ShardingRules
+    struct = model.init_cache(batch, max_len, "meta")
+    specs = ShardingRules(model.cfg, mesh).cache_specs(struct, batch)
+    off = 0
+    for tree in placed.slots:
+        for key in struct:
+            want = tuple(n // (1 if ax is None else _axes_size(mesh, ax))
+                         for n, ax in zip(struct[key].shape, specs[key]))
+            off += tuple(tree[key].shape) != want
+    return off
+
+
+def _axes_size(mesh, ax) -> int:
+    n = 1
+    for a in ((ax,) if isinstance(ax, str) else ax):
+        n *= mesh.shape[a]
+    return n
+
+
+@contextlib.contextmanager
+def _routes_logged(log):
+    """Inside: every MoE routing appends (its probabilities, its expert
+    ids) as host arrays to ``log``."""
+    from repro_torch.models import moe as MOE
+    route = MOE.route
+
+    def logged(params, x, **kw):
+        out = route(params, x, **kw)
+        log.append((host(out[0]), host(out[2])))
+        return out
+    MOE.route = logged
+    try:
+        yield log
+    finally:
+        MOE.route = route
+
+
+def _route_flips(one, got, batch: int, layers: int, rows: int,
+                 tol: float):
+    """Where the mesh's routing chose other experts than one device's:
+    ``one`` holds one device's routings (a step, a layer), ``got`` the
+    mesh's (a step, a data row of ``rows``, a layer).  Each differing
+    choice must be a near tie of one device's router: its k-th and
+    (k+1)-th probabilities within ``tol`` of each other, relative.
+    Returns (a (step, sequence) mask of the logits whose own token — the
+    prompt's last at step 0, the fed token after — was routed to other
+    experts in some layer; the flips' relative gaps)."""
+    steps = len(one) // layers
+    own = np.zeros((steps, batch), dtype=bool)
+    gaps = []
+    for n, (probs, ids) in enumerate(one):
+        step, layer = divmod(n, layers)
+        mesh_ids = np.concatenate([got[(step * rows + r) * layers + layer][1]
+                                   for r in range(rows)])
+        differ = (np.sort(ids, -1) != np.sort(mesh_ids, -1)).any(-1)
+        k = ids.shape[-1]
+        for b, t in zip(*np.nonzero(differ)):
+            top = np.sort(probs[b, t])[::-1]
+            gap = float((top[k - 1] - top[k]) / top[k - 1])
+            check(gap <= tol, f"routing at step {step}, layer {layer}, "
+                              f"sequence {b}: a flip over a gap of {gap}")
+            gaps.append(gap)
+            own[step, b] |= t == ids.shape[1] - 1
+    return own, gaps
+
+
+def phase_serve_tp_parity(card: str) -> None:
+    """Prefill and greedy decode over ``make_host_mesh(data, model)`` for
+    ``TP_MESHES`` (every slot on the card) against the one-device calls
+    on the same weights: qwen3-4b and qwen3-moe-30b-a3b at their
+    published widths cut to 2 layers, bf16, 8 prompts of 128 tokens and
+    ``SERVE_TP_STEPS`` steps fed the one-device tokens.  The last logits
+    within ``LM_TOL``·max|logit| at every step, the tokens equal but at
+    near ties; every slot's weights and cache pieces of the spec tables'
+    local shapes.  A MoE routing that differs from one device's must be
+    a near tie of the router (``_route_flips``); a step's logits of a
+    sequence whose own token was so routed are not held (its experts
+    differ; at most a quarter of them), and the record counts them."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.step import make_decode, make_prefill
+    rng = np.random.default_rng(23)
+    max_len = LM_PROMPT_LEN + SERVE_TP_STEPS
+    for arch in DP_ARCHS:
+        cfg = get_config(arch).replace(num_layers=2)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (LM_PROMPTS, LM_PROMPT_LEN))).cuda()
+        t0 = time.perf_counter()
+        model = LM(cfg, device="cuda", seed=3)
+        init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        whole = {k: tuple(p.shape) for k, p in init.items()}
+        with _routes_logged([]) as one_routes:
+            cache, lg = model.prefill(prompts, max_len)
+            one, feed = [host(lg)], []
+            for i in range(SERVE_TP_STEPS):
+                feed.append(torch.from_numpy(one[-1].argmax(-1)).cuda())
+                lg, cache = model.decode_step(cache, feed[-1][:, None],
+                                              LM_PROMPT_LEN + i)
+                one.append(host(lg))
+        del model, cache
+        cases = {}
+        for data, model_size in TP_MESHES:
+            mesh = make_host_mesh(data=data, model=model_size,
+                                  device="cuda:0")
+            tag = f"{arch} ({data}, {model_size})"
+            t1 = time.perf_counter()
+            model = LM(cfg, device="cuda", seed=3)
+            model.load_state_dict(init)
+            prefill = make_prefill(model, max_len, mesh=mesh)
+            decode = make_decode(model, mesh=mesh)
+            with _routes_logged([]) as routes:
+                placed, nxt = prefill(prompts)
+                got, toks = [host(prefill.last_logits())], [host(nxt)]
+                for i in range(SERVE_TP_STEPS):
+                    nxt, placed = decode(placed, feed[i][:, None],
+                                         LM_PROMPT_LEN + i)
+                    got.append(host(decode.last_logits()))
+                    toks.append(host(nxt[:, 0]))
+            flipped, gaps = _route_flips(one_routes, routes, LM_PROMPTS,
+                                         cfg.num_layers, data, LM_TOL)
+            if not one_routes:
+                flipped = np.zeros((len(one), LM_PROMPTS), dtype=bool)
+            errs, ties = [], 0
+            for i, (g, w, tk) in enumerate(zip(got, one, toks)):
+                held = ~flipped[i]
+                tol = LM_TOL * float(np.abs(w).max())
+                e = float(np.abs(g - w)[held].max(initial=0.0))
+                check(e <= tol, f"{tag} step {i}: logits differ by {e} > "
+                                f"{tol}")
+                errs.append(e / float(np.abs(w).max()))
+                ties += len(_near_tie_tokens(tk[held], w[held], tol))
+            want = _spec_local_shapes(cfg, mesh, whole)
+            off = sum(tuple(p.shape) != want[k] for m in prefill.slots
+                      for k, p in m.named_parameters())
+            off_cache = _cache_off_spec(model, mesh, placed, LM_PROMPTS,
+                                        max_len)
+            check(off == 0 and off_cache == 0,
+                  f"{tag}: {off} weight and {off_cache} cache leaves off "
+                  "the spec's local shapes")
+            check(flipped.mean() <= 0.25,
+                  f"{tag}: {int(flipped.sum())} of {flipped.size} step "
+                  "logits of a token routed to other experts")
+            cases[f"{data}x{model_size}"] = {
+                "max_rel_err": max(errs), "rel_err_steps": errs,
+                "near_ties": ties, "route_flips": len(gaps),
+                "route_flip_gap_max": max(gaps, default=None),
+                "logits_unheld": int(flipped.sum()),
+                "logits_held": int((~flipped).sum()),
+                "slot_cache_bytes": _cache_bytes(placed),
+                "seconds": time.perf_counter() - t1}
+            del model, prefill, decode, placed
+            torch.cuda.empty_cache()
+        emit(phase="serve_tp_parity", card=card, arch=arch,
+             case=f"{arch} 2 layers, bf16, full width",
+             prompts=[LM_PROMPTS, LM_PROMPT_LEN], steps=SERVE_TP_STEPS,
+             max_len=max_len, meshes=cases,
+             tol="logits within LM_TOL·max|logit| at every step, tokens "
+                 "equal but at near ties, but where the token's own MoE "
+                 "routing flipped at a near tie of the router (LM_TOL "
+                 "relative; at most a quarter); every slot's weights and "
+                 "cache pieces the spec's local shapes",
+             seconds=time.perf_counter() - t0)
+        del init
+        torch.cuda.empty_cache()
+
+
+def phase_serve_tp_full(card: str) -> None:
+    """qwen3-4b at full width and depth (the LM phases' model, re-made
+    from its seed), bf16: ``lm_generate``'s prompts and steps on one
+    device (timed again here, beside the numbers of ``lm_generate``),
+    then the same model placed over ``make_host_mesh(data=1,
+    model=TP_FULL_MODEL)`` on the card: prefill ms, decode ms a step
+    (p50, p25/p75), fed ``lm_generate``'s tokens, whose greedy tokens
+    must equal them but at near ties (``LM_TOL``·max|logit| of the
+    mesh's logits); one more step with the serving collectives timed by
+    CUDA events; kernels a decode step (profiler) on one device and on
+    the mesh; the peak and each slot's cache bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tp
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.step import make_decode, make_prefill
+    cfg = get_config(LM_ARCH)
+    prompts = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (LM_PROMPTS, LM_PROMPT_LEN))).cuda()
+    max_len = LM_PROMPT_LEN + LM_STEPS
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda", seed=0)
+
+    def generate(prefill, decode, feed=None):
+        prefill(prompts)                          # warm-up at this shape
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache, nxt = prefill(prompts)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t1) * 1e3
+        gen, ms, logits = [nxt[:, None]], [], []
+        for i in range(LM_STEPS):
+            tok = gen[-1] if feed is None else feed[:, i:i + 1]
+            t1 = time.perf_counter()
+            nxt, cache = decode(cache, tok, LM_PROMPT_LEN + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            gen.append(nxt)
+            if feed is not None:
+                logits.append(host(decode.last_logits()))
+        return cache, torch.cat(gen, 1), pre_ms, ms, logits
+
+    def profiled(prefill, decode):
+        cache, nxt = prefill(prompts)
+        nxt, cache = decode(cache, nxt[:, None], LM_PROMPT_LEN)  # warm-up
+        prof = {}
+        wall, busy, top = device_profile(
+            lambda: decode(cache, nxt, LM_PROMPT_LEN + 1), prof)
+        return {"wall_ms": wall, "busy_ms": busy,
+                "kernels": prof["device_kernels"], "top": top[:4]}
+
+    _, gen_one, pre_one, ms_one, _ = generate(make_prefill(model, max_len),
+                                              make_decode(model))
+    feed = torch.from_numpy(LM_GENERATED["gen"]).cuda() \
+        if "gen" in LM_GENERATED else gen_one
+    one = {"prefill_ms": pre_one,
+           "decode_ms_p50": float(np.median(ms_one)),
+           "decode_ms_p25_p75": np.percentile(ms_one, [25, 75]).tolist(),
+           "tokens_equal_lm_generate": bool(torch.equal(gen_one, feed)),
+           "lm_generate": {k: (float(np.median(v)) if k == "step_ms" else v)
+                           for k, v in LM_GENERATED.items() if k != "gen"},
+           **profiled(make_prefill(model, LM_PROMPT_LEN + 2),
+                      make_decode(model))}
+    mesh = make_host_mesh(data=1, model=TP_FULL_MODEL, device="cuda:0")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prefill = make_prefill(model, max_len, mesh=mesh)
+    decode = make_decode(model, mesh=mesh)
+    placed, gen, pre_ms, ms, logits = generate(prefill, decode, feed)
+    peak = torch.cuda.max_memory_allocated()
+    ties = []
+    for i, lg in enumerate(logits):
+        ties += _near_tie_tokens(host(feed[:, i + 1]), lg,
+                                 LM_TOL * float(np.abs(lg).max()))
+    spans = []
+    fns = [tp.max_over_ranks, tp.sum_over_ranks, tp.fold_to, tp.gather_to,
+           tp.argmax_over_ranks]
+    saved_fns = {f.__name__: f for f in fns}
+    classes = [tp._Copy, tp._Reduce, tp._AllGather, tp._ReduceScatter,
+               tp._GatherRow, tp._Split]
+    saved = [(c, c.forward) for c in classes]
+    for name, f in saved_fns.items():
+        setattr(tp, name, _timed(f, spans))
+    for c, fwd in saved:
+        c.forward = staticmethod(_timed(fwd, spans))
+    try:
+        decode(placed, feed[:, -1:], max_len - 1)
+        torch.cuda.synchronize()
+    finally:
+        for name, f in saved_fns.items():
+            setattr(tp, name, f)
+        for c, fwd in saved:
+            c.forward = staticmethod(fwd)
+    coll_ms = sum(a.elapsed_time(b) for a, b in spans)
+    del placed
+    torch.cuda.empty_cache()
+    prof = profiled(make_prefill(model, LM_PROMPT_LEN + 2, mesh=mesh),
+                    decode)
+    placed, _ = prefill(prompts)
+    slot_bytes = _cache_bytes(placed)
+    check(peak < 80e9, f"peak memory {peak} does not fit 80 GB")
+    emit(phase="serve_tp_full", card=card, arch=LM_ARCH,
+         mesh=dict(mesh.shape), prompts=[LM_PROMPTS, LM_PROMPT_LEN],
+         steps=LM_STEPS, max_len=max_len, prefill_ms=pre_ms,
+         decode_ms_p50=float(np.median(ms)),
+         decode_ms_p25_p75=np.percentile(ms, [25, 75]).tolist(),
+         decode_ms=ms, tp_collective_ms=coll_ms,
+         tp_collective_calls=len(spans), near_tie_gaps=ties,
+         near_tie_tol=f"{LM_TOL}·max|logit| of the mesh's logits",
+         peak_memory_allocated=peak, slot_cache_bytes=slot_bytes,
+         cache_bytes_whole=2 * cfg.num_layers * LM_PROMPTS * max_len
+         * cfg.num_kv_heads * cfg.head_dim * 2,
+         profiled_decode=prof, one_device=one,
+         seconds=time.perf_counter() - t0)
+    del model, prefill, decode, placed
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3812,8 +4220,8 @@ def main() -> int:
     if PHASES is not None:
         if "edges" in PHASES:
             phase_edges()
-        for name, phase in {**TRAIN_PHASES, **DP_PHASES,
-                            **FSDP_PHASES, **TP_PHASES}.items():
+        for name, phase in {**TRAIN_PHASES, **DP_PHASES, **FSDP_PHASES,
+                            **TP_PHASES, **SERVE_TP_PHASES}.items():
             if name in PHASES:
                 phase(card)
         emit(phase="done", partial=sorted(PHASES),
@@ -3831,7 +4239,8 @@ def main() -> int:
             phase(card)
         kernels = run_index_phases(card, lm_run)
         # after every phase whose host times are reported
-        for phase in (*DP_PHASES.values(), *TP_PHASES.values()):
+        for phase in (*DP_PHASES.values(), *TP_PHASES.values(),
+                      *SERVE_TP_PHASES.values()):
             phase(card)
     finally:
         lm_run.stop()
@@ -3899,18 +4308,21 @@ FSDP_PHASES = {"train_fsdp_parity": phase_train_fsdp_parity,
                "dryrun_fit": phase_dryrun_fit}
 TP_PHASES = {"train_tp_parity": phase_train_tp_parity,
              "train_tp_full": phase_train_tp_full}
+SERVE_TP_PHASES = {"serve_tp_parity": phase_serve_tp_parity,
+                   "serve_tp_full": phase_serve_tp_full}
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phases":
         PHASES = set(sys.argv[2].split(","))
         check(PHASES <= {"build", "edges", *TRAIN_PHASES, *DP_PHASES,
-                         *FSDP_PHASES, *TP_PHASES},
+                         *FSDP_PHASES, *TP_PHASES, *SERVE_TP_PHASES},
               f"--phases takes build, edges, {sorted(TRAIN_PHASES)}, "
-              f"{sorted(DP_PHASES)}, {sorted(FSDP_PHASES)} and "
-              f"{sorted(TP_PHASES)}, not {sorted(PHASES)}")
+              f"{sorted(DP_PHASES)}, {sorted(FSDP_PHASES)}, "
+              f"{sorted(TP_PHASES)} and {sorted(SERVE_TP_PHASES)}, not "
+              f"{sorted(PHASES)}")
     elif len(sys.argv) != 1:
         sys.exit("usage: chip_smoke.py [--phases build,edges,"
                  + ",".join([*TRAIN_PHASES, *DP_PHASES, *FSDP_PHASES,
-                             *TP_PHASES])
+                             *TP_PHASES, *SERVE_TP_PHASES])
                  + "]")
     sys.exit(main())

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The port's dry-run table: every arch × shape on the ``1x1`` and
-``4x1`` meshes (``--mesh``: any of the dry run's, ``1x4`` and ``2x2``
-among them), one ``python -m repro_torch.launch.dryrun`` process an
-arch (``--jobs`` at a time), then a markdown table of the JSON records:
+"""The port's dry-run table: every arch × shape (``--shapes``: a subset)
+on the ``1x1`` and ``4x1`` meshes (``--mesh``: any of the dry run's,
+``1x4`` and ``2x2`` among them), one ``python -m
+repro_torch.launch.dryrun`` process an arch and shape, the archs
+``--jobs`` at a time, then a markdown table of the JSON records:
 one row an arch, a column a shape and mesh, each cell the per-device
 state and peak GB and whether the peak fits 80 GB.
 
@@ -30,15 +31,17 @@ from repro_torch.launch.dryrun import TP_QUEUED  # noqa: E402
 from repro_torch.launch.shapes import SHAPES  # noqa: E402
 
 
-def run(out: str, device: str, jobs: int, meshes: str) -> None:
+def run(out: str, device: str, jobs: int, meshes: str, shapes: str) -> None:
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
 
     def one(arch):
-        with open(os.path.join(out, f"{arch}.log"), "w") as log:
-            subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.dryrun",
-                 "--arch", arch, "--mesh", meshes, "--device", device,
-                 "--out", out], env=env, stdout=log, stderr=log)
+        with open(os.path.join(out, f"{arch}.log"), "a") as log:
+            for shape in shapes.split(","):
+                subprocess.run(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", meshes,
+                     "--device", device, "--out", out], env=env,
+                    stdout=log, stderr=log)
 
     with ThreadPoolExecutor(jobs) as pool:
         list(pool.map(one, arch_names()))
@@ -47,8 +50,8 @@ def run(out: str, device: str, jobs: int, meshes: str) -> None:
 def cell(out: str, arch: str, shape: str, mesh: str) -> str:
     """``state / peak`` GB a device, ``✓`` where the peak fits 80 GB;
     ``—`` for a peak not run (the state alone exceeds 80 GB); ``queued``
-    for one the port cannot run yet (``dryrun.TP_QUEUED``: prefill and
-    decode at ``model`` > 1, the pods); ``n/a`` where the slots shared
+    for one the port cannot run yet (``dryrun.TP_QUEUED``: the pods);
+    ``n/a`` where the slots shared
     one device (``--device cpu``), so no peak is one card's."""
     path = os.path.join(out, f"{arch}__{shape}__{mesh}.json")
     if not os.path.exists(path):
@@ -66,8 +69,9 @@ def cell(out: str, arch: str, shape: str, mesh: str) -> str:
     return text + (" ✓" if rec["fits_80gb"] else "")
 
 
-def table(out: str, meshes: str) -> str:
-    cols = [(shape, mesh) for shape in SHAPES for mesh in meshes.split(",")]
+def table(out: str, meshes: str, shapes: str) -> str:
+    cols = [(shape, mesh) for shape in shapes.split(",")
+            for mesh in meshes.split(",")]
     rows = ["| arch | " + " | ".join(f"{s} {m}" for s, m in cols) + " |",
             "|---|" + "---|" * len(cols)]
     for arch in arch_names():
@@ -82,13 +86,15 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--jobs", type=int, default=os.cpu_count() or 1)
     ap.add_argument("--mesh", default="1x1,4x1")
+    ap.add_argument("--shapes", default=",".join(SHAPES),
+                    help="comma-separated: " + ", ".join(SHAPES))
     ap.add_argument("--table-only", action="store_true",
                     help="print the table of the records in --out")
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
     if not args.table_only:
-        run(args.out, args.device, args.jobs, args.mesh)
-    print(table(args.out, args.mesh))
+        run(args.out, args.device, args.jobs, args.mesh, args.shapes)
+    print(table(args.out, args.mesh, args.shapes))
     print(f"records: {len(glob.glob(os.path.join(args.out, '*.json')))}")
 
 

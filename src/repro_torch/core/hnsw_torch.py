@@ -49,7 +49,10 @@ def _topk_stable(vals: torch.Tensor, k: int) -> torch.Tensor:
 def _beam(vectors, ids, level0, entry, gidx, queries, *, k: int, ef: int,
           max_iter: Optional[int], metric: str,
           masks: Optional[torch.Tensor] = None,
-          midx: Optional[torch.Tensor] = None):
+          midx: Optional[torch.Tensor] = None,
+          visited_out: Optional[list] = None):
+    """``visited_out``: receives each pair's count of visited nodes (the
+    vectors the search read), for a measurement of its bytes."""
     p_n = int(gidx.shape[0])
     n = int(ids.shape[1])
     dev = queries.device
@@ -139,6 +142,8 @@ def _beam(vectors, ids, level0, entry, gidx, queries, *, k: int, ef: int,
         if (it + 1) % _CHECK_EVERY == 0 and not bool(active.any()):
             break
 
+    if visited_out is not None:
+        visited_out.append(visited.sum(1))
     if filtered:
         out_d, out_s = res_d, res_s
     else:

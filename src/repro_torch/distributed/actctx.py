@@ -76,11 +76,12 @@ def local_shard(split: int, device, ranks: Optional[Sequence] = None,
     (a ``model`` axis > 1) the shard is a data row of slots: ``ranks``
     are their modules in TP-rank order and ``devices`` their devices,
     rank 0's being ``device``; the models run each rank's part of a
-    layer there (``tp_ranks``)."""
+    layer there (``tp_ranks``).  A row of one rank (``model`` = 1) runs
+    the one-device forward, save where a mesh's cache takes it over its
+    ranks (``row_ranks``: serving on a mesh)."""
     old = _STATE["local"], _STATE["rank"]
     _STATE["local"] = (split, torch.device(device),
-                       None if ranks is None or len(ranks) < 2
-                       else list(ranks),
+                       None if ranks is None else list(ranks),
                        None if devices is None
                        else [torch.device(d) for d in devices])
     _STATE["rank"] = None
@@ -90,11 +91,18 @@ def local_shard(split: int, device, ranks: Optional[Sequence] = None,
         _STATE["local"], _STATE["rank"] = old
 
 
-def tp_ranks() -> Optional[List[nn.Module]]:
-    """The modules of the running data row's TP ranks, or None outside a
-    tensor-parallel row."""
+def row_ranks() -> Optional[List[nn.Module]]:
+    """The modules of the running data row's ranks (one a TP rank; one
+    for ``model`` = 1), or None outside a row of a mesh."""
     local = _STATE["local"]
     return None if local is None else local[2]
+
+
+def tp_ranks() -> Optional[List[nn.Module]]:
+    """The modules of the running data row's TP ranks, or None outside a
+    tensor-parallel row (a ``model`` axis > 1)."""
+    ranks = row_ranks()
+    return None if ranks is None or len(ranks) < 2 else ranks
 
 
 def tp_devices() -> List[torch.device]:
@@ -291,6 +299,7 @@ def shard_ranks(xs: List[torch.Tensor], axis: Optional[int], kind: str):
     return xs, axis
 
 
-__all__ = ["configure", "use", "local_shard", "tp_ranks", "tp_devices",
+__all__ = ["configure", "use", "local_shard", "row_ranks", "tp_ranks",
+           "tp_devices",
            "on_rank", "gather_params", "spec", "shard", "tp_axis",
            "shard_ranks"]

@@ -29,6 +29,15 @@ forms, and a leaf's shards are freed as soon as its anchor is dropped.
 module a slot (``cut=False``: nothing cut over data); ``train.step``
 runs its mesh step over them and ``launch.dryrun`` runs the same
 placement on fake tensors.
+
+A decode cache is laid out by ``ShardingRules.cache_specs``
+(``PlacedCache``): the K/V caches' sequence over ``model`` (or over
+``(data, model)`` where the batch does not divide the data axis), the
+SSM states' heads and the conv histories' channels over ``model``, the
+batch over ``data``.  ``init_cache`` makes every slot's zeros at its
+local shape (no whole cache on any slot), ``place_cache`` cuts a whole
+cache, ``whole_cache`` joins one; ``PlacedCache.row`` is a data row's
+view, which the models' serving paths read (``RowCache``).
 """
 
 from __future__ import annotations
@@ -355,7 +364,10 @@ def batch_slots(rules, batch: int):
     split of the rows) on ``rules``' mesh: one shard a data row where
     ``batch_specs`` cuts the batch (every rank of a row sees the row's
     rows), else the whole batch once on each distinct device of the
-    rows' first slots."""
+    rows' first slots.  Serving such a batch, a decode cache's K/V are
+    cut along the sequence over every slot (``cache_specs``: ``(data,
+    model)``), so each of those rows attends over all the slots'
+    pieces (``RowCache``)."""
     from ..models.convert import ShapeLeaf
     slots = list(rules.mesh.devices.flat)
     model_size = rules.mesh.shape.get("model", 1)
@@ -390,6 +402,181 @@ def load_whole(model: nn.Module, state: Dict[str, torch.Tensor]) -> None:
                 u.copy_(g.piece(t, s))
 
 
+# --------------------------------------------------------------------- #
+# the decode cache over the slots
+# --------------------------------------------------------------------- #
+
+def _tree_map(fn, tree, specs):
+    """``fn(path, leaf, spec)`` over a cache tree and its spec tree."""
+    from .sharding import map_with_path
+
+    def one(path, leaf):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return fn(path, leaf, spec)
+    return map_with_path(one, tree)
+
+
+def _cut_index(entry, i: int, j: int, model: int) -> Optional[int]:
+    """The index along an axis that spec ``entry`` cuts of slot (i, j)'s
+    piece (None: not cut)."""
+    if entry is None:
+        return None
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    if axes == ("data",):
+        return i
+    if axes == ("model",):
+        return j
+    if axes == ("data", "model"):
+        return i * model + j
+    raise ValueError(f"cache spec entry {entry!r}: only data and model "
+                     "axes are placed")
+
+
+def _cache_key(spec, s: int, mesh) -> tuple:
+    model = mesh.shape.get("model", 1)
+    i, j = divmod(s, model)
+    return tuple(_cut_index(e, i, j, model) for e in spec)
+
+
+def _cache_piece(t: torch.Tensor, spec, s: int, mesh) -> torch.Tensor:
+    """Slot ``s``'s piece of ``t``, a whole leaf laid out by ``spec``
+    (a view)."""
+    from ..launch.mesh import axis_size
+    for axis, (e, k) in enumerate(zip(spec, _cache_key(spec, s, mesh))):
+        if k is not None:
+            t = t.chunk(axis_size(mesh, e), axis)[k]
+    return t
+
+
+class PlacedCache:
+    """A decode cache laid out over the slots of a ``(data, model)``
+    mesh as ``ShardingRules.cache_specs`` says: ``slots[s]`` is slot s's
+    tree (the reference's layout, every leaf the slot's piece on its
+    device; slots that would hold the same piece on one device share
+    one tensor), ``specs`` the spec tree, ``batch`` the global batch."""
+
+    def __init__(self, slots: List, specs, mesh, batch: int):
+        self.slots = slots
+        self.specs = specs
+        self.mesh = mesh
+        self.batch = batch
+
+    def row(self, first: int) -> "RowCache":
+        """The view of the data row whose rank 0 is slot ``first``."""
+        return RowCache(self, first)
+
+
+class RowCache:
+    """A data row's view of a ``PlacedCache``: ``ranks[j]`` is TP rank
+    j's slot tree; ``kv(path, index)`` the K/V pieces a layer attends
+    over.  The sequence ranks of a K/V leaf are the slots its spec cuts
+    the sequence over: the row's TP ranks (``model``), every slot of the
+    mesh (``(data, model)``: a batch the data axis does not divide), or
+    none (a sequence the axis does not divide: each TP rank holds it
+    whole)."""
+
+    def __init__(self, placed: PlacedCache, first: int):
+        t = placed.mesh.shape.get("model", 1)
+        self.placed = placed
+        self.ranks = placed.slots[first:first + t]
+        self._first = first
+
+    def _seq_slots(self, path) -> Optional[List[int]]:
+        spec = self.placed.specs
+        for k in path:
+            spec = spec[k]
+        entry = spec[-3]                      # (..., B, S, G, hd)
+        if entry is None:
+            return None
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        if axes == ("model",):
+            return list(range(self._first, self._first + len(self.ranks)))
+        return list(range(len(self.placed.slots)))
+
+    def kv(self, path, index) -> "SeqKV":
+        """Layer ``index`` (its leading indices) of the K/V pair under
+        ``path`` (the keys above ``k`` and ``v``)."""
+        from ..models.layers import SeqKV
+        seq = self._seq_slots(tuple(path) + ("k",))
+        trees = (self.ranks if seq is None
+                 else [self.placed.slots[s] for s in seq])
+
+        def at(tree, key):
+            for k in path:
+                tree = tree[k]
+            return tree[key][index]
+        return SeqKV([at(t, "k") for t in trees],
+                     [at(t, "v") for t in trees], seq is not None)
+
+
+def _placed(make, tree, mesh, rules, batch: int) -> PlacedCache:
+    """A ``PlacedCache`` of ``tree`` whose slot pieces ``make(path, leaf,
+    spec, s)`` gives (one call a distinct piece and device)."""
+    specs = rules.cache_specs(tree, batch)
+    devices = list(mesh.devices.flat)
+    made: Dict[tuple, torch.Tensor] = {}
+
+    def slot_tree(s):
+        def one(path, leaf, spec):
+            key = (path, _cache_key(spec, s, mesh), devices[s])
+            if key not in made:
+                made[key] = make(path, leaf, spec, s)
+            return made[key]
+        return _tree_map(one, tree, specs)
+    return PlacedCache([slot_tree(s) for s in range(len(devices))], specs,
+                       mesh, batch)
+
+
+def init_cache(tree, mesh, rules, batch: int) -> PlacedCache:
+    """Zeros at every slot's local shape: ``tree`` is the whole cache's
+    structure (leaves with a shape and a dtype: ``meta`` tensors,
+    ``ShapeLeaf``s); no whole leaf is made."""
+    from ..launch.mesh import axis_size
+    devices = list(mesh.devices.flat)
+
+    def make(path, leaf, spec, s):
+        shape = [n if e is None else n // axis_size(mesh, e)
+                 for n, e in zip(leaf.shape, spec)]
+        return torch.zeros(shape, dtype=leaf.dtype, device=devices[s])
+    return _placed(make, tree, mesh, rules, batch)
+
+
+def place_cache(cache, mesh, rules, batch: int) -> PlacedCache:
+    """A whole cache (the reference's layout) cut into every slot's
+    piece, each a contiguous copy on the slot's device."""
+    devices = list(mesh.devices.flat)
+
+    def make(path, leaf, spec, s):
+        return _cache_piece(leaf.detach(), spec, s, mesh).to(
+            devices[s], copy=True, memory_format=torch.contiguous_format)
+    return _placed(make, cache, mesh, rules, batch)
+
+
+def whole_cache(placed: PlacedCache, device=None):
+    """The whole cache joined from the slots' pieces, on ``device``
+    (default slot 0's)."""
+    from ..launch.mesh import axis_size
+    mesh = placed.mesh
+    dev = torch.device(device) if device is not None \
+        else mesh.devices.flat[0]
+
+    def join(path, _, spec):
+        pieces = [t for t in placed.slots]
+        for k in path:
+            pieces = [t[k] for t in pieces]
+        first = pieces[0]
+        shape = [n if e is None else n * axis_size(mesh, e)
+                 for n, e in zip(first.shape, spec)]
+        out = torch.empty(shape, dtype=first.dtype, device=dev)
+        for s, piece in enumerate(pieces):
+            _cache_piece(out, spec, s, mesh).copy_(piece)
+        return out
+    return _tree_map(join, placed.slots[0], placed.specs)
+
+
 __all__ = ["Group", "group", "link", "slot", "split", "whole", "like",
            "place_like", "gather", "cut_dims", "shard_dims", "set_param",
-           "place", "batch_slots", "load_whole"]
+           "place", "batch_slots", "load_whole", "PlacedCache", "RowCache",
+           "init_cache", "place_cache", "whole_cache"]

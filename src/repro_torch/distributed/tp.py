@@ -33,6 +33,24 @@ allocation.
 ``enter`` and ``leave`` put them together at a sublayer's edges: the
 ranks' normed inputs from the row's residual, and the residual's
 update from the ranks' outputs.
+
+Serving needs no gradient, and its collectives run over the ranks that
+hold a decode cache's sequence (a row's TP ranks, or every slot of the
+mesh) as well as over the TP ranks.  They are plain functions over
+lists of rank tensors, in the same style (fp32, rank 0 first, views
+where ranks share a device):
+
+  * ``max_over_ranks`` / ``sum_over_ranks`` — the element-wise max and
+    the fp32 sum of the parts, on every part's device (a softmax spread
+    over the sequence ranks);
+  * ``fold_to(parts, device)`` — the fp32 sum on one device, not cast
+    (the attention context's partials);
+  * ``gather_to(parts, dim, devices)`` — the parts joined along ``dim``
+    on each of ``devices`` (the query heads, from the TP ranks to the
+    sequence ranks);
+  * ``argmax_over_ranks(parts)`` — the greedy token of logits cut over
+    the ranks by vocabulary: the lowest global index of the maximum, as
+    ``jnp.argmax`` takes it.
 """
 
 from __future__ import annotations
@@ -255,6 +273,84 @@ def leave(outs: Sequence[torch.Tensor], axis, partial: bool
     return [o.narrow(axis, j * n, n) for j, o in enumerate(outs)]
 
 
+# --------------------------------------------------------------------- #
+# serving: no gradient; over the sequence ranks or the TP ranks
+# --------------------------------------------------------------------- #
+
+def _on_each(x: torch.Tensor, devices: Sequence) -> List[torch.Tensor]:
+    """``x`` on each of ``devices``: one copy a distinct device, views
+    for the devices that repeat and for ``x``'s own."""
+    made = {}
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d not in made:
+            made[d] = x if x.device == d else x.to(d)
+        out.append(made[d].view_as(made[d]))
+    return out
+
+
+def max_over_ranks(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The element-wise max of the parts in fp32 (exact in any order), on
+    each part's device."""
+    top = parts[0].to(f32, copy=True)
+    for p in parts[1:]:
+        top = torch.maximum(top, p.to(top.device, f32))
+    return _on_each(top, [p.device for p in parts])
+
+
+def sum_over_ranks(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Σ parts in fp32, rank 0 first, cast once to the parts' dtype, on
+    each part's device."""
+    return _on_each(_fold(parts, parts[0].device),
+                    [p.device for p in parts])
+
+
+def fold_to(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """Σ parts in fp32, rank 0 first, on ``device``; the sum stays fp32."""
+    total = parts[0].to(device, f32, copy=True)
+    for p in parts[1:]:
+        total.add_(p.to(device, f32))
+    return total
+
+
+def gather_to(parts: Sequence[torch.Tensor], dim: int, devices: Sequence
+              ) -> List[torch.Tensor]:
+    """The parts joined along ``dim`` on each of ``devices`` (one join a
+    distinct device, views for the rest)."""
+    joined = torch.cat([p.to(parts[0].device) for p in parts],
+                       _dim(dim, parts[0].dim())) if len(parts) > 1 \
+        else parts[0]
+    return _on_each(joined, devices)
+
+
+def argmax_over_ranks(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The argmax over the last axis of logits cut over the ranks by
+    vocabulary: ``parts[j]`` (…, V_j) holds the columns V_0 + … +
+    V_{j-1} onwards (a rank past the real vocabulary may hold none).
+    Each rank takes its maximum and the first index of it; the ranks'
+    are joined on rank 0's device, a later rank winning only where its
+    maximum is larger, so the lowest global index wins ties, as
+    ``jnp.argmax`` does.  Returns int64 indices on rank 0's device."""
+    dev = parts[0].device
+    best_v = best_i = None
+    off = 0
+    for p in parts:
+        if p.shape[-1]:
+            idx = torch.argmax(p, dim=-1, keepdim=True)
+            val = torch.gather(p, -1, idx)[..., 0].to(dev, f32)
+            idx = idx[..., 0].to(dev) + off
+            if best_v is None:
+                best_v, best_i = val, idx
+            else:
+                take = val > best_v
+                best_v = torch.where(take, val, best_v)
+                best_i = torch.where(take, idx, best_i)
+        off += p.shape[-1]
+    return best_i
+
+
 __all__ = ["copy_to_ranks", "reduce_from_ranks", "all_gather",
            "reduce_scatter_seq", "gather_seq", "split_to_ranks", "enter",
-           "ranks_to_run", "leave"]
+           "ranks_to_run", "leave", "max_over_ranks", "sum_over_ranks",
+           "fold_to", "gather_to", "argmax_over_ranks"]

@@ -27,16 +27,19 @@ compiles each cell on 512 placeholder TPU devices and reads
     keeps their summed peak (``peak_mode`` says so) and gives no
     per-card peak and no ``fits_80gb``.  A cell whose state alone
     exceeds 80 GB a device does not fit (the peak holds the state) and
-    runs no step; prefill and decode at ``model`` > 1 and the ``pod``
-    and ``multipod`` layouts (``model`` = 16) carry the state bytes only
-    (``TP_QUEUED``);
+    runs no step; the ``pod`` and ``multipod`` layouts (``model`` = 16)
+    carry the state bytes only (``TP_QUEUED``).  Prefill and decode run
+    through ``serve.step``'s builders over the mesh, the cache cut as
+    ``cache_specs`` cuts it (``fsdp.init_cache``: a batch the data axis
+    does not divide spreads its K/V's sequence over every slot);
   * roofline — ``analysis.step_flops`` and ``analysis.hbm_bytes`` (the
     reference's analytic terms), and a collective term reckoned from the
     step's own traffic: each layer's FSDP all-gathers (twice under
     remat: the forward and the recomputation), the reduce-scatter of the
     sharded leaves' gradients and the all-reduce of the replicated
-    leaves', and at ``model`` > 1 the tensor-parallel collectives
-    (``tp_collectives``) — with no HLO to parse,
+    leaves', and at ``model`` > 1 the tensor-parallel collectives of
+    the step, the prefill or the decode step (``tp_collectives``) —
+    with no HLO to parse,
     ``analysis.parse_collectives`` is not used — over the NVIDIA H100
     SXM's datasheet rates.
 
@@ -102,10 +105,9 @@ ACCUM_DTYPE = {
 }
 
 MESHES = ("1x1", "4x1", "1x4", "2x2", "pod", "multipod")
-TP_QUEUED = ("queued in the port: prefill and decode under tensor "
-             "parallelism (the sequence-parallel cache) and the pod layouts' "
-             "per-slot peak (one slot's local program of 256); the train "
-             "step at model > 1 runs on 1x4 / 2x2")
+TP_QUEUED = ("queued in the port: the pod layouts' per-slot peak (one "
+             "slot's local program of 256); the train step, prefill and "
+             "decode at model > 1 run on 1x4 / 2x2")
 
 # ------------------------------------------------------------------------ #
 
@@ -234,49 +236,84 @@ def _named_leaves(tree, prefix=""):
 
 def tp_collectives(cfg, shape: ShapeSpec, mesh: Mesh, *, accum: int,
                    remat: bool) -> Dict[str, Any]:
-    """Per-device wire bytes of the tensor-parallel step's collectives
-    over the model axis (``analysis._wire_bytes``' ring factors), for
-    one data row's rows (B / data) of S tokens in the model's dtype:
-    each sublayer (attention, FFN, SSD mixer; whisper's cross-attention
-    too) enters with an all-gather of the residual cut over ``model``
-    and leaves with a reduce-scatter of its row-parallel partials (the
+    """Per-device wire bytes of the tensor-parallel collectives over the
+    model axis (``analysis._wire_bytes``' ring factors), for one data
+    row's rows (B / data, or B where the data axis does not divide it)
+    in the model's dtype.  The train step and prefill: each sublayer
+    (attention, FFN, SSD mixer; whisper's cross-attention too) enters
+    with an all-gather of the residual cut over ``model`` and leaves with
+    a reduce-scatter of its row-parallel partials (the
     sequence-parallel pair of ``distributed.tp``; an all-reduce each
-    where the sequence does not divide), in the forward, again in the
-    recomputation under remat, and swapped in the backward; the SSD
-    mixers also all-gather B and C (their convs' outputs); the
+    where the sequence does not divide) — the train step in the forward,
+    again in the recomputation under remat, and swapped in the backward;
+    the SSD mixers also all-gather B and C (their convs' outputs); the
     vocabulary-parallel loss all-reduces three fp32 numbers a token
-    (max, sum of exponentials, gold logit)."""
+    (max, sum of exponentials, gold logit).  Decode: each sublayer's
+    partials all-reduced (B × 1 × d); each attention layer all-gathers
+    the token's query heads and reduces three fp32 terms over the ranks
+    that hold the cache's sequence (``cache_specs``: the row's TP ranks,
+    or every slot for a batch the data axis does not divide) — the
+    scores' max and sum (B × H each) and the context (B × H × hd); the
+    SSD mixers all-gather B and C.  Serving's greedy token all-gathers
+    a value and an index a row and rank (``tp.argmax_over_ranks``)."""
+    from ..models.convert import ShapeLeaf
     t = mesh.shape["model"]
-    rows = shape.batch // mesh.shape["data"]
+    data = mesh.shape["data"]
+    rows = shape.batch // data if shape.batch % data == 0 else shape.batch
     item = _dtype_bytes(cfg.dtype)
-    act = rows * shape.seq * cfg.d_model * item
     if cfg.is_encoder_decoder:
         sub = 2 * cfg.num_encoder_layers + 3 * cfg.num_layers
+        attn = 2 * cfg.num_layers
     elif cfg.family == "ssm":
-        sub = cfg.num_layers
+        sub, attn = cfg.num_layers, 0
     else:
         sub = 2 * cfg.num_layers
-    passes = (3 if remat else 2) * accum
-    sp = shape.seq % t == 0
-    per_op = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
-    if sp:
-        per_op["all-gather"] = analysis._wire_bytes(
-            "all-gather", act, t) * sub * passes
-        per_op["reduce-scatter"] = analysis._wire_bytes(
-            "reduce-scatter", act / t, t) * sub * passes
-    else:
-        per_op["all-reduce"] = analysis._wire_bytes(
-            "all-reduce", act, t) * 2 * sub * passes
+        attn = (cfg.num_layers // cfg.attn_period if cfg.attn_period
+                else cfg.num_layers)
     mixers = (cfg.num_layers if cfg.family == "ssm" else
               cfg.num_layers - cfg.num_layers // cfg.attn_period
               if cfg.attn_period else 0)
     gn = cfg.ssm_groups * cfg.ssm_state
+    per_op = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
+    wire = analysis._wire_bytes
+    if shape.kind == "decode":
+        seq = ShardingRules(cfg, mesh).cache_specs(
+            {"k": ShapeLeaf((shape.batch, shape.seq, cfg.num_kv_heads,
+                             cfg.head_dim))}, shape.batch)["k"][1]
+        m = 1 if seq is None else (t if seq == "model" else mesh.size)
+        heads = cfg.num_heads * cfg.head_dim
+        per_op["all-reduce"] = wire("all-reduce", rows * cfg.d_model * item,
+                                    t) * sub
+        per_op["all-gather"] = wire("all-gather", rows * heads * item,
+                                    t) * attn
+        if m > 1:
+            per_op["all-reduce"] += wire(
+                "all-reduce", rows * (2 * cfg.num_heads + heads) * 4, m) * attn
+        if mixers and gn % t == 0:
+            per_op["all-gather"] += wire("all-gather", 2 * rows * gn * item,
+                                         t) * mixers
+        per_op["all-gather"] += wire("all-gather", rows * 12, t)
+        return {"bytes_per_op": per_op, "total_bytes": sum(per_op.values()),
+                "sublayers": sub, "sequence_parallel": False,
+                "sequence_ranks": m}
+    passes = (3 if remat else 2) * accum if shape.kind == "train" else 1
+    act = rows * shape.seq * cfg.d_model * item
+    sp = shape.seq % t == 0
+    if sp:
+        per_op["all-gather"] = wire("all-gather", act, t) * sub * passes
+        per_op["reduce-scatter"] = wire("reduce-scatter", act / t,
+                                        t) * sub * passes
+    else:
+        per_op["all-reduce"] = wire("all-reduce", act, t) * 2 * sub * passes
     if mixers and gn % t == 0:
-        per_op["all-gather"] += analysis._wire_bytes(
+        per_op["all-gather"] += wire(
             "all-gather", 2 * rows * shape.seq * gn * item, t) \
             * mixers * passes
-    per_op["all-reduce"] += analysis._wire_bytes(
-        "all-reduce", 3 * rows * shape.seq * 4, t) * passes
+    if shape.kind == "train":
+        per_op["all-reduce"] += wire("all-reduce", 3 * rows * shape.seq * 4,
+                                     t) * passes
+    else:
+        per_op["all-gather"] += wire("all-gather", rows * 12, t)
     return {"bytes_per_op": per_op, "total_bytes": sum(per_op.values()),
             "sublayers": sub, "sequence_parallel": sp}
 
@@ -312,42 +349,36 @@ def _run_train(cfg, model, shape, mesh, accum, mdt, adt):
 
 
 def _run_serve(cfg, model, shape, mesh, rules):
-    """Prefill or decode of each batch shard on its slot, the weights
-    placed as the train step places them and gathered layer by layer
-    (the reference's prefill layout: DP activations, per-layer ZeRO-3
-    gathers); a batch the data axis does not divide runs whole on each
-    device.  The outputs stay alive to the end, as a server keeps its
-    cache."""
-    slots = list(mesh.devices.flat)
-    modules = (fsdp.place(model, mesh, rules) if mesh.size > 1
-               else [model])
-    runners, split = fsdp.batch_slots(rules, shape.batch)
-    b = shape.batch // split
-    kept = []
-    for s in runners:
-        dev, m = slots[s], modules[s]
-        with actctx.use(mesh, rules.dp, gather_rules=rules), \
-                actctx.local_shard(split, dev):
-            if shape.kind == "prefill":
-                local = ShapeSpec(shape.name, shape.kind, shape.seq, b)
-                args = [_fake(a, dev) for a in prefill_args_struct(cfg,
-                                                                   local)]
-                if cfg.is_encoder_decoder:
-                    fn = serve_step.make_prefill_encdec(
-                        m, whisper_dec_len(cfg, shape.seq))
-                else:
-                    fn = serve_step.make_prefill(m, shape.seq)
-                kept.append(fn(*args))
-                continue
-            local = ShapeSpec(shape.name, shape.kind, shape.seq, b)
-            cache_s, tok_s, _ = decode_args_struct(cfg, local, m)
-            cache = map_with_path(lambda _, t: _fake(t, dev), cache_s)
-            # the last position the self-attention cache holds (the
-            # reference's traced position clamps; the port's raises)
-            last = (whisper_dec_len(cfg, shape.seq) if cfg.is_encoder_decoder
-                    else shape.seq) - 1
-            kept.append(serve_step.make_decode(m)(cache, _fake(tok_s, dev),
-                                                  last))
+    """Prefill or decode of the whole batch through ``serve.step``'s
+    builders, over the mesh (``mesh=``; one device without): the weights
+    placed as the train step places them and gathered layer by layer,
+    each data row over its ranks, the cache cut as ``cache_specs`` cuts
+    it (no slot holds a whole one).  The inputs lie on the CPU (the
+    builders move each row's part to its slot).  Returns the outputs,
+    which a server keeps (the cache)."""
+    on = mesh if mesh.size > 1 else None
+    first = mesh.devices.flat[0]
+    if shape.kind == "prefill":
+        args = [_fake(a, "cpu") for a in prefill_args_struct(cfg, shape)]
+        if cfg.is_encoder_decoder:
+            fn = serve_step.make_prefill_encdec(
+                model, whisper_dec_len(cfg, shape.seq), mesh=on)
+        else:
+            fn = serve_step.make_prefill(model, shape.seq, mesh=on)
+        return fn(*args)
+    cache_s, tok_s, _ = decode_args_struct(cfg, shape, model)
+    if on:
+        # a server places its weights before it makes its cache: the
+        # whole model on slot 0 and a cache piece never coexist
+        serve_step.placement(model, mesh)
+    cache = (fsdp.init_cache(cache_s, mesh, rules, shape.batch) if on
+             else map_with_path(lambda _, t: _fake(t, first), cache_s))
+    # the last position the self-attention cache holds (the reference's
+    # traced position clamps; the port's raises)
+    last = (whisper_dec_len(cfg, shape.seq) if cfg.is_encoder_decoder
+            else shape.seq) - 1
+    return serve_step.make_decode(model, mesh=on)(
+        cache, _fake(tok_s, "cpu"), last)
 
 
 def measure_peak(cfg, shape: ShapeSpec, mesh: Mesh, *, accum: int = 1,
@@ -430,8 +461,7 @@ def lower_cell(arch: str, shape, mesh, *, device: str = "cuda",
                         cache_struct=cache_struct)
 
     tp = mesh.shape["model"]
-    queued = tp > 1 and (shape.kind != "train" or "pod" in mesh.axis_names
-                         or mesh.size > 4)
+    queued = tp > 1 and ("pod" in mesh.axis_names or mesh.size > 4)
     over = state["total"] >= HBM_CAPACITY
     t0 = time.time()
     peaks, peak_reason = None, None

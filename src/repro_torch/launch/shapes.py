@@ -17,13 +17,12 @@ first 256 token positions so total context == seq_len.
 
 Where the reference returns ``jax.ShapeDtypeStruct`` leaves, these return
 ``convert.ShapeLeaf`` (a shape and a torch dtype).  ``decode_args_struct``
-builds the cache with the port's own ``init_cache`` on fake tensors
-(``FakeTensorMode``: no bytes are allocated), as ``jax.eval_shape`` does.
+builds the cache with the port's own ``init_cache`` on ``meta`` tensors
+(no bytes are allocated), as ``jax.eval_shape`` does.
 """
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -101,22 +100,12 @@ def _structs(tree):
 def decode_args_struct(cfg: ModelConfig, shape: ShapeSpec, model
                        ) -> Tuple[Any, Struct, Struct]:
     """(cache_struct, token_struct, pos_struct) for serve_decode."""
-    from torch._guards import active_fake_mode
-    from torch._subclasses.fake_tensor import FakeTensorMode
     b, s = shape.batch, shape.seq
-    fake = (contextlib.nullcontext() if active_fake_mode() is not None
-            else FakeTensorMode(allow_non_fake_inputs=True))
-    with fake:
-        if cfg.is_encoder_decoder:
-            dec = whisper_dec_len(cfg, s)
-            ck = torch.zeros((cfg.num_layers, b, s, cfg.num_kv_heads,
-                              cfg.head_dim), dtype=model.dtype,
-                             device=model.device)
-            cache = {"self": model.init_cache(b, dec),
-                     "cross": {"k": ck, "v": ck}}
-        else:
-            cache = model.init_cache(b, s)
-        cache = _structs(cache)
+    if cfg.is_encoder_decoder:
+        cache = model.cache_structure(b, whisper_dec_len(cfg, s), s)
+    else:
+        cache = model.init_cache(b, s, "meta")
+    cache = _structs(cache)
     token = Struct((b, 1), torch.int32)
     pos = Struct((), torch.int32)
     return cache, token, pos

@@ -30,9 +30,10 @@ from torch import nn
 from . import layers as L
 from .config import ModelConfig
 from ..distributed import actctx, tp
-from .transformer import (attention_run, check_device, check_not_tp,
-                          embed_tp, head_loss_tp, mlp_run, register_tree,
-                          seeded_generator, shifted_labels, sublayer_tp)
+from .transformer import (_last, attention_tp, check_device, check_not_tp,
+                          embed_tp, head_loss_tp, logits_tp, mlp_run,
+                          register_tree, seeded_generator, serves_rows,
+                          shifted_labels, sublayer_tp)
 
 f32 = torch.float32
 
@@ -99,9 +100,12 @@ class EncDec(nn.Module):
 
     # ------------------------------------------------------------------ #
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames: (B, S_enc, d_model) stub embeddings -> encoder states."""
+        """frames: (B, S_enc, d_model) stub embeddings -> encoder states
+        (over a data row's ranks: ``_encode_tp``, on rank 0's device)."""
         cfg = self.cfg
-        check_not_tp(self, None)
+        if actctx.tp_ranks() is not None:
+            return self._encode_tp(frames.to(self.device))
+        check_not_tp(self)
         b, s, _ = frames.shape
         positions = self._positions(b, s)
         x = (frames.to(self.device, self.dtype)
@@ -123,15 +127,20 @@ class EncDec(nn.Module):
     def _cross_kv(self, enc_out: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-decoder-layer cross K/V, stacked (L, B, S_enc, G, hd)."""
-        ks, vs = [], []
-        for p in self.dec_layers:
-            # the reference contracts the sharded leaves in place (GSPMD
-            # adds the collective); the port gathers them first
-            p = actctx.gather_params({"wk": p["cross"]["wk"],
-                                      "wv": p["cross"]["wv"]})
-            ks.append(L.contract(enc_out, p["wk"], False).to(self.dtype))
-            vs.append(L.contract(enc_out, p["wv"], False).to(self.dtype))
+        ks, vs = zip(*(self._cross_kv_layer(enc_out, l)
+                       for l in range(len(self.dec_layers))))
         return torch.stack(ks), torch.stack(vs)
+
+    def _cross_kv_layer(self, enc_out: torch.Tensor, l: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Decoder layer ``l``'s cross K/V (B, S_enc, G, hd)."""
+        p = self.dec_layers[l]
+        # the reference contracts the sharded leaves in place (GSPMD adds
+        # the collective); the port gathers them first
+        p = actctx.gather_params({"wk": p["cross"]["wk"],
+                                  "wv": p["cross"]["wv"]})
+        return (L.contract(enc_out, p["wk"], False).to(self.dtype),
+                L.contract(enc_out, p["wv"], False).to(self.dtype))
 
     def decode(self, tokens: torch.Tensor, cross_kv,
                cache: Optional[Dict] = None,
@@ -140,7 +149,7 @@ class EncDec(nn.Module):
         """Decoder hidden states (B, S, d) and the self-attention cache
         (updated in place)."""
         cfg = self.cfg
-        check_not_tp(self, cache)
+        check_not_tp(self)
         b, s = tokens.shape
         positions = self._positions(b, s, 0 if cache_pos is None
                                     else int(cache_pos))
@@ -191,22 +200,25 @@ class EncDec(nn.Module):
     def _loss_tp(self, frames: torch.Tensor, tokens: torch.Tensor
                  ) -> torch.Tensor:
         """``loss`` over the running data row's TP ranks (the train step
-        of a ``(data, model)`` mesh): both stacks' layers over the ranks,
-        the residuals cut along the sequence where their pins ask
-        (``btd_sp``), the encoder's output and the cross K/V computed
-        once a row and handed to the ranks, the decoder's
-        vocabulary-parallel embedding and loss.  This module is rank 0's;
-        the others are ``actctx.tp_ranks()``."""
+        of a ``(data, model)`` mesh): ``_encode_tp``, ``_decode_tp`` and
+        the vocabulary-parallel loss."""
+        hiddens = self._decode_tp(tokens, self._encode_tp(frames))
+        labels, mask = shifted_labels(tokens)
+        return head_loss_tp(hiddens,
+                            [m.embed.t() for m in actctx.row_ranks()],
+                            labels, mask, self.vocab_padded)
+
+    def _ln_tp(self, key):
+        ranks = actctx.row_ranks()
+        return lambda h, j: self._ln(h, getattr(ranks[j], key))
+
+    def _encode_tp(self, frames: torch.Tensor) -> torch.Tensor:
+        """``encode`` over the running data row's ranks (this module is
+        rank 0's): the layers' ranks, the residual cut along the sequence
+        where its pin asks (``btd_sp``); the output joined and normed
+        once, on rank 0's device."""
         cfg = self.cfg
-        ranks, devices = actctx.tp_ranks(), actctx.tp_devices()
-
-        def ln(ps, key):
-            return lambda h, j: self._ln(h, ps[j][key])
-
-        def attn(ps, key, positions, causal, kv=None):
-            return attention_run(cfg, [p[key] for p in ps], positions,
-                                 window=0, rope=False, causal=causal, kv=kv)
-
+        ranks = actctx.row_ranks()
         b, s, _ = frames.shape
         positions = self._positions(b, s)
         x = (frames.to(self.dtype)
@@ -216,16 +228,30 @@ class EncDec(nn.Module):
             xs, axis = actctx.shard_ranks(xs, axis, "btd_sp")
             ps = [actctx.gather_params(m.enc_layers[l], rank=j)
                   for j, m in enumerate(ranks)]
-            xs = sublayer_tp(xs, axis, ln(ps, "ln1"),
-                             attn(ps, "attn", positions, False))
-            xs = sublayer_tp(xs, axis, ln(ps, "ln2"),
+            xs = attention_tp(cfg, xs, axis, [p["attn"] for p in ps],
+                              lambda h, j: self._ln(h, ps[j]["ln1"]),
+                              positions, window=0, rope=False, causal=False)
+            xs = sublayer_tp(xs, axis, lambda h, j: self._ln(h, ps[j]["ln2"]),
                              mlp_run(cfg, [p["mlp"] for p in ps]))
-        enc = self._ln(xs[0] if axis is None else tp.gather_seq(xs, axis),
-                       self.enc_norm)
-        ck, cv = self._cross_kv(enc)
+        return self._ln(xs[0] if axis is None else tp.gather_seq(xs, axis),
+                        self.enc_norm)
 
+    def _decode_tp(self, tokens: torch.Tensor, enc=None, cache=None,
+                   cache_pos=None):
+        """``decode`` over the running data row's ranks: the
+        vocabulary-parallel embedding, the layers' ranks (the residual cut
+        along the sequence where its pin asks), the final norm on every
+        rank.  ``enc`` (the encoder's output, on rank 0's device): each
+        layer's cross K/V, computed once a row and handed to the ranks,
+        and written into ``cache`` (the row's ``fsdp.RowCache``, its
+        ``cross`` pair) where one is filled; without ``enc`` the
+        cross-attention reads that cache.  Returns each rank's hidden
+        state."""
+        cfg = self.cfg
+        ranks, devices = actctx.row_ranks(), actctx.tp_devices()
         b, s = tokens.shape
-        positions = self._positions(b, s)
+        positions = self._positions(b, s, 0 if cache_pos is None
+                                    else int(cache_pos))
         x = (embed_tp([m.embed for m in ranks], tokens, self.vocab_padded
                       ).to(self.dtype)
              + sinusoidal(positions, cfg.d_model).to(self.dtype))
@@ -235,37 +261,74 @@ class EncDec(nn.Module):
                                           "btd_sp" if s > 1 else "btd")
             ps = [actctx.gather_params(m.dec_layers[l], rank=j)
                   for j, m in enumerate(ranks)]
-            xs = sublayer_tp(xs, axis, ln(ps, "ln1"),
-                             attn(ps, "self", positions, True))
-            kv = list(zip(tp.copy_to_ranks(ck[l], devices),
-                          tp.copy_to_ranks(cv[l], devices)))
-            xs = sublayer_tp(xs, axis, ln(ps, "ln2"),
-                             attn(ps, "cross", positions, False, kv))
-            xs = sublayer_tp(xs, axis, ln(ps, "ln3"),
-                             mlp_run(cfg, [p["mlp"] for p in ps]))
-        hiddens = tp.enter(xs, axis, lambda h, j: self._ln(
-            h, ranks[j].dec_norm), devices)
-        labels, mask = shifted_labels(tokens)
-        return head_loss_tp(hiddens, [m.embed.t() for m in ranks], labels,
-                            mask, self.vocab_padded)
 
-    def logits(self, hidden_last: torch.Tensor) -> torch.Tensor:
-        """(B, d) -> (B, vocab) fp32 logits against the tied embedding."""
+            def ln(key):
+                return lambda h, j: self._ln(h, ps[j][key])
+
+            def attn(key, causal, **kw):
+                return attention_tp(cfg, xs, axis, [p[key] for p in ps],
+                                    ln("ln1" if key == "self" else "ln2"),
+                                    positions, window=0, rope=False,
+                                    causal=causal, **kw)
+            xs = attn("self", True, cache=None if cache is None
+                      else cache.kv(("self",), (l,)), cache_pos=cache_pos)
+            if enc is None:
+                xs = attn("cross", False, cache=cache.kv(("cross",), (l,)),
+                          write=False)
+            else:
+                ck, cv = self._cross_kv_layer(enc, l)
+                if cache is not None:
+                    L.write_kv(cache.kv(("cross",), (l,)), ck, cv, 0)
+                xs = attn("cross", False, kv=list(zip(
+                    tp.copy_to_ranks(ck, devices),
+                    tp.copy_to_ranks(cv, devices))))
+            xs = sublayer_tp(xs, axis, ln("ln3"),
+                             mlp_run(cfg, [p["mlp"] for p in ps]))
+        return tp.enter(xs, axis, self._ln_tp("dec_norm"), devices)
+
+    def logits(self, hidden_last):
+        """(B, d) -> (B, vocab) fp32 logits against the tied embedding;
+        over a data row's ranks, the ranks' columns (``logits_tp``)."""
+        if isinstance(hidden_last, (list, tuple)):
+            return logits_tp(hidden_last,
+                             [m.embed.t() for m in actctx.row_ranks()],
+                             self.vocab_padded, self.cfg.vocab_size)
         return L.mm_f32(hidden_last, self.embed.t())[:, :self.cfg.vocab_size]
 
     # ------------------------------------------------------------------ #
-    def init_cache(self, batch: int, max_dec: int) -> Dict:
+    def init_cache(self, batch: int, max_dec: int, device=None) -> Dict:
+        """The self-attention cache's zeros on ``device`` (the model's by
+        default; ``"meta"`` gives the structure alone)."""
         cfg = self.cfg
         shape = (cfg.num_layers, batch, max_dec, cfg.num_kv_heads,
                  cfg.head_dim)
-        z = lambda: torch.zeros(shape, dtype=self.dtype, device=self.device)
+        dev = self.device if device is None else torch.device(device)
+        z = lambda: torch.zeros(shape, dtype=self.dtype, device=dev)
         return {"k": z(), "v": z()}
+
+    def cache_structure(self, batch: int, max_dec: int, enc_len: int
+                        ) -> Dict:
+        """The serving cache's structure (``meta`` tensors): the
+        self-attention cache and the cross K/V of ``enc_len`` frames."""
+        cfg = self.cfg
+        cross = torch.empty((cfg.num_layers, batch, enc_len,
+                             cfg.num_kv_heads, cfg.head_dim),
+                            dtype=self.dtype, device="meta")
+        return {"self": self.init_cache(batch, max_dec, "meta"),
+                "cross": {"k": cross, "v": cross}}
 
     @torch.inference_mode()
     def prefill(self, frames: torch.Tensor, tokens: torch.Tensor,
-                max_dec: int) -> Tuple[Dict, torch.Tensor]:
+                max_dec: int, cache=None) -> Tuple[Dict, torch.Tensor]:
         """Encode, cache the cross K/V, run the prompt: (cache, logits).
-        No ``params`` argument: the weights live in the module."""
+        No ``params`` argument: the weights live in the module.
+        ``cache``: on a mesh, the data row's ``fsdp.RowCache`` to fill
+        (``cache_structure``'s layout; the logits are the ranks'
+        columns)."""
+        if serves_rows(cache):
+            hiddens = self._decode_tp(tokens.to(self.device), self.encode(
+                frames), cache, 0)
+            return cache, self.logits(_last(hiddens))
         cross_kv = self._cross_kv(self.encode(frames))
         cache = self.init_cache(tokens.shape[0], max_dec)
         hidden, cache = self.decode(tokens, cross_kv, cache=cache,
@@ -278,6 +341,10 @@ class EncDec(nn.Module):
     def decode_step(self, cache: Dict, token: torch.Tensor, pos: int
                     ) -> Tuple[torch.Tensor, Dict]:
         """One token per sequence.  No ``params`` argument."""
+        if serves_rows(cache):
+            hiddens = self._decode_tp(token.to(self.device), cache=cache,
+                                      cache_pos=pos)
+            return self.logits(_last(hiddens)), cache
         hidden, self_cache = self.decode(
             token, (cache["cross"]["k"], cache["cross"]["v"]),
             cache=cache["self"], cache_pos=pos)

@@ -31,7 +31,7 @@ Conventions (the reference's, kept so the two compare like with like)
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Tuple
+from typing import List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -280,19 +280,19 @@ def attention(params: Mapping, x: torch.Tensor, *,
     rank takes the kv heads its query heads map to under the global GQA
     grouping (head h ↦ h // (num_heads / G)), slicing the whole
     ``wk``/``wv`` (or ``kv_override``) for the compute only, and the
-    output is the rank's row-parallel partial of the sum over heads.
+    output is the rank's row-parallel partial of the sum over heads, in
+    fp32 (``mlp``'s ``partial``).  With a cache (the rank's whole copy of a sequence the mesh does not
+    cut) the rank writes every kv head and attends with its own; a cache
+    whose sequence the mesh cuts is ``attention_tp_decode``'s.
     """
     b, s, d = x.shape
     wide = s > 1        # decode accumulates in the activation dtype
     q = contract(x, params["wq"], wide).to(f32)
     local = params["wq"].shape[-2]
     heads = local if num_heads is None else num_heads
+    part = local != heads   # a TP rank's partial: kept fp32 (``partial``)
     kv_idx = None
     if local != heads:
-        if cache is not None:
-            raise ValueError("attention of a TP rank's heads with a cache: "
-                             "serving under tensor parallelism is not "
-                             "ported")
         rep = heads // num_kv_heads
         lo = head_offset // rep
         hi = (head_offset + local - 1) // rep + 1
@@ -300,7 +300,8 @@ def attention(params: Mapping, x: torch.Tensor, *,
                   ) // rep - lo
     if kv_override is None:
         wk, wv = params["wk"], params["wv"]
-        if kv_idx is not None:
+        if kv_idx is not None and cache is None:
+            # only the kv heads this rank's queries read; a cache takes all
             wk, wv = wk[..., lo:hi, :], wv[..., lo:hi, :]
         k = contract(x, wk, wide).to(f32)
         v = contract(x, wv, wide).to(f32)
@@ -331,12 +332,14 @@ def attention(params: Mapping, x: torch.Tensor, *,
         if s == 1:
             k, v = cache["k"], cache["v"]   # decode attends over the cache
         # prefill keeps the fresh local k/v (the cache was empty before)
+        if kv_idx is not None:
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
 
     hd = q.shape[-1]
     num_heads = q.shape[2]
 
     if s == 1 and cache is not None:
-        g = num_kv_heads
+        g = k.shape[2]                      # a TP rank's: its kv heads
         r = num_heads // g
         qg = q.to(x.dtype).reshape(b, 1, g, r, hd)
         scores = torch.einsum("bsgrk,btgk->bgrst", qg.to(f32),
@@ -351,8 +354,8 @@ def attention(params: Mapping, x: torch.Tensor, *,
         ctx = torch.einsum("bgrst,btgk->bsgrk", probs, v.to(x.dtype))
         ctx = ctx.reshape(b, 1, num_heads, hd).to(x.dtype)
         out = contract(ctx.reshape(b, 1, num_heads * hd),
-                       params["wo"].reshape(num_heads * hd, d), False)
-        return out.to(x.dtype), new_cache
+                       params["wo"].reshape(num_heads * hd, d), part)
+        return out if part else out.to(x.dtype), new_cache
 
     if kv_idx is None:
         kh = _expand_kv(k, num_heads).to(x.dtype)              # (B,T,H,hd)
@@ -375,15 +378,175 @@ def attention(params: Mapping, x: torch.Tensor, *,
             for i in range(0, s, Q_CHUNK)], dim=1)
     ctx = ctx.to(x.dtype)
     out = contract(ctx.reshape(b, s, num_heads * hd),
-                   params["wo"].reshape(num_heads * hd, d), False)
-    return out.to(x.dtype), new_cache
+                   params["wo"].reshape(num_heads * hd, d), part)
+    return out if part else out.to(x.dtype), new_cache
+
+
+# --------------------------------------------------------------------- #
+# attention over a cache laid out over the slots (serving on a mesh)
+# --------------------------------------------------------------------- #
+
+class SeqKV(NamedTuple):
+    """One layer's K/V cache as a data row sees it on a mesh: ``k`` /
+    ``v`` the pieces (B, S_p, G, hd), in sequence order, of the ranks
+    that hold its sequence (``spread``); or, where the spec leaves the
+    sequence whole, one whole copy a TP rank (``spread`` False)."""
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    spread: bool
+
+    def offsets(self) -> List[int]:
+        if not self.spread:
+            return [0] * len(self.k)
+        return np.cumsum([0] + [k.shape[1] for k in self.k[:-1]]).tolist()
+
+    def length(self) -> int:
+        return (sum(k.shape[1] for k in self.k) if self.spread
+                else self.k[0].shape[1])
+
+
+def cache_kv(params: Mapping, x: torch.Tensor, *, positions: torch.Tensor,
+             rope: bool, rope_theta: float, norm_eps: float,
+             dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K/V of every kv head that ``attention`` caches for ``x``
+    (after ``k_norm`` and rope), cast to the cache's ``dtype``."""
+    wide = x.shape[1] > 1
+    k = contract(x, params["wk"], wide).to(f32)
+    v = contract(x, params["wv"], wide).to(f32)
+    if "k_norm" in params:
+        k = rms_norm(k, params["k_norm"], norm_eps)
+    if rope:
+        k = apply_rope(k, positions, rope_theta)
+    return k.to(dtype), v.to(dtype)
+
+
+def write_kv(kv: SeqKV, k: torch.Tensor, v: torch.Tensor, start: int
+             ) -> None:
+    """Write ``k``/``v`` (B, s, G, hd) at positions ``start`` … into the
+    pieces that hold them (every distinct copy where the sequence is not
+    cut), in place.  A write past the cache raises ``ValueError``, as
+    ``attention``'s does."""
+    s = k.shape[1]
+    total = kv.length()
+    if start < 0 or start + s > total:
+        raise ValueError(f"cache overflow: writing {s} positions at {start} "
+                         f"into a cache of max_len {total}")
+    seen = set()
+    for kp, vp, off in zip(kv.k, kv.v, kv.offsets()):
+        if id(kp) in seen:
+            continue
+        seen.add(id(kp))
+        lo, hi = max(start, off), min(start + s, off + kp.shape[1])
+        if lo < hi:
+            kp[:, lo - off:hi - off] = k[:, lo - start:hi - start].to(
+                kp.device, kp.dtype)
+            vp[:, lo - off:hi - off] = v[:, lo - start:hi - start].to(
+                vp.device, vp.dtype)
+
+
+def _attend_spread(qs, ks, vs, offsets, positions, window: int,
+                   causal: bool, dtype, device) -> torch.Tensor:
+    """Grouped decode attention whose keys lie on several ranks: rank p
+    holds ``qs[p]`` (B, 1, G', R', hd), its copy of the queries, and
+    ``ks[p]`` / ``vs[p]`` (B, S_p, G', hd), the positions ``offsets[p]``
+    … of the sequence.  Each rank scores its positions (masked by their
+    global position: causal, the window); the max and the sum of
+    exponentials are reduced over the ranks in fp32; each rank forms its
+    probabilities in ``dtype`` (the reference's rounding) and its fp32
+    partial of the context, and the partials are summed on ``device``,
+    rank 0 first, and cast once.  Returns (B, 1, G', R', hd)."""
+    from ..distributed import tp
+    hd = qs[0].shape[-1]
+    scores = []
+    for q, k, off in zip(qs, ks, offsets):
+        dev = k.device
+        sc = torch.einsum("bsgrk,btgk->bgrst", q.to(f32),
+                          k.to(dtype).to(f32)) / math.sqrt(hd)
+        t_pos = off + torch.arange(k.shape[1], device=dev)
+        pos0 = positions[:, 0].to(dev)
+        mask = _window_mask(pos0, t_pos, window)               # (B,T)
+        if causal:
+            mask = mask & (t_pos[None, :] <= pos0[:, None])
+        scores.append(sc.masked_fill(~mask[:, None, None, None, :],
+                                     MASK_VALUE))
+    tops = tp.max_over_ranks([sc.amax(-1, keepdim=True) for sc in scores])
+    exps = [torch.exp(sc - m) for sc, m in zip(scores, tops)]
+    sums = tp.sum_over_ranks([e.sum(-1, keepdim=True) for e in exps])
+    parts = [torch.einsum("bgrst,btgk->bsgrk", (e / z).to(dtype).to(f32),
+                          v.to(dtype).to(f32))
+             for e, z, v in zip(exps, sums, vs)]
+    return tp.fold_to(parts, device).to(dtype)
+
+
+def attention_tp_decode(params: Sequence[Mapping], xs: Sequence[torch.Tensor],
+                        kv: SeqKV, *, positions: torch.Tensor, window: int,
+                        num_heads: int, num_kv_heads: int, rope: bool,
+                        rope_theta: float, norm_eps: float,
+                        causal: bool = True, cache_pos: Optional[int] = None
+                        ) -> List[torch.Tensor]:
+    """Decode (S == 1) attention of a data row's TP ranks over a cache
+    whose sequence the mesh cuts over its sequence ranks (``kv.spread``):
+    rank j holds ``params[j]`` (its heads of ``wq`` / ``wo``; ``wk`` /
+    ``wv`` whole) and ``xs[j]``, its copy of the normed input (B, 1, d).
+    ``cache_pos``: the token's position, where its K/V (every kv head,
+    from rank 0's copy) go into the piece that holds it (None: a
+    cross-attention's cache, read only).  The ranks' query heads are gathered onto each
+    sequence rank, each scores every head over its positions, the
+    softmax's max and sum are reduced over them (``_attend_spread``) and
+    the context lands on rank 0's device; each TP rank takes its heads of
+    it into its rows of ``wo``.  Returns the ranks' outputs (B, 1, d):
+    fp32 row-parallel partials where the heads are cut (to be summed,
+    ``tp.reduce_from_ranks``), else rank 0's whole output alone, in the
+    input's dtype.  The reference accumulates decode's projections in
+    the activation dtype; here the partials are summed in fp32 and cast
+    once, so the output is one device's up to the order of the sum."""
+    from ..distributed import actctx, tp
+    b, _, d = xs[0].shape
+    dtype = xs[0].dtype
+    local = params[0]["wq"].shape[-2]
+    ranks = range(len(params)) if local < num_heads else range(1)
+    qs = []
+    for j in ranks:
+        with actctx.on_rank(j):
+            q = contract(xs[j], params[j]["wq"], False).to(f32)
+            if "q_norm" in params[j]:
+                q = rms_norm(q, params[j]["q_norm"], norm_eps)
+            if rope:
+                q = apply_rope(q, positions.to(q.device), rope_theta)
+            qs.append(q.to(dtype))
+    if cache_pos is not None:
+        write_kv(kv, *cache_kv(params[0], xs[0], positions=positions,
+                               rope=rope, rope_theta=rope_theta,
+                               norm_eps=norm_eps, dtype=kv.k[0].dtype),
+                 int(cache_pos))
+    g, hd = num_kv_heads, qs[0].shape[-1]
+    q_all = tp.gather_to(qs, 2, [k.device for k in kv.k])
+    ctx = _attend_spread(
+        [q.reshape(b, 1, g, num_heads // g, hd) for q in q_all], kv.k, kv.v,
+        kv.offsets(), positions, window, causal, dtype, xs[0].device
+    ).reshape(b, 1, num_heads * hd)
+    partial = len(ranks) > 1
+    outs = []
+    for j in ranks:
+        w = params[j]["wo"].reshape(local * hd, d)
+        part = ctx[..., j * local * hd:(j + 1) * local * hd].to(w.device)
+        out = contract(part, w, partial)
+        outs.append(out if partial else out.to(dtype))
+    return outs
 
 
 # --------------------------------------------------------------------- #
 # MLP
 # --------------------------------------------------------------------- #
 
-def mlp(params: Mapping, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: Mapping, x: torch.Tensor, partial: bool = False
+        ) -> torch.Tensor:
+    """``partial``: ``params`` hold a TP rank's FFN columns and rows, so
+    the output is a row-parallel partial, kept fp32: the ranks' partials
+    are summed in fp32 and cast once (``tp.reduce_from_ranks``), as
+    GSPMD sums the reference's fp32 partial products — a rounding of
+    each partial would move the residual by an ulp, enough to flip a
+    near tie in a later MoE routing."""
     # prefill keeps gate/up in fp32 (the reference's preferred fp32 is
     # not cast back); decode (S == 1) accumulates in the activation dtype
     wide = x.shape[1] > 1
@@ -391,9 +554,11 @@ def mlp(params: Mapping, x: torch.Tensor) -> torch.Tensor:
         g = contract(x, params["w_gate"], wide)
         u = contract(x, params["w_up"], wide)
         h = swiglu(g.to(f32), u.to(f32)).to(x.dtype)
-        return contract(h, params["w_down"], False).to(x.dtype)
-    h = gelu(contract(x, params["w_in"], wide).to(f32))
-    return contract(h.to(x.dtype), params["w_out"], False).to(x.dtype)
+        out = contract(h, params["w_down"], partial)
+    else:
+        h = gelu(contract(x, params["w_in"], wide).to(f32))
+        out = contract(h.to(x.dtype), params["w_out"], partial)
+    return out if partial else out.to(x.dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -503,4 +668,5 @@ def vocab_parallel_ce_loss(hiddens, heads, labels: torch.Tensor,
 __all__ = ["mm_f32", "remat", "chunked_ce_loss", "vocab_parallel_ce_loss",
            "contract", "rms_norm", "layer_norm", "swiglu", "gelu",
            "rope_frequencies", "apply_rope", "normal", "init_attention",
-           "init_mlp", "init_embedding", "attention", "mlp", "Q_CHUNK"]
+           "init_mlp", "init_embedding", "attention", "mlp", "Q_CHUNK",
+           "SeqKV", "cache_kv", "write_kv", "attention_tp_decode"]

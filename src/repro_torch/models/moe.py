@@ -188,9 +188,11 @@ def _dispatch(params: Mapping, x: torch.Tensor, *, top_k: int,
 
 
 def _experts(params: Mapping, x: torch.Tensor, dispatch: torch.Tensor,
-             combine: torch.Tensor) -> torch.Tensor:
+             combine: torch.Tensor, partial: bool = False) -> torch.Tensor:
     """The experts of ``params`` (E_local of them, matching the E axis of
-    ``dispatch``/``combine``) on their tokens, combined back: (B,S,d)."""
+    ``dispatch``/``combine``) on their tokens, combined back: (B,S,d);
+    ``partial``: a TP rank's share of the experts, combined in fp32 (the
+    row-parallel partial ``layers.mlp`` keeps)."""
     # prefill keeps gate/up in fp32; decode (S == 1) accumulates in the
     # activation dtype, as the reference does
     wide = x.shape[1] > 1
@@ -205,6 +207,8 @@ def _experts(params: Mapping, x: torch.Tensor, dispatch: torch.Tensor,
         u = torch.einsum("becd,edf->becf", xin, params["w_up"])
     h = (F.silu(g.to(f32)) * u.to(f32)).to(x.dtype)
     eo = torch.einsum("becf,efd->becd", h, params["w_down"]).to(x.dtype)
+    if partial:
+        return torch.einsum("becd,bsec->bsd", eo.to(f32), combine.to(f32))
     return torch.einsum("becd,bsec->bsd", eo, combine).to(x.dtype)
 
 
@@ -241,7 +245,7 @@ def moe_ffn_tp(params: Sequence[Mapping], xs: Sequence[torch.Tensor], *,
         else:
             dsp = tp.copy_to_ranks(dispatch, devices)
             cmb = tp.copy_to_ranks(combine, devices)
-        return (*[_experts(p, w, dj, cj) for p, w, dj, cj
+        return (*[_experts(p, w, dj, cj, partial) for p, w, dj, cj
                   in zip(params, ws, dsp, cmb)], aux)
 
     outs, aux = _windows(window, xs, chunk)

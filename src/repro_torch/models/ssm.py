@@ -225,47 +225,62 @@ def mamba2_block(params: Mapping, x: torch.Tensor, cfg,
 
 
 def mamba2_block_tp(params: Sequence[Mapping], xs: Sequence[torch.Tensor],
-                    cfg):
-    """The train-mode ``mamba2_block`` (no state) over the TP ranks of a
-    data row: rank j holds ``params[j]`` and ``xs[j]``, its copy of the
-    input (B, L, d).  Where the spec cuts the SSD heads over ``model``
-    each rank projects, convolves and scans its heads (``z_proj`` /
+                    cfg, states: Optional[Sequence[dict]] = None):
+    """``mamba2_block`` over the TP ranks of a data row: rank j holds
+    ``params[j]`` and ``xs[j]``, its copy of the input (B, L, d), and,
+    when serving, ``states[j]``, its cut of the layer's state (the SSM
+    state's heads and the conv histories' channels as ``cache_specs``
+    cuts them).  Where the spec cuts the SSD heads over ``model`` each
+    rank projects, convolves and scans its heads (``z_proj`` /
     ``x_proj`` / ``dt_proj`` columns, ``conv_x_*``, ``A_log`` / ``D`` /
     ``dt_bias``) and returns its row-parallel partial through its rows
     of ``out_proj``.  B and C are shared by every head of a group, so
     where the spec also cuts ``b_proj`` / ``c_proj`` and their convs (a
     storage layout: GSPMD keeps the global semantics) the ranks' conv
-    outputs are all-gathered before the scan, and each rank scans with
-    the groups its heads map to.  Returns (outputs, whether they are
-    partials to sum); heads the axis does not cut run whole on every
-    rank."""
+    outputs are all-gathered before the scan (or, in decode, the O(1)
+    update), and each rank takes the groups its heads map to.  Prefill
+    seeds each rank's scan from its state and returns its final chunk
+    state.  Returns (outputs — fp32 partials to sum, as ``layers.mlp``'s
+    —, whether they are partials, each rank's new state or None); heads
+    the axis does not cut run whole on every rank."""
     from ..distributed import actctx, tp
     heads, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
     p = cfg.ssm_head_dim
+    k = cfg.ssm_conv
     local = params[0]["A_log"].shape[-1]
+    sts = [None] * len(xs) if states is None else list(states)
     if local == heads:
         if params[0]["b_proj"].shape[-1] < g * n:
             raise ValueError(f"SSD heads ({heads}) that the model axis does "
                              "not cut, with B/C projections that it does")
-        return [mamba2_block(pj, x, cfg)[0] for pj, x in zip(params, xs)], \
-            False
+        done = [mamba2_block(pj, x, cfg, state=st)
+                for pj, x, st in zip(params, xs, sts)]
+        return [o for o, _ in done], False, \
+            None if states is None else [st for _, st in done]
     rep = heads // g
     b, l, d = xs[0].shape
+    decode = states is not None and l == 1
 
     def proj(x, w):
         return contract(x, w, False).to(x.dtype)
 
     parts = []
-    for j, (pj, x) in enumerate(zip(params, xs)):
+    for j, (pj, x, st) in enumerate(zip(params, xs, sts)):
         with actctx.on_rank(j):
-            parts.append({
-                "z": proj(x, pj["z_proj"]), "dt_r": proj(x, pj["dt_proj"]),
-                "xc": _causal_conv(proj(x, pj["x_proj"]), pj["conv_x_w"],
-                                   pj["conv_x_b"]),
-                "bc": _causal_conv(proj(x, pj["b_proj"]), pj["conv_b_w"],
-                                   pj["conv_b_b"]),
-                "cc": _causal_conv(proj(x, pj["c_proj"]), pj["conv_c_w"],
-                                   pj["conv_c_b"])})
+            q = {"z": proj(x, pj["z_proj"]), "dt_r": proj(x, pj["dt_proj"])}
+            for key in ("x", "b", "c"):
+                raw = proj(x, pj[f"{key}_proj"])
+                w, bias = pj[f"conv_{key}_w"], pj[f"conv_{key}_b"]
+                if decode:
+                    q[f"{key}c"], q[f"conv_{key}"] = _conv_step(
+                        raw, w, bias, st[f"conv_{key}"])
+                    continue
+                q[f"{key}c"] = _causal_conv(
+                    raw, w, bias, None if st is None else st[f"conv_{key}"])
+                if st is not None:   # histories from the unpadded rows
+                    q[f"conv_{key}"] = torch.cat(
+                        [st[f"conv_{key}"], raw], dim=1)[:, -(k - 1):]
+            parts.append(q)
     if params[0]["b_proj"].shape[-1] < g * n:
         for key in ("bc", "cc"):
             for part, full in zip(parts, tp.all_gather(
@@ -273,8 +288,8 @@ def mamba2_block_tp(params: Sequence[Mapping], xs: Sequence[torch.Tensor],
                 part[key] = full
     chunk = min(cfg.ssm_chunk, l)
     pad = (-l) % chunk
-    outs = []
-    for j, (pj, x, q) in enumerate(zip(params, xs, parts)):
+    outs, news = [], []
+    for j, (pj, x, q, st) in enumerate(zip(params, xs, parts, sts)):
         off = j * local
         lo, hi = off // rep, (off + local - 1) // rep + 1
         if local % (hi - lo) or (hi - lo > 1 and (off % rep or local % rep)):
@@ -286,16 +301,33 @@ def mamba2_block_tp(params: Sequence[Mapping], xs: Sequence[torch.Tensor],
         Cm = F.silu(q["cc"].to(f32)).to(x.dtype).reshape(b, l, g, n)[
             :, :, lo:hi]
         dt = F.softplus(q["dt_r"].to(f32) + pj["dt_bias"][None, None, :])
-        if pad:  # inert padding: dt=0 => a=1, Δx=0
-            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-            dt = F.pad(dt, (0, 0, 0, pad))
-            Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
-            Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
-        y, _ = _ssd_chunked(xh, dt, pj["A_log"], Bm, Cm, pj["D"], chunk)
-        y = y[:, :l].reshape(b, l, local * p).to(x.dtype)
+        if decode:
+            r = local // (hi - lo)
+            a = torch.exp(-torch.exp(pj["A_log"])[None, :] * dt[:, 0])
+            Bh = torch.repeat_interleave(Bm[:, 0], r, dim=1)
+            Ch = torch.repeat_interleave(Cm[:, 0], r, dim=1)
+            xdt = xh[:, 0].to(f32) * dt[:, 0][..., None]
+            h_last = (st["ssm"] * a[:, :, None, None]
+                      + torch.einsum("bhp,bhn->bhpn", xdt, Bh.to(f32)))
+            y = (torch.einsum("bhpn,bhn->bhp", h_last, Ch.to(f32))
+                 + pj["D"][None, :, None] * xh[:, 0].to(f32))[:, None]
+        else:
+            if pad:  # inert padding: dt=0 => a=1, Δx=0
+                xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+                dt = F.pad(dt, (0, 0, 0, pad))
+                Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+                Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+            y, h_last = _ssd_chunked(xh, dt, pj["A_log"], Bm, Cm, pj["D"],
+                                     chunk,
+                                     h0=None if st is None else st["ssm"])
+            y = y[:, :l]
+        y = y.reshape(b, l, local * p).to(x.dtype)
         y = y * F.silu(q["z"].to(f32)).to(x.dtype)
-        outs.append(contract(y, pj["out_proj"], False).to(x.dtype))
-    return outs, True
+        outs.append(contract(y, pj["out_proj"], True))   # fp32 partial
+        if st is not None:
+            news.append({"ssm": h_last, **{f"conv_{key}": q[f"conv_{key}"]
+                                           for key in ("x", "b", "c")}})
+    return outs, True, news if states is not None else None
 
 
 def init_mamba_state(cfg, batch: int, dtype: torch.dtype,

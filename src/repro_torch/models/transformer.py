@@ -27,6 +27,7 @@ builds no graph; ``train.step.make_train_step`` makes them trainable.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -36,23 +37,36 @@ from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
 from .config import ModelConfig
-from ..distributed import actctx, tp
+from ..distributed import actctx, fsdp, tp
 
 f32 = torch.float32
 AUX_WEIGHT = 0.01          # the MoE aux loss's weight in ``LM.loss``
-SERVE_TP = ("prefill and decode under tensor parallelism (a model axis > 1: "
-            "the KV cache's sequence cut over the model axis, attention's "
-            "softmax spread over its ranks) are the port's next slice; this "
-            "module holds one TP rank's weights, which train only")
 
 
-def check_not_tp(module, cache) -> None:
-    """Refuse a forward outside the train step's tensor-parallel loss on
-    a module placed over a model axis > 1 (its leaves are one rank's),
-    or any forward with a cache inside it."""
-    if getattr(module, "tp_size", 1) > 1 or actctx.tp_ranks() is not None:
-        raise ValueError(("a cache passed under tensor parallelism: "
-                          if cache is not None else "") + SERVE_TP)
+def check_not_tp(module) -> None:
+    """Refuse a forward, outside a data row of a mesh, of a module that
+    holds one TP rank's weights (placed over a model axis > 1)."""
+    if getattr(module, "tp_size", 1) > 1 and actctx.row_ranks() is None:
+        raise ValueError(
+            "this module holds one TP rank's weights (placed over a model "
+            "axis > 1): run it through serve.step's make_prefill / "
+            "make_decode(..., mesh=) or train.step.make_train_step(..., "
+            "mesh=)")
+
+
+def serves_rows(cache) -> bool:
+    """Whether a forward runs over the running data row's ranks: inside
+    a tensor-parallel row, or with a mesh's cache (``fsdp.RowCache``).
+    Inside such a row a cache must be the row's view of a placed one."""
+    if isinstance(cache, fsdp.RowCache):
+        return True
+    if actctx.tp_ranks() is None:
+        return False
+    if cache is not None:
+        raise ValueError("a cache under tensor parallelism must be a data "
+                         "row's view of a placed cache (fsdp.RowCache: "
+                         "serve.step's mesh builders make one)")
+    return True
 
 
 def embed_tp(embeds, tokens: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -90,15 +104,19 @@ def sublayer_tp(xs, axis, norm, run):
 def add_tp(xs, axis, outs, partial: bool):
     """The residual ``xs`` plus a sublayer's update from the ranks'
     outputs (``tp.leave``; outputs of ranks that need not run are
-    dropped)."""
+    dropped): row-parallel partials, fp32, are summed in fp32 and cast
+    once to the residual's dtype."""
     outs = outs[:len(tp.ranks_to_run(partial, axis, len(outs)))]
-    return [x + u for x, u in zip(xs, tp.leave(outs, axis, partial))]
+    return [x + u.to(x.dtype)
+            for x, u in zip(xs, tp.leave(outs, axis, partial))]
 
 
 def attention_run(cfg, ps, positions, *, window: int, rope: bool,
-                  causal: bool = True, kv=None):
+                  causal: bool = True, kv=None, caches=None, cache_pos=None):
     """A ``sublayer_tp`` runner: rank j's attention heads (``ps[j]``, its
-    weights; ``kv``: the ranks' copies of a cross-attention's K/V)."""
+    weights; ``kv``: the ranks' copies of a cross-attention's K/V;
+    ``caches``: each rank's whole copy of a self-attention cache, written
+    at ``cache_pos``)."""
     local = ps[0]["wq"].shape[-2]
 
     def run(j, h):
@@ -107,19 +125,70 @@ def attention_run(cfg, ps, positions, *, window: int, rope: bool,
             num_kv_heads=cfg.num_kv_heads, rope=rope,
             rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps, causal=causal,
             kv_override=None if kv is None else kv[j],
-            num_heads=cfg.num_heads,
+            cache=None if caches is None else caches[j],
+            cache_pos=cache_pos, num_heads=cfg.num_heads,
             head_offset=j * local if local < cfg.num_heads else 0)
         return a
     run.partial = local < cfg.num_heads
     return run
 
 
+def attention_tp(cfg, xs, axis, ps, norm, positions, *, window: int,
+                 rope: bool, causal: bool = True, kv=None, cache=None,
+                 cache_pos=None, write: bool = True):
+    """The attention sublayer over the running row's ranks:
+    ``sublayer_tp(xs, axis, norm, attention_run(...))``, with a serving
+    cache — ``cache``, the layer's ``layers.SeqKV`` (``write`` False: a
+    cross-attention's, read only, in decode).  Where the mesh cuts its
+    sequence: prefill attends over the fresh K/V, as training does, and
+    writes the K/V of every kv head (from rank 0's input) into the pieces
+    that hold the prompt's positions; decode is
+    ``layers.attention_tp_decode``.
+    Where the sequence is whole, every rank writes and reads its own copy
+    in its ``layers.attention`` (every rank runs, so that each copy is
+    written), or, read only, takes it as its K/V."""
+    devices = actctx.tp_devices()
+    hs = tp.enter(xs, axis, norm, devices)
+    t = len(devices)
+    local = ps[0]["wq"].shape[-2]
+    partial = local < cfg.num_heads
+    caches = None
+    if cache is not None and cache.spread and hs[0].shape[1] == 1:
+        outs = L.attention_tp_decode(
+            ps, hs, cache, positions=positions, window=window,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            rope=rope, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
+            causal=causal, cache_pos=cache_pos if write else None)
+        return add_tp(xs, axis, outs, partial)
+    if cache is not None and cache.spread:
+        L.write_kv(cache, *L.cache_kv(
+            ps[0], hs[0], positions=positions, rope=rope,
+            rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
+            dtype=cache.k[0].dtype), int(cache_pos))
+    elif cache is not None:
+        if write:
+            caches = [{"k": k, "v": v} for k, v in zip(cache.k, cache.v)]
+        else:
+            kv = list(zip(cache.k, cache.v))
+    run = attention_run(cfg, ps, positions, window=window, rope=rope,
+                        causal=causal, kv=kv, caches=caches,
+                        cache_pos=cache_pos)
+    outs = []
+    for j in (range(t) if caches is not None
+              else tp.ranks_to_run(partial, axis, t)):
+        with actctx.on_rank(j):
+            outs.append(run(j, hs[j]))
+    return add_tp(xs, axis, outs, partial)
+
+
 def mlp_run(cfg, ps):
     """A ``sublayer_tp`` runner: rank j's FFN columns and rows."""
-    def run(j, h):
-        return L.mlp(ps[j], h)
     w = ps[0]["w_gate"] if "w_gate" in ps[0] else ps[0]["w_in"]
-    run.partial = w.shape[-1] < cfg.d_ff
+    partial = w.shape[-1] < cfg.d_ff
+
+    def run(j, h):
+        return L.mlp(ps[j], h, partial)
+    run.partial = partial
     return run
 
 
@@ -129,6 +198,22 @@ def head_loss_tp(hiddens, heads, labels, mask, vocab: int) -> torch.Tensor:
     if heads[0].shape[1] == vocab:
         return L.chunked_ce_loss(hiddens[0], heads[0], labels, mask)
     return L.vocab_parallel_ce_loss(hiddens, heads, labels, mask)
+
+
+def logits_tp(hiddens, heads, padded: int, vocab: int):
+    """Fp32 logits of a TP row's last hidden states (``hiddens[j]``
+    (B, d), rank j's copy): each rank's columns of a head the spec cuts
+    by vocabulary (``heads[j]`` (d, V_j)), the padded columns dropped (a
+    rank may keep none), else rank 0's whole row alone.  The greedy token
+    is ``tp.argmax_over_ranks`` of them: no rank needs the whole row."""
+    if heads[0].shape[1] == padded:
+        return [L.mm_f32(hiddens[0], heads[0])[:, :vocab]]
+    out, off = [], 0
+    for h, w in zip(hiddens, heads):
+        keep = max(0, min(w.shape[1], vocab - off))
+        out.append(L.mm_f32(h, w[:, :keep]))
+        off += w.shape[1]
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -318,9 +403,16 @@ class LM(nn.Module):
         argument: the weights live in the module.  ``cache`` is updated
         in place and returned.  Runs under whatever grad mode the caller
         set; ``remat`` recomputes each layer (each hybrid block, and each
-        of its sublayers) in the backward pass."""
+        of its sublayers) in the backward pass.  Over a data row's ranks
+        (a tensor-parallel row, or a mesh's ``fsdp.RowCache``; this module
+        is rank 0's) ``hidden`` is each rank's copy (``_forward_tp``)."""
         cfg = self.cfg
-        check_not_tp(self, cache)
+        if serves_rows(cache):
+            hiddens, aux = self._forward_tp(tokens.to(self.device),
+                                            patch_embeds, cache, cache_pos,
+                                            remat)
+            return hiddens, cache, aux
+        check_not_tp(self)
         x = self.embed[tokens.to(self.device)].to(self.dtype)
         if patch_embeds is not None:  # vlm stub prefix
             x = torch.cat([patch_embeds.to(self.device, self.dtype), x],
@@ -499,50 +591,66 @@ class LM(nn.Module):
 
     def _loss_tp(self, tokens, pe, remat):
         """``loss`` over the running data row's TP ranks (the train step
-        of a ``(data, model)`` mesh): the vocabulary-parallel embedding,
-        each layer's ranks inside one recomputed region, the residual in
-        the layout its pins ask for (``actctx.shard_ranks``: the sequence
-        cut over ``model`` at ``btd_sp``, the features at ``btd_fsdp``),
-        the final norm and the vocabulary-parallel loss.  This module is
-        rank 0's; the others are ``actctx.tp_ranks()``."""
+        of a ``(data, model)`` mesh): ``_forward_tp``, then the
+        vocabulary-parallel loss."""
+        hiddens, aux = self._forward_tp(tokens, pe, None, None, remat)
+        if pe is not None:
+            hiddens = [h[:, pe.shape[1]:] for h in hiddens]
+        labels, mask = shifted_labels(tokens)
+        ce = head_loss_tp(hiddens, [m._head() for m in actctx.row_ranks()],
+                          labels, mask, self.vocab_padded)
+        return ce + AUX_WEIGHT * aux
+
+    def _forward_tp(self, tokens, pe, cache, cache_pos, remat):
+        """The layers over the running data row's ranks
+        (``actctx.row_ranks``; this module is rank 0's): the
+        vocabulary-parallel embedding, each layer's ranks (inside one
+        recomputed region under ``remat``), the residual in the layout its
+        pins ask for (``actctx.shard_ranks``: the sequence cut over
+        ``model`` at ``btd_sp``, the features at ``btd_fsdp``; a decode
+        step's (B, 1, d) replicated), the final norm.  ``cache``: the
+        row's ``fsdp.RowCache`` (serving), filled or read at
+        ``cache_pos``.  Returns (each rank's final hidden state, the MoE
+        aux loss)."""
         cfg = self.cfg
-        ranks, devices = actctx.tp_ranks(), actctx.tp_devices()
+        ranks, devices = actctx.row_ranks(), actctx.tp_devices()
         x = embed_tp([m.embed for m in ranks], tokens,
                      self.vocab_padded).to(self.dtype)
         if pe is not None:
-            x = torch.cat([pe.to(self.dtype), x], dim=1)
+            x = torch.cat([pe.to(x.device, self.dtype), x], dim=1)
         x = actctx.shard(x, "btd")
         b, s, _ = x.shape
-        positions = torch.arange(s, device=self.device)[None, :].expand(b, s)
+        start = 0 if cache_pos is None else int(cache_pos)
+        positions = (start + torch.arange(s, device=x.device)
+                     )[None, :].expand(b, s)
+        serve = dict(cache=cache, cache_pos=cache_pos)
         xs, axis = [x], None
         aux = self._zero()
         if cfg.family == "ssm":
             for l in range(cfg.num_layers):
-                xs, axis = actctx.shard_ranks(xs, axis, "btd_fsdp")
-                xs = self._tp_call(remat, self._ssm_layer_tp, l, axis, *xs)
+                xs, axis = actctx.shard_ranks(
+                    xs, axis, "btd_fsdp" if s > 1 else "btd")
+                xs = self._tp_call(remat, partial(self._ssm_layer_tp,
+                                                  **serve), l, axis, *xs)
         elif cfg.attn_period:
             for bi in range(len(self.layers)):
                 xs, axis = actctx.shard_ranks(
                     xs, axis, "btd_fsdp" if s > 1 else "btd")
-                *xs, a = self._tp_call(remat, self._hybrid_block_tp, bi,
-                                       positions, remat, axis, *xs)
+                *xs, a = self._tp_call(
+                    remat, partial(self._hybrid_block_tp, **serve), bi,
+                    positions, remat, axis, *xs)
                 aux = aux + a
         else:
             for l in range(cfg.num_layers):
                 xs, axis = actctx.shard_ranks(
                     xs, axis, "btd_sp" if s > 1 else "btd")
                 *xs, a = self._tp_call(
-                    remat, self._attn_layer_tp, l, positions,
-                    cfg.layer_window(l, s), axis, *xs)
+                    remat, partial(self._attn_layer_tp, **serve), l,
+                    positions, cfg.layer_window(l, s), axis, *xs)
                 aux = aux + a
         hiddens = tp.enter(xs, axis, lambda h, j: L.rms_norm(
             h, ranks[j].final_norm, cfg.norm_eps), devices)
-        if pe is not None:
-            hiddens = [h[:, pe.shape[1]:] for h in hiddens]
-        labels, mask = shifted_labels(tokens)
-        ce = head_loss_tp(hiddens, [m._head() for m in ranks], labels, mask,
-                          self.vocab_padded)
-        return ce + AUX_WEIGHT * aux
+        return hiddens, aux
 
     @staticmethod
     def _tp_call(remat, fn, *args):
@@ -563,41 +671,52 @@ class LM(nn.Module):
 
         return sublayer_tp(xs, axis, norm, mlp_run(cfg, ps)), self._zero()
 
-    def _attn_layer_tp(self, l, positions, window, axis, *xs):
+    def _attn_layer_tp(self, l, positions, window, axis, *xs, cache=None,
+                       cache_pos=None):
         cfg = self.cfg
         ps = [actctx.gather_params(m.layers[l], rank=j)
-              for j, m in enumerate(actctx.tp_ranks())]
-        xs = sublayer_tp(
-            list(xs), axis,
+              for j, m in enumerate(actctx.row_ranks())]
+        xs = attention_tp(
+            cfg, list(xs), axis, [p["attn"] for p in ps],
             lambda h, j: L.rms_norm(h, ps[j]["ln1"], cfg.norm_eps),
-            attention_run(cfg, [p["attn"] for p in ps], positions,
-                          window=window, rope=cfg.rope))
+            positions, window=window, rope=cfg.rope,
+            cache=None if cache is None else cache.kv((), (l,)),
+            cache_pos=cache_pos)
         xs, aux = self._ffn_tp(
             xs, axis, [p["ffn"] for p in ps],
             lambda h, j: L.rms_norm(h, ps[j]["ln2"], cfg.norm_eps))
         return (*xs, aux)
 
-    def _mixer_ssm_tp(self, xs, axis, ps, norm):
+    def _mixer_ssm_tp(self, xs, axis, ps, norm, states=None):
         """The SSD mixer over the row's ranks: every rank's input first,
         then ``mamba2_block_tp`` (B/C are gathered between the ranks'
-        projections and their scans), then ``tp.leave``."""
+        projections and their scans), then ``tp.leave``.  ``states``:
+        each rank's state of the layer (views into the row's cache),
+        updated in place."""
         hs = tp.enter(xs, axis, norm, actctx.tp_devices())
-        return add_tp(xs, axis, *SSM.mamba2_block_tp(ps, hs, self.cfg))
+        outs, partial, news = SSM.mamba2_block_tp(ps, hs, self.cfg, states)
+        for st, new in zip(states or (), news or ()):
+            for k, v in new.items():
+                st[k].copy_(v)
+        return add_tp(xs, axis, outs, partial)
 
-    def _ssm_layer_tp(self, l, axis, *xs):
+    def _ssm_layer_tp(self, l, axis, *xs, cache=None, cache_pos=None):
         cfg = self.cfg
         ps = [actctx.gather_params(m.layers[l], rank=j)
-              for j, m in enumerate(actctx.tp_ranks())]
+              for j, m in enumerate(actctx.row_ranks())]
+        states = None if cache is None else [
+            {k: v[l] for k, v in tree.items()} for tree in cache.ranks]
         out = self._mixer_ssm_tp(
             list(xs), axis, [p["mamba"] for p in ps],
-            lambda h, j: L.rms_norm(h, ps[j]["ln"], cfg.norm_eps))
+            lambda h, j: L.rms_norm(h, ps[j]["ln"], cfg.norm_eps), states)
         return tuple(out)
 
-    def _hybrid_block_tp(self, bi, positions, remat, axis, *xs):
+    def _hybrid_block_tp(self, bi, positions, remat, axis, *xs, cache=None,
+                         cache_pos=None):
         """``_hybrid_block`` over the row's ranks: each mixer and FFN
         gathers its ranks' weights inside the region it recomputes."""
         cfg = self.cfg
-        ranks = actctx.tp_ranks()
+        ranks = actctx.row_ranks()
         blocks = [m.layers[bi] for m in ranks]
         aux = self._zero()
         xs = list(xs)
@@ -613,14 +732,19 @@ class LM(nn.Module):
                 if j == cfg.attn_index:
                     ps = [actctx.gather_params(b["attn"], rank=r)
                           for r, b in enumerate(blocks)]
-                    return tuple(sublayer_tp(
-                        list(xs), axis, norm("ln1"),
-                        attention_run(cfg, ps, positions, window=0,
-                                      rope=cfg.rope)))
+                    return tuple(attention_tp(
+                        cfg, list(xs), axis, ps, norm("ln1"), positions,
+                        window=0, rope=cfg.rope,
+                        cache=None if cache is None
+                        else cache.kv(("attn",), (bi,)),
+                        cache_pos=cache_pos))
                 ps = [actctx.gather_params(b["mamba"][mi], rank=r)
                       for r, b in enumerate(blocks)]
+                states = None if cache is None else [
+                    {k: v[bi, mi] for k, v in tree["mamba"].items()}
+                    for tree in cache.ranks]
                 return tuple(self._mixer_ssm_tp(list(xs), axis, ps,
-                                                norm("ln1")))
+                                                norm("ln1"), states))
 
             def ffn(axis, *xs, gl_moe=gl_moe, di=di, ei=ei):
                 ps = [actctx.gather_params(
@@ -644,17 +768,26 @@ class LM(nn.Module):
             aux = aux + a2
         return (*xs, aux)
 
-    def logits(self, hidden_last: torch.Tensor) -> torch.Tensor:
+    def logits(self, hidden_last):
         """(B, d) -> (B, vocab) fp32 logits: fp32 products of the hidden
-        state and the head, as the reference's ``astype(f32)`` einsum."""
+        state and the head, as the reference's ``astype(f32)`` einsum.
+        Over a data row's ranks (``hidden_last`` each rank's copy): the
+        ranks' columns (``logits_tp``)."""
+        if isinstance(hidden_last, (list, tuple)):
+            return logits_tp(hidden_last,
+                             [m._head() for m in actctx.row_ranks()],
+                             self.vocab_padded, self.cfg.vocab_size)
         return L.mm_f32(hidden_last, self._head())[:, :self.cfg.vocab_size]
 
     # ------------------------------------------------------------------ #
     # serving
     # ------------------------------------------------------------------ #
 
-    def init_cache(self, batch: int, max_len: int) -> Dict:
-        cfg, dt, dev = self.cfg, self.dtype, self.device
+    def init_cache(self, batch: int, max_len: int, device=None) -> Dict:
+        """Zeros in the reference's layout on ``device`` (the model's by
+        default; ``"meta"`` gives the structure alone)."""
+        cfg, dt = self.cfg, self.dtype
+        dev = self.device if device is None else torch.device(device)
         kv = lambda *lead: torch.zeros(
             lead + (batch, max_len, cfg.num_kv_heads, cfg.head_dim),
             dtype=dt, device=dev)
@@ -673,14 +806,18 @@ class LM(nn.Module):
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, max_len: int,
-                patch_embeds: Optional[torch.Tensor] = None
+                patch_embeds: Optional[torch.Tensor] = None, cache=None
                 ) -> Tuple[Dict, torch.Tensor]:
         """Run the prompt, fill the cache, return (cache, last logits).
-        No ``params`` argument: the weights live in the module."""
-        cache = self.init_cache(tokens.shape[0], max_len)
+        No ``params`` argument: the weights live in the module.
+        ``cache``: the empty cache to fill (a data row's ``fsdp.RowCache``
+        on a mesh, whose logits are its ranks' columns); a new one by
+        default."""
+        if cache is None:
+            cache = self.init_cache(tokens.shape[0], max_len)
         hidden, cache, _ = self.forward(tokens, patch_embeds=patch_embeds,
                                         cache=cache, cache_pos=0)
-        return cache, self.logits(hidden[:, -1])
+        return cache, self.logits(_last(hidden))
 
     @torch.inference_mode()
     def decode_step(self, cache: Dict, token: torch.Tensor, pos: int
@@ -688,10 +825,18 @@ class LM(nn.Module):
         """One token for every sequence in the batch.  token: (B, 1); the
         cache is updated in place.  No ``params`` argument."""
         hidden, cache, _ = self.forward(token, cache=cache, cache_pos=pos)
-        return self.logits(hidden[:, -1]), cache
+        return self.logits(_last(hidden)), cache
+
+
+def _last(hidden):
+    """The last position's hidden state (each rank's, over a row)."""
+    if isinstance(hidden, (list, tuple)):
+        return [h[:, -1] for h in hidden]
+    return hidden[:, -1]
 
 
 __all__ = ["LM", "ParamTree", "register_tree", "check_device",
-           "seeded_generator", "shifted_labels", "AUX_WEIGHT", "SERVE_TP",
-           "check_not_tp", "embed_tp", "sublayer_tp", "add_tp",
-           "attention_run", "mlp_run", "head_loss_tp"]
+           "seeded_generator", "shifted_labels", "AUX_WEIGHT",
+           "check_not_tp", "serves_rows", "embed_tp", "sublayer_tp",
+           "add_tp", "attention_run", "attention_tp", "mlp_run",
+           "head_loss_tp", "logits_tp"]

@@ -10,6 +10,22 @@ one); they run under ``torch.inference_mode()`` and pick the next token
 greedily (``argmax``, the first index among equal logits, as
 ``jnp.argmax``).
 
+With ``mesh=`` (a ``(data, model)`` ``launch.mesh.Mesh``) the steps
+serve the module as the reference's dry run lowers them on a mesh: the
+first call places it once as the train step does (``fsdp.place``:
+weights cut over ``model`` by ``ShardingRules.param_specs``, over
+``data`` and gathered layer by layer inside each layer), the placement
+kept (``MeshStep.slots``, one module a slot) and shared by every
+builder of the module on that mesh; the cache is a
+``fsdp.PlacedCache`` cut as ``cache_specs`` cuts it (the K/V's sequence
+over ``model``, or over ``(data, model)`` for a batch the data axis does
+not divide; SSM heads and conv channels over ``model``; the batch over
+``data``).  Each data row that serves a batch shard (``fsdp.
+batch_slots``) runs over its ranks, and its greedy token is the argmax
+over the vocabulary cut over them (``tp.argmax_over_ranks``).  ``MeshStep.last_logits()``
+joins the last call's logits (B, vocab) on slot 0's device, for a check
+against the one-device call.
+
 ``StagingRing`` (DESIGN.md §7): the planner thread assembles wave N+1's
 query matrix into one of two preallocated host buffers while wave N's
 launches execute, so wave formation never allocates on the hot path and
@@ -157,34 +173,137 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def make_prefill(model, max_len: int) -> Callable:
-    """``prefill(tokens[, patch_embeds]) -> (cache, next tokens (B,))``."""
+def placement(model, mesh):
+    """(the ``ShardingRules`` of ``model`` on ``mesh``, one module a
+    slot): ``model`` placed on the mesh at the first call and kept on it,
+    so every builder of one model on one mesh serves one placement.  The
+    model keeps the other slots' modules only (slot 0's is the model
+    itself: no reference cycle, so a dropped model frees its shards)."""
+    from ..distributed import fsdp
+    from ..distributed.sharding import ShardingRules
+    held = getattr(model, "_serve_placement", None)
+    if held is not None:
+        if held[0] != mesh:
+            raise ValueError(f"the model is placed on {held[0]}, not {mesh}")
+        return held[1], [model, *held[2]]
+    rules = ShardingRules(model.cfg, mesh)
+    slots = fsdp.place(model, mesh, rules) if mesh.size > 1 else [model]
+    model._serve_placement = (mesh, rules, slots[1:])
+    return rules, slots
+
+
+class MeshStep:
+    """A serving step over a mesh: ``body(step, *args)`` builds the
+    call's cache and runs ``rows`` — ``call(module, rows, row cache)``
+    on each data row that serves a batch shard (``fsdp.batch_slots``),
+    over its ranks, the weights gathered over ``data`` layer by layer —
+    whose logits are the rows' ranks' columns.  ``slots``: one module a
+    slot; ``last_logits()`` joins the last call's logits (B, vocab) on
+    slot 0's device."""
+
+    def __init__(self, model, mesh, body):
+        self.model, self.mesh, self.body = model, mesh, body
+        self.slots = None
+        self._logits = None
+
     @torch.inference_mode()
-    def prefill(tokens, patch_embeds=None):
-        cache, logits = model.prefill(tokens, max_len,
-                                      patch_embeds=patch_embeds)
-        return cache, _greedy(logits)
-    return prefill
+    def __call__(self, *args, **kwargs):
+        return self.body(self, *args, **kwargs)
+
+    def rows(self, batch: int, cache, call) -> torch.Tensor:
+        """The next tokens (B,), on slot 0's device."""
+        from ..distributed import actctx, fsdp, tp
+        rules, self.slots = placement(self.model, self.mesh)
+        slots = list(self.mesh.devices.flat)
+        t = self.mesh.shape.get("model", 1)
+        runners, split = fsdp.batch_slots(rules, batch)
+        logits = []
+        for i, s in enumerate(runners):
+            rows = (slice(i * batch // split, (i + 1) * batch // split)
+                    if split > 1 else slice(None))
+            with actctx.use(self.mesh, rules.dp, gather_rules=rules), \
+                    actctx.local_shard(split, slots[s],
+                                       ranks=self.slots[s:s + t],
+                                       devices=slots[s:s + t]):
+                logits.append(call(self.slots[s], rows, cache.row(s)))
+        self._logits = logits if split > 1 else logits[:1]
+        return torch.cat([tp.argmax_over_ranks(row).to(slots[0])
+                          for row in self._logits]).to(torch.int32)
+
+    def last_logits(self) -> torch.Tensor:
+        dev = self.mesh.devices.flat[0]
+        return torch.cat([torch.cat([part.to(dev) for part in row], -1)
+                          for row in self._logits])
 
 
-def make_prefill_encdec(model, max_dec: int) -> Callable:
-    """``prefill(frames, tokens) -> (cache, next tokens (B,))``."""
-    @torch.inference_mode()
-    def prefill(frames, tokens):
-        cache, logits = model.prefill(frames, tokens, max_dec)
-        return cache, _greedy(logits)
-    return prefill
+def _part(x, rows, device):
+    return None if x is None else x[rows].to(device)
 
 
-def make_decode(model) -> Callable:
+def _new_cache(step, structure, batch: int):
+    from ..distributed import fsdp
+    rules, _ = placement(step.model, step.mesh)
+    return fsdp.init_cache(structure, step.mesh, rules, batch)
+
+
+def make_prefill(model, max_len: int, mesh=None) -> Callable:
+    """``prefill(tokens[, patch_embeds]) -> (cache, next tokens (B,))``;
+    over ``mesh`` a ``MeshStep`` whose cache is a ``fsdp.PlacedCache``."""
+    if mesh is None:
+        @torch.inference_mode()
+        def prefill(tokens, patch_embeds=None):
+            cache, logits = model.prefill(tokens, max_len,
+                                          patch_embeds=patch_embeds)
+            return cache, _greedy(logits)
+        return prefill
+
+    def body(step, tokens, patch_embeds=None):
+        b = tokens.shape[0]
+        cache = _new_cache(step, step.model.init_cache(b, max_len, "meta"),
+                           b)
+        return cache, step.rows(b, cache, lambda m, rows, c: m.prefill(
+            _part(tokens, rows, m.device), max_len,
+            _part(patch_embeds, rows, m.device), cache=c)[1])
+    return MeshStep(model, mesh, body)
+
+
+def make_prefill_encdec(model, max_dec: int, mesh=None) -> Callable:
+    """``prefill(frames, tokens) -> (cache, next tokens (B,))``; over
+    ``mesh`` a ``MeshStep`` whose cache is a ``fsdp.PlacedCache``."""
+    if mesh is None:
+        @torch.inference_mode()
+        def prefill(frames, tokens):
+            cache, logits = model.prefill(frames, tokens, max_dec)
+            return cache, _greedy(logits)
+        return prefill
+
+    def body(step, frames, tokens):
+        b = tokens.shape[0]
+        cache = _new_cache(step, step.model.cache_structure(
+            b, max_dec, frames.shape[1]), b)
+        return cache, step.rows(b, cache, lambda m, rows, c: m.prefill(
+            _part(frames, rows, m.device), _part(tokens, rows, m.device),
+            max_dec, cache=c)[1])
+    return MeshStep(model, mesh, body)
+
+
+def make_decode(model, mesh=None) -> Callable:
     """``decode(cache, token (B, 1), pos) -> (next (B, 1), cache)``; the
-    cache is updated in place."""
-    @torch.inference_mode()
-    def decode(cache, token, pos):
-        logits, cache = model.decode_step(cache, token, pos)
-        return _greedy(logits)[:, None], cache
-    return decode
+    cache (over ``mesh``, the ``fsdp.PlacedCache`` a mesh prefill made)
+    is updated in place."""
+    if mesh is None:
+        @torch.inference_mode()
+        def decode(cache, token, pos):
+            logits, cache = model.decode_step(cache, token, pos)
+            return _greedy(logits)[:, None], cache
+        return decode
+
+    def body(step, cache, token, pos):
+        return step.rows(token.shape[0], cache, lambda m, rows, c:
+                         m.decode_step(c, _part(token, rows, m.device),
+                                       pos)[0])[:, None], cache
+    return MeshStep(model, mesh, body)
 
 
-__all__ = ["StagingStall", "StagingSlot", "StagingRing", "make_prefill",
-           "make_prefill_encdec", "make_decode"]
+__all__ = ["StagingStall", "StagingSlot", "StagingRing", "placement",
+           "MeshStep", "make_prefill", "make_prefill_encdec", "make_decode"]

@@ -34,6 +34,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import arch_names, get_config, smoke_config
+from repro_torch.distributed import fsdp
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch import analysis, dryrun, shapes
 from repro_torch.launch.mesh import make_production_mesh
@@ -319,7 +320,9 @@ CASES = [("qwen3-4b", "train", "1x1", 32), ("qwen3-4b", "prefill", "1x1", 32),
          ("qwen3-moe-30b-a3b", "train", "2x1", 32),
          ("mamba2-370m", "decode", "4x1", 32),
          ("whisper-base", "prefill", "1x1", 32),
-         ("whisper-base", "decode", "1x1", 1024)]
+         ("whisper-base", "decode", "1x1", 1024),
+         ("qwen3-4b", "prefill", "1x4", 32),
+         ("jamba-1.5-large-398b", "decode", "2x2", 32)]
 
 
 @pytest.mark.parametrize("name,kind,mesh,seq", CASES)
@@ -345,6 +348,48 @@ def test_fake_peak_equals_real_cpu_peak(name, kind, mesh, seq):
         assert rec["fits_80gb"] is None
         assert "sharing one device" in rec["peak_mode"]
         assert real["cpu"] > rec["state_bytes"]["total"]
+
+
+def test_serving_records_at_1x4_and_2x2():
+    """Prefill and decode at ``model`` > 1 are no longer queued: their
+    records carry a peak (the CPU's, the slots' sum) and a
+    tensor-parallel collective term — prefill's sequence-parallel pair a
+    sublayer, decode's all-reduces over the ranks that hold the cache's
+    sequence."""
+    cfg = smoke_config("qwen3-4b")
+    for kind, mesh in (("prefill", "2x2"), ("decode", "1x4")):
+        spec = shapes.ShapeSpec(kind, kind, 32, 8)
+        rec = dryrun.lower_cell("qwen3-4b", spec, mesh, device="cpu",
+                                cfg=cfg)
+        assert rec["peak_reason"] != dryrun.TP_QUEUED
+        assert rec["peak_bytes"]["cpu"] > rec["state_bytes"]["total"]
+        tp = rec["collectives"]["tp"]
+        assert tp["total_bytes"] > 0 and tp["sublayers"] == 2 * \
+            cfg.num_layers
+        if kind == "decode":
+            assert tp["sequence_ranks"] == 4
+
+
+def test_batch_one_decode_cuts_its_cache_over_the_data_axis():
+    """A batch-1 decode at ``4x1`` (``long_500k``'s layout, at a smoke
+    config): ``cache_specs`` cuts the K/V's sequence over ``(data,
+    model)``, so each slot holds a quarter of the whole cache — in the
+    state bytes and in the pieces the run allocates — and the fake peak
+    equals a real CPU run's."""
+    name = "h2o-danube-1.8b"
+    cfg = smoke_config(name)
+    spec = shapes.ShapeSpec("long", "decode", 64, 1)
+    one = dryrun.lower_cell(name, spec, "1x1", device="cpu", cfg=cfg)
+    rec = dryrun.lower_cell(name, spec, "4x1", device="cpu", cfg=cfg)
+    assert rec["state_bytes"]["cache"] * 4 == one["state_bytes"]["cache"]
+    mesh = dryrun.make_mesh("4x1", "cpu")
+    real = dryrun.measure_peak(cfg, spec, mesh, fake=False)
+    assert rec["peak_bytes"] == real
+    model = dryrun.build_model(cfg)
+    placed = fsdp.init_cache(model.init_cache(1, 64, "meta"), mesh,
+                             ShardingRules(cfg, mesh), 1)
+    assert [tuple(t["k"].shape) for t in placed.slots] == [
+        (cfg.num_layers, 1, 16, cfg.num_kv_heads, cfg.head_dim)] * 4
 
 
 def test_cli_writes_one_file_a_cell(tmp_path, capsys):

@@ -474,8 +474,8 @@ def test_ssm_block_gathers_b_and_c():
     want = torch.autograd.grad(y.square().sum(), list(whole.values()))
     with actctx.use(mesh, rules.dp), actctx.local_shard(
             1, "cpu", ranks=[model, model], devices=["cpu", "cpu"]):
-        outs, partial = SSM.mamba2_block_tp(params, [x, x], cfg)
-    assert partial
+        outs, partial, states = SSM.mamba2_block_tp(params, [x, x], cfg)
+    assert partial and states is None
     got = tp.reduce_from_ranks(outs)
     np.testing.assert_allclose(got.detach().numpy(), y.detach().numpy(),
                                rtol=1e-5, atol=1e-6)
@@ -485,31 +485,57 @@ def test_ssm_block_gathers_b_and_c():
                                    atol=1e-6, err_msg=k)
 
 
-def test_cache_under_model_axis_raises():
-    """A cache passed under tensor parallelism raises a ``ValueError``
-    that names the queued serving slice, as does any forward of a module
-    that holds one TP rank's weights."""
+def test_placed_dense_and_whisper_prefill_and_decode():
+    """A dense and a whisper module placed over ``(1, 2)`` prefill and
+    decode through ``make_prefill`` / ``make_prefill_encdec`` /
+    ``make_decode(..., mesh=)`` with the one-device calls' logits, tokens
+    and cache (the whole test of serving over meshes is
+    ``tests/test_torch_tp_serve.py``).  What still raises: a forward of a
+    module holding one TP rank's weights outside a data row, and a plain
+    cache passed inside a tensor-parallel row."""
+    from repro_torch.serve.step import (make_decode, make_prefill,
+                                        make_prefill_encdec)
+    mesh = make_host_mesh(data=1, model=2, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 128, (2, 4)))
+    for name in (FAMILIES["dense"], FAMILIES["encdec"]):
+        cfg = smoke_config(name)
+        frames = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            (2, 24, cfg.d_model)).astype(np.float32))
+        args = (frames, tokens) if cfg.is_encoder_decoder else (tokens,)
+        out = []
+        for m in (None, mesh):
+            model = (EncDec if cfg.is_encoder_decoder else LM)(
+                cfg, device="cpu")
+            pre = (make_prefill_encdec if cfg.is_encoder_decoder
+                   else make_prefill)(model, 8, mesh=m)
+            dec = make_decode(model, mesh=m)
+            cache, nxt = pre(*args)
+            toks = [nxt]
+            for pos in range(4, 8):
+                nxt, cache = dec(cache, toks[-1][:, None], pos)
+                toks.append(nxt[:, 0])
+            out.append((torch.stack(toks), cache if m is None
+                        else fsdp.whole_cache(cache), pre, model))
+        (one, c1, _, _), (two, c2, pre, model) = out
+        assert torch.equal(one, two), name
+        kv = c1["self"] if cfg.is_encoder_decoder else c1
+        kv2 = c2["self"] if cfg.is_encoder_decoder else c2
+        np.testing.assert_allclose(kv2["k"].numpy(), kv["k"].numpy(),
+                                   rtol=RTOL, atol=1e-6)
+        assert len(pre.slots) == 2 and pre.slots[0] is model
+        with pytest.raises(ValueError, match="one TP rank's weights"):
+            pre.slots[1].forward(tokens) if not cfg.is_encoder_decoder \
+                else pre.slots[1].encode(frames)
     cfg = smoke_config(FAMILIES["dense"])
     model = LM(cfg, device="cpu")
-    mesh = make_host_mesh(data=1, model=2, device="cpu")
     rules = ShardingRules(cfg, mesh)
     modules = fsdp.place(model, mesh, rules)
-    tokens = torch.zeros((2, 4), dtype=torch.long)
-    with pytest.raises(ValueError, match="a cache passed under tensor "
-                                         "parallelism.*next slice"):
-        model.prefill(tokens, 8)
-    with pytest.raises(ValueError, match="next slice"):
-        modules[1].forward(tokens)
     with actctx.use(mesh, rules.dp), actctx.local_shard(
             1, "cpu", ranks=modules, devices=["cpu", "cpu"]):
-        with pytest.raises(ValueError, match="a cache passed under"):
-            LM(cfg, device="cpu").forward(tokens, cache=model.init_cache(
+        with pytest.raises(ValueError, match="must be a data row's view"):
+            model.forward(tokens, cache=LM(cfg, device="cpu").init_cache(
                 2, 8), cache_pos=0)
-    wcfg = smoke_config(FAMILIES["encdec"])
-    whisper = EncDec(wcfg, device="cpu")
-    fsdp.place(whisper, mesh, ShardingRules(wcfg, mesh))
-    with pytest.raises(ValueError, match="next slice"):
-        whisper.prefill(torch.zeros((2, 24, wcfg.d_model)), tokens, 8)
 
 
 def test_remat_saves_no_gathered_weights_nor_tp_copies():
