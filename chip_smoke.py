@@ -3646,6 +3646,139 @@ def phase_dryrun_fit(card: str) -> None:
              "torch.cuda.max_memory_allocated of the phase's process")
 
 
+# one slot's reckoning of the dry run (``launch.dryrun.slot_peaks``): the
+# pods' decode cells, each slot's program on fake cuda:0 tensors (its other
+# slots on ``meta``; no card memory used); and train_fsdp_full's cell (a
+# (2, 1) train step) on fake CPU tensors, beside the whole program of the
+# same slot (its peer on ``meta``): a train cell without a model axis
+# cannot run on fake cuda tensors with meta peers under torch 2.11 (an
+# in-kernel assertion of the fake tensors at the first backward copy).
+# They run in a pool of ``DRYRUN_WORKERS`` spawned processes from the end
+# of the ``sharded`` phase (beside graphs, the FSDP phases and the LM
+# index's serving, which share the host with the LM index child already)
+# and ``dryrun_pods`` collects them before the DP, TP and serving-mesh
+# phases, whose host-bound step times the pool would slow: at the end of
+# the run instead, they took the script past its time limit.  A pod's
+# train_4k slot takes many minutes of one host core: those cells come
+# from ``scripts/dryrun_table.py --mesh pod,multipod``
+DRYRUN_POD_CELLS = (("decode_32k", "pod"), ("decode_32k", "multipod"))
+DRYRUN_WORKERS = 3
+_DRYRUN_POOL = {}
+
+
+def dryrun_jobs():
+    """(tag, arch, shape, mesh name, slot, device, whole), the longest
+    first: slots 0 and n−1 of each pod cell on fake cuda:0, and both
+    slots of train_fsdp_full's cell on fake CPU tensors, reckoned and
+    whole."""
+    sizes = {"pod": 256, "multipod": 512}
+    return [(f"{shape} {mesh}", LM_ARCH, shape, mesh, s, "cuda:0", False)
+            for shape, mesh in DRYRUN_POD_CELLS[::-1]
+            for s in (0, sizes[mesh] - 1)] + [
+        ("train_fsdp_full", LM_ARCH, "train_fsdp_full", "2x1", s, "cpu",
+         whole) for s in (0, 1) for whole in (False, True)]
+
+
+def dryrun_job(job):
+    """One slot's peak for one job of ``dryrun_jobs`` (in a worker):
+    reckoned (``slot_peaks``), or ``whole``, the whole program of that
+    slot with its other slots on ``meta``."""
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES, ShapeSpec
+    tag, arch, shape, mesh, s, device, whole = job
+    t0 = time.perf_counter()
+    spec = SHAPES[shape] if shape in SHAPES else ShapeSpec(
+        shape, "train", TRAIN_SEQ, TRAIN_BATCH)
+    base = dryrun.make_mesh(mesh, device)
+    rec = dryrun.lower_cell(arch, spec, base, peak=False)
+    kw = dict(accum=rec["accum_steps"], moment_dtype=rec["moment_dtype"],
+              accum_dtype=rec["accum_dtype"])
+    if whole:
+        peak = dryrun.measure_peak(get_config(arch), spec, dryrun.slot_mesh(
+            base, s, device), **kw)[str(torch.device(device))]
+    else:
+        peak = dryrun.slot_peaks(get_config(arch), spec, base,
+                                 torch.device(device), slots=[s],
+                                 **kw)[f"slot {s}"]
+    return tag, s, whole, peak, time.perf_counter() - t0
+
+
+def start_dryrun_pool() -> None:
+    """Start ``dryrun_jobs`` in a pool of ``DRYRUN_WORKERS`` spawned
+    processes (once), a job at a time to each."""
+    import multiprocessing
+    if _DRYRUN_POOL:
+        return
+    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    _DRYRUN_POOL.update(pool=pool, t0=time.perf_counter(),
+                        result=pool.map_async(dryrun_job, dryrun_jobs(),
+                                              chunksize=1))
+
+
+def phase_dryrun_pods(card: str) -> None:
+    """The dry run's one-slot reckonings (``dryrun_jobs``; the pool
+    started here when no earlier phase started it): qwen3-4b's ``pod`` and ``multipod`` cells for ``decode_32k`` —
+    slots 0 and n−1 reckoned, the per-card peak the larger, its fit, the
+    state bytes, the collective term and roofline (``lower_cell(...,
+    peak=False)``), each slot's seconds; then train_fsdp_full's cell on
+    fake CPU tensors, each slot's reckoning equal to its whole program's
+    peak, beside the peak ``train_fsdp_full`` measured on the card when
+    it ran."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES
+    start_dryrun_pool()
+    pool, t0 = _DRYRUN_POOL["pool"], _DRYRUN_POOL["t0"]
+    try:
+        done = _DRYRUN_POOL["result"].get(timeout=1500)
+    finally:
+        pool.close()
+        pool.join()
+        _DRYRUN_POOL.clear()
+    cells, fsdp_cell = {}, {}
+    for tag, s, whole, peak, secs in done:
+        if tag == "train_fsdp_full":
+            fsdp_cell.setdefault(f"slot {s}", {})[
+                "whole" if whole else "one_slot"] = {"peak_bytes": peak,
+                                                     "seconds": secs}
+            continue
+        cell = cells.setdefault(tag, {"slot_peaks": {}, "slot_seconds": {}})
+        cell["slot_peaks"][f"slot {s}"] = peak
+        cell["slot_seconds"][f"slot {s}"] = secs
+    for shape, mesh in DRYRUN_POD_CELLS:
+        cell = cells[f"{shape} {mesh}"]
+        rec = dryrun.lower_cell(LM_ARCH, SHAPES[shape], mesh, peak=False)
+        per = max(cell["slot_peaks"].values())
+        cell.update(per_device_peak_bytes=per,
+                    fits_80gb=bool(per < dryrun.HBM_CAPACITY),
+                    state_bytes=rec["state_bytes"],
+                    collectives=rec["collectives"],
+                    roofline_s=rec["roofline_s"], dominant=rec["dominant"],
+                    seconds=sum(cell["slot_seconds"].values()))
+        check(rec["state_bytes"]["total"] <= per,
+              f"{shape} {mesh}: a peak below its state")
+    emit(phase="dryrun_pods", card=card, arch=LM_ARCH, cells=cells,
+         how="launch.dryrun.slot_peaks: one slot's program on fake cuda:0 "
+             "tensors, every other slot meta, no card memory used; "
+             f"{DRYRUN_WORKERS} worker processes",
+         seconds=time.perf_counter() - t0)
+    for slot, got in fsdp_cell.items():
+        check(got["one_slot"]["peak_bytes"] == got["whole"]["peak_bytes"],
+              f"train_fsdp_full {slot}: the reckoning {got['one_slot']} "
+              f"differs from the whole program {got['whole']}")
+    measured = TRAIN_RESULTS.get("train_fsdp_full", {}).get(
+        "peak_memory_allocated")
+    emit(phase="dryrun_fsdp_one_slot", card=card, arch=LM_ARCH,
+         tokens=[TRAIN_BATCH, TRAIN_SEQ], mesh="2x1", slots=fsdp_cell,
+         measured_peak_bytes=measured,
+         how="launch.dryrun.slot_peaks (one_slot) and measure_peak (whole, "
+             "the other slot on meta) on fake CPU tensors (the CPU's GEMM "
+             "path); measured: torch.cuda.max_memory_allocated of "
+             "train_fsdp_full (both slots on the card), null when that "
+             "phase did not run")
+
+
 # --------------------------------------------------------------------- #
 # tensor parallelism — heads, FFN, experts and vocabulary cut over the
 # model axis of a (data, model) mesh
@@ -3896,6 +4029,51 @@ def phase_train_tp_full(card: str) -> None:
 # --------------------------------------------------------------------- #
 
 SERVE_TP_STEPS = 16
+# the serving meshes on the card: PR 22's, and (2, 1), every weight cut
+# over data alone (decode in the weight-stationary layout)
+SERVE_TP_MESHES = TP_MESHES + ((2, 1),)
+SERVE_FULL_MESHES = ((1, TP_FULL_MODEL), (2, 1))
+
+
+def _collective_spans(fn):
+    """{"tp": (calls, device ms), "data": (calls, device ms)} of the
+    serving collectives in ``fn()``: every collective of ``tp``, timed by
+    CUDA events, once (not again inside another); those that
+    ``layers.over_data`` calls — the data axis's sums of a
+    weight-stationary decode's fp32 partials and joins of its column
+    slices — under ``data``, the others under ``tp``."""
+    import sys as _sys
+    from repro_torch.distributed import tp
+    spans = {"tp": [], "data": []}
+    fns = {f.__name__: f for f in (tp.max_over_ranks, tp.sum_over_ranks,
+                                   tp.fold_to, tp.gather_to,
+                                   tp.argmax_over_ranks)}
+    classes = [tp._Copy, tp._Reduce, tp._AllGather, tp._ReduceScatter,
+               tp._GatherRow, tp._Split]
+    saved = [(c, c.forward) for c in classes]
+
+    def timed(f):
+        def wrapper(*args, **kwargs):
+            caller = _sys._getframe(1)
+            if caller.f_globals is vars(tp):    # inside a timed one
+                return f(*args, **kwargs)
+            axis = "data" if caller.f_code.co_name == "over_data" else "tp"
+            return _timed(f, spans[axis])(*args, **kwargs)
+        return wrapper
+    for name, f in fns.items():
+        setattr(tp, name, timed(f))
+    for c, fwd in saved:
+        c.forward = staticmethod(_timed(fwd, spans["tp"]))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, f in fns.items():
+            setattr(tp, name, f)
+        for c, fwd in saved:
+            c.forward = staticmethod(fwd)
+    return {axis: (len(v), sum(a.elapsed_time(b) for a, b in v))
+            for axis, v in spans.items()}
 
 
 def _cache_bytes(placed):
@@ -3958,19 +4136,22 @@ def _route_flips(one, got, batch: int, layers: int, rows: int,
                  tol: float):
     """Where the mesh's routing chose other experts than one device's:
     ``one`` holds one device's routings (a step, a layer), ``got`` the
-    mesh's (a step, a data row of ``rows``, a layer).  Each differing
-    choice must be a near tie of one device's router: its k-th and
-    (k+1)-th probabilities within ``tol`` of each other, relative.
-    Returns (a (step, sequence) mask of the logits whose own token — the
-    prompt's last at step 0, the fed token after — was routed to other
-    experts in some layer; the flips' relative gaps)."""
+    mesh's (prefill: a data row of ``rows``, a layer; each decode step,
+    which routes every sequence at once in the weight-stationary layout:
+    a layer).  Each differing choice must be a near tie of one device's
+    router: its k-th and (k+1)-th probabilities within ``tol`` of each
+    other, relative.  Returns (a (step, sequence) mask of the logits
+    whose own token — the prompt's last at step 0, the fed token after —
+    was routed to other experts in some layer; the flips' relative
+    gaps)."""
     steps = len(one) // layers
     own = np.zeros((steps, batch), dtype=bool)
     gaps = []
     for n, (probs, ids) in enumerate(one):
         step, layer = divmod(n, layers)
-        mesh_ids = np.concatenate([got[(step * rows + r) * layers + layer][1]
-                                   for r in range(rows)])
+        at = [r * layers + layer for r in range(rows)] if step == 0 else \
+            [(rows + step - 1) * layers + layer]
+        mesh_ids = np.concatenate([got[i][1] for i in at])
         differ = (np.sort(ids, -1) != np.sort(mesh_ids, -1)).any(-1)
         k = ids.shape[-1]
         for b, t in zip(*np.nonzero(differ)):
@@ -3994,8 +4175,12 @@ def phase_serve_tp_parity(card: str) -> None:
     local shapes.  A MoE routing that differs from one device's must be
     a near tie of the router (``_route_flips``); a step's logits of a
     sequence whose own token was so routed are not held (its experts
-    differ; at most a quarter of them), and the record counts them."""
+    differ; at most a quarter of them), and the record counts them.
+    Decode runs in the weight-stationary layout: its FSDP gathers
+    (``fsdp.COUNTS``) must read 0 at every step; one more step times the
+    data axis's collectives (``SERVE_TP_MESHES`` adds ``(2, 1)``)."""
     from repro_torch.configs import get_config
+    from repro_torch.distributed import fsdp
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.transformer import LM
     from repro_torch.serve.step import make_decode, make_prefill
@@ -4019,7 +4204,7 @@ def phase_serve_tp_parity(card: str) -> None:
                 one.append(host(lg))
         del model, cache
         cases = {}
-        for data, model_size in TP_MESHES:
+        for data, model_size in SERVE_TP_MESHES:
             mesh = make_host_mesh(data=data, model=model_size,
                                   device="cuda:0")
             tag = f"{arch} ({data}, {model_size})"
@@ -4028,14 +4213,21 @@ def phase_serve_tp_parity(card: str) -> None:
             model.load_state_dict(init)
             prefill = make_prefill(model, max_len, mesh=mesh)
             decode = make_decode(model, mesh=mesh)
+            gathers = []
             with _routes_logged([]) as routes:
                 placed, nxt = prefill(prompts)
                 got, toks = [host(prefill.last_logits())], [host(nxt)]
                 for i in range(SERVE_TP_STEPS):
+                    fsdp.COUNTS["gathers"] = 0
                     nxt, placed = decode(placed, feed[i][:, None],
                                          LM_PROMPT_LEN + i)
+                    gathers.append(fsdp.COUNTS["gathers"])
                     got.append(host(decode.last_logits()))
                     toks.append(host(nxt[:, 0]))
+            check(not any(gathers), f"{tag}: decode gathered {gathers} "
+                                    "weights a step")
+            calls, coll_ms = _collective_spans(lambda: decode(
+                placed, feed[-1][:, None], max_len - 1))["data"]
             flipped, gaps = _route_flips(one_routes, routes, LM_PROMPTS,
                                          cfg.num_layers, data, LM_TOL)
             if not one_routes:
@@ -4067,6 +4259,9 @@ def phase_serve_tp_parity(card: str) -> None:
                 "logits_unheld": int(flipped.sum()),
                 "logits_held": int((~flipped).sum()),
                 "slot_cache_bytes": _cache_bytes(placed),
+                "decode_gathers_max": max(gathers),
+                "data_collective_calls_step": calls,
+                "data_collective_ms_step": coll_ms,
                 "seconds": time.perf_counter() - t1}
             del model, prefill, decode, placed
             torch.cuda.empty_cache()
@@ -4088,15 +4283,18 @@ def phase_serve_tp_full(card: str) -> None:
     """qwen3-4b at full width and depth (the LM phases' model, re-made
     from its seed), bf16: ``lm_generate``'s prompts and steps on one
     device (timed again here, beside the numbers of ``lm_generate``),
-    then the same model placed over ``make_host_mesh(data=1,
-    model=TP_FULL_MODEL)`` on the card: prefill ms, decode ms a step
-    (p50, p25/p75), fed ``lm_generate``'s tokens, whose greedy tokens
-    must equal them but at near ties (``LM_TOL``·max|logit| of the
-    mesh's logits); one more step with the serving collectives timed by
-    CUDA events; kernels a decode step (profiler) on one device and on
-    the mesh; the peak and each slot's cache bytes."""
+    then the same model placed over each of ``SERVE_FULL_MESHES`` on the
+    card (``(1, TP_FULL_MODEL)``, and ``(2, 1)``: decode in the
+    weight-stationary layout, every weight cut over data alone; a fresh
+    model a mesh): prefill ms, decode ms a step (p50, p25/p75), fed
+    ``lm_generate``'s tokens, whose greedy tokens must equal them but at
+    near ties (``LM_TOL``·max|logit| of the mesh's logits); one more step
+    with the serving collectives and the data axis's timed by CUDA events
+    (no weight gathered); kernels a decode step (profiler) on one device
+    and on the mesh; the peak and each slot's cache bytes.  One line a
+    mesh."""
     from repro_torch.configs import get_config
-    from repro_torch.distributed import tp
+    from repro_torch.distributed import fsdp, tp
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.transformer import LM
     from repro_torch.serve.step import make_decode, make_prefill
@@ -4147,59 +4345,52 @@ def phase_serve_tp_full(card: str) -> None:
                            for k, v in LM_GENERATED.items() if k != "gen"},
            **profiled(make_prefill(model, LM_PROMPT_LEN + 2),
                       make_decode(model))}
-    mesh = make_host_mesh(data=1, model=TP_FULL_MODEL, device="cuda:0")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    prefill = make_prefill(model, max_len, mesh=mesh)
-    decode = make_decode(model, mesh=mesh)
-    placed, gen, pre_ms, ms, logits = generate(prefill, decode, feed)
-    peak = torch.cuda.max_memory_allocated()
-    ties = []
-    for i, lg in enumerate(logits):
-        ties += _near_tie_tokens(host(feed[:, i + 1]), lg,
-                                 LM_TOL * float(np.abs(lg).max()))
-    spans = []
-    fns = [tp.max_over_ranks, tp.sum_over_ranks, tp.fold_to, tp.gather_to,
-           tp.argmax_over_ranks]
-    saved_fns = {f.__name__: f for f in fns}
-    classes = [tp._Copy, tp._Reduce, tp._AllGather, tp._ReduceScatter,
-               tp._GatherRow, tp._Split]
-    saved = [(c, c.forward) for c in classes]
-    for name, f in saved_fns.items():
-        setattr(tp, name, _timed(f, spans))
-    for c, fwd in saved:
-        c.forward = staticmethod(_timed(fwd, spans))
-    try:
-        decode(placed, feed[:, -1:], max_len - 1)
-        torch.cuda.synchronize()
-    finally:
-        for name, f in saved_fns.items():
-            setattr(tp, name, f)
-        for c, fwd in saved:
-            c.forward = staticmethod(fwd)
-    coll_ms = sum(a.elapsed_time(b) for a, b in spans)
-    del placed
-    torch.cuda.empty_cache()
-    prof = profiled(make_prefill(model, LM_PROMPT_LEN + 2, mesh=mesh),
-                    decode)
-    placed, _ = prefill(prompts)
-    slot_bytes = _cache_bytes(placed)
-    check(peak < 80e9, f"peak memory {peak} does not fit 80 GB")
-    emit(phase="serve_tp_full", card=card, arch=LM_ARCH,
-         mesh=dict(mesh.shape), prompts=[LM_PROMPTS, LM_PROMPT_LEN],
-         steps=LM_STEPS, max_len=max_len, prefill_ms=pre_ms,
-         decode_ms_p50=float(np.median(ms)),
-         decode_ms_p25_p75=np.percentile(ms, [25, 75]).tolist(),
-         decode_ms=ms, tp_collective_ms=coll_ms,
-         tp_collective_calls=len(spans), near_tie_gaps=ties,
-         near_tie_tol=f"{LM_TOL}·max|logit| of the mesh's logits",
-         peak_memory_allocated=peak, slot_cache_bytes=slot_bytes,
-         cache_bytes_whole=2 * cfg.num_layers * LM_PROMPTS * max_len
-         * cfg.num_kv_heads * cfg.head_dim * 2,
-         profiled_decode=prof, one_device=one,
-         seconds=time.perf_counter() - t0)
-    del model, prefill, decode, placed
-    torch.cuda.empty_cache()
+    for n, (data, model_size) in enumerate(SERVE_FULL_MESHES):
+        if n:       # a model is placed on one mesh: the next gets its own
+            model = LM(cfg, device="cuda", seed=0)
+        mesh = make_host_mesh(data=data, model=model_size, device="cuda:0")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        prefill = make_prefill(model, max_len, mesh=mesh)
+        decode = make_decode(model, mesh=mesh)
+        fsdp.COUNTS["gathers"] = 0
+        placed, gen, pre_ms, ms, logits = generate(prefill, decode, feed)
+        peak = torch.cuda.max_memory_allocated()
+        ties = []
+        for i, lg in enumerate(logits):
+            ties += _near_tie_tokens(host(feed[:, i + 1]), lg,
+                                     LM_TOL * float(np.abs(lg).max()))
+        fsdp.COUNTS["gathers"] = 0
+        spans = _collective_spans(lambda: decode(placed, feed[:, -1:],
+                                                 max_len - 1))
+        decode_gathers = fsdp.COUNTS["gathers"]
+        check(decode_gathers == 0, f"decode over {dict(mesh.shape)} "
+                                   f"gathered {decode_gathers} weights")
+        del placed
+        torch.cuda.empty_cache()
+        prof = profiled(make_prefill(model, LM_PROMPT_LEN + 2, mesh=mesh),
+                        decode)
+        placed, _ = prefill(prompts)
+        slot_bytes = _cache_bytes(placed)
+        check(peak < 80e9, f"peak memory {peak} does not fit 80 GB")
+        emit(phase="serve_tp_full", card=card, arch=LM_ARCH,
+             mesh=dict(mesh.shape), prompts=[LM_PROMPTS, LM_PROMPT_LEN],
+             steps=LM_STEPS, max_len=max_len, prefill_ms=pre_ms,
+             decode_ms_p50=float(np.median(ms)),
+             decode_ms_p25_p75=np.percentile(ms, [25, 75]).tolist(),
+             decode_ms=ms, tp_collective_ms=spans["tp"][1],
+             tp_collective_calls=spans["tp"][0],
+             data_collective_ms=spans["data"][1],
+             data_collective_calls=spans["data"][0],
+             decode_gathers=decode_gathers, near_tie_gaps=ties,
+             near_tie_tol=f"{LM_TOL}·max|logit| of the mesh's logits",
+             peak_memory_allocated=peak, slot_cache_bytes=slot_bytes,
+             cache_bytes_whole=2 * cfg.num_layers * LM_PROMPTS * max_len
+             * cfg.num_kv_heads * cfg.head_dim * 2,
+             profiled_decode=prof, one_device=one,
+             seconds=time.perf_counter() - t0)
+        del model, prefill, decode, placed
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -4221,7 +4412,8 @@ def main() -> int:
         if "edges" in PHASES:
             phase_edges()
         for name, phase in {**TRAIN_PHASES, **DP_PHASES, **FSDP_PHASES,
-                            **TP_PHASES, **SERVE_TP_PHASES}.items():
+                            **TP_PHASES, **SERVE_TP_PHASES,
+                            **POD_PHASES}.items():
             if name in PHASES:
                 phase(card)
         emit(phase="done", partial=sorted(PHASES),
@@ -4238,7 +4430,9 @@ def main() -> int:
         for phase in TRAIN_PHASES.values():
             phase(card)
         kernels = run_index_phases(card, lm_run)
-        # after every phase whose host times are reported
+        # the pool's results, before the phases whose host-bound step
+        # times it would slow
+        phase_dryrun_pods(card)
         for phase in (*DP_PHASES.values(), *TP_PHASES.values(),
                       *SERVE_TP_PHASES.values()):
             phase(card)
@@ -4272,9 +4466,11 @@ def run_index_phases(card, lm_run):
     torch.cuda.empty_cache()
     phase_serving(*serving_inputs)
     launches, shapes = phase_sharded(*serving_inputs)
-    # the LM index builds on the host from here on, past the phases whose
-    # host-bound times this script reports (the child takes a core)
+    # the LM index builds on the host from here on, past the index phases
+    # whose host-bound times this script reports (the child takes a core),
+    # and so do the dry run's one-slot reckonings (``dryrun_jobs``)
     lm_run.start()
+    start_dryrun_pool()
     for line in kernels:
         line["launches_sharded"] = launches.get(line["name"], 0)
         if line["name"] in shapes:
@@ -4306,6 +4502,7 @@ DP_PHASES = {"train_dp_parity": phase_train_dp_parity,
 FSDP_PHASES = {"train_fsdp_parity": phase_train_fsdp_parity,
                "train_fsdp_full": phase_train_fsdp_full,
                "dryrun_fit": phase_dryrun_fit}
+POD_PHASES = {"dryrun_pods": phase_dryrun_pods}
 TP_PHASES = {"train_tp_parity": phase_train_tp_parity,
              "train_tp_full": phase_train_tp_full}
 SERVE_TP_PHASES = {"serve_tp_parity": phase_serve_tp_parity,
@@ -4315,14 +4512,15 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phases":
         PHASES = set(sys.argv[2].split(","))
         check(PHASES <= {"build", "edges", *TRAIN_PHASES, *DP_PHASES,
-                         *FSDP_PHASES, *TP_PHASES, *SERVE_TP_PHASES},
+                         *FSDP_PHASES, *TP_PHASES, *SERVE_TP_PHASES,
+                         *POD_PHASES},
               f"--phases takes build, edges, {sorted(TRAIN_PHASES)}, "
               f"{sorted(DP_PHASES)}, {sorted(FSDP_PHASES)}, "
-              f"{sorted(TP_PHASES)} and {sorted(SERVE_TP_PHASES)}, not "
-              f"{sorted(PHASES)}")
+              f"{sorted(TP_PHASES)}, {sorted(SERVE_TP_PHASES)} and "
+              f"{sorted(POD_PHASES)}, not {sorted(PHASES)}")
     elif len(sys.argv) != 1:
         sys.exit("usage: chip_smoke.py [--phases build,edges,"
                  + ",".join([*TRAIN_PHASES, *DP_PHASES, *FSDP_PHASES,
-                             *TP_PHASES, *SERVE_TP_PHASES])
+                             *TP_PHASES, *SERVE_TP_PHASES, *POD_PHASES])
                  + "]")
     sys.exit(main())

@@ -26,6 +26,14 @@ residual is the list of the ranks' cuts where the spec cuts it over
 and then pins it).  ``gather_params`` gathers over the data axis only,
 onto the rank's device: the gathered leaf stays the rank's TP cut.
 
+Decode over a mesh runs in the reference's weight-stationary layout
+(``use(..., stationary=True)``, the reference's ``configure(mesh,
+None)``): the activations are replicated over ``data`` (the pins cut
+no batch), ``gather_params`` gathers nothing, and every product with a
+weight cut over ``data`` runs on each data shard where it lies
+(``layers.over_data``): partials over the contracted axis summed once in
+fp32, or slices of the output's columns joined.
+
 State is set by the launcher (``configure``, ``use``) and by the step
 around each shard's forward and backward (``local_shard``).  Without a
 configured mesh — every serving path, every one-device run — ``shard``
@@ -44,27 +52,88 @@ from . import fsdp
 from .sharding import P
 
 _STATE = {"mesh": None, "dp": None, "tp": "model", "gather_rules": None,
-          "local": None, "rank": None}
+          "stationary": False, "local": None, "rank": None,
+          "one_slot": False}
 
 
 def configure(mesh, dp: Optional[Tuple[str, ...]], tp: str = "model",
-              gather_rules=None) -> None:
+              gather_rules=None, stationary: bool = False) -> None:
     """The mesh, its data-parallel axes, its TP axis and, under FSDP
-    placement, the ``ShardingRules`` the leaves were placed by."""
+    placement, the ``ShardingRules`` the leaves were placed by;
+    ``stationary``: a decode in the weight-stationary layout (the
+    weights used where they lie, no gather)."""
     _STATE["mesh"] = mesh
     _STATE["dp"] = dp
     _STATE["tp"] = tp
     _STATE["gather_rules"] = gather_rules
+    _STATE["stationary"] = stationary
 
 
 @contextmanager
-def use(mesh, dp, tp: str = "model", gather_rules=None):
+def use(mesh, dp, tp: str = "model", gather_rules=None,
+        stationary: bool = False):
     old = dict(_STATE)
-    configure(mesh, dp, tp, gather_rules)
+    configure(mesh, dp, tp, gather_rules, stationary)
     try:
         yield
     finally:
         _STATE.update(old)
+
+
+def stationary() -> bool:
+    """Whether a weight-stationary decode over a mesh is running."""
+    return _STATE["stationary"] and _STATE["mesh"] is not None
+
+
+@contextmanager
+def one_slot():
+    """Inside: one slot's reckoning (``launch.dryrun``).  Every slot of
+    the mesh but the reckoned one lies on the ``meta`` device, whose
+    tensors hold no bytes, and work whose every output would land there
+    is not run: each such rank's, data row's, shard's or collective's
+    result is a ``meta`` placeholder of its shape (``tp.placeholder``).
+    What the reckoned slot computes, and every buffer a collective
+    leaves on it, is what the whole program would make there; only the
+    other slots' work, which leaves nothing on it, is left out."""
+    old = _STATE["one_slot"]
+    _STATE["one_slot"] = True
+    try:
+        yield
+    finally:
+        _STATE["one_slot"] = old
+
+
+def live(device) -> bool:
+    """Whether work on ``device`` runs: always, but in one slot's
+    reckoning, where only the reckoned slot's (a device that is not
+    ``meta``) does."""
+    return not _STATE["one_slot"] or torch.device(device).type != "meta"
+
+
+def skipping() -> bool:
+    """Whether one slot's reckoning is running (``one_slot``)."""
+    return _STATE["one_slot"]
+
+
+def rank_live(j: int) -> bool:
+    """Whether TP rank ``j``'s part of the running row's layer runs: its
+    device is live, or, in a weight-stationary decode, a slot of its
+    column (where its products run) is."""
+    if not _STATE["one_slot"]:
+        return True
+    if live(tp_devices()[j]):
+        return True
+    if _STATE["stationary"]:
+        mesh = _STATE["mesh"]
+        t = mesh.shape.get("model", 1)
+        return any(live(d) for d in list(mesh.devices.flat)[j::t])
+    return False
+
+
+def running_rank() -> int:
+    """The TP rank whose part of a layer runs (``on_rank``; 0 outside
+    one)."""
+    return _STATE["rank"] or 0
 
 
 @contextmanager
@@ -148,6 +217,10 @@ def gather_params(tree, rank: Optional[int] = None):
         rank = _STATE["rank"] or 0
     with on_rank(rank):
         device = _device()
+    if rank and device is not None and not live(device):
+        # one slot's reckoning: a rank > 0 off the reckoned slot runs
+        # nothing that reads its gathered weights
+        return tree
 
     def one(node):
         if isinstance(node, torch.Tensor):
@@ -299,7 +372,8 @@ def shard_ranks(xs: List[torch.Tensor], axis: Optional[int], kind: str):
     return xs, axis
 
 
-__all__ = ["configure", "use", "local_shard", "row_ranks", "tp_ranks",
-           "tp_devices",
+__all__ = ["configure", "use", "stationary", "one_slot", "live",
+           "skipping", "rank_live", "running_rank", "local_shard",
+           "row_ranks", "tp_ranks", "tp_devices",
            "on_rank", "gather_params", "spec", "shard", "tp_axis",
            "shard_ranks"]

@@ -37,7 +37,14 @@ SSM states' heads and the conv histories' channels over ``model``, the
 batch over ``data``.  ``init_cache`` makes every slot's zeros at its
 local shape (no whole cache on any slot), ``place_cache`` cuts a whole
 cache, ``whole_cache`` joins one; ``PlacedCache.row`` is a data row's
-view, which the models' serving paths read (``RowCache``).
+view, which prefill reads (``RowCache``), and ``MeshCache`` the whole
+mesh's, which the weight-stationary decode reads (each data row's
+K/V and SSM states for the batch rows it holds).
+
+In one slot's reckoning (``actctx.one_slot``) the slots on ``meta``
+share one module, and each leaf's and each cache leaf's parts there
+one tensor: nothing of theirs is computed, and a pod's 255 other slots
+cost no more than one.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import copy
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -194,18 +202,22 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dim, device, *shards):
+        from . import tp
         ctx.dim = dim
         ctx.devices = [s.device for s in shards]
         ctx.sizes = [s.shape[dim] for s in shards]
-        return torch.cat([s.to(device) for s in shards], dim)
+        return tp._join(shards, dim, device)
 
     @staticmethod
     def backward(ctx, g):
+        from . import actctx
         parts = torch.split(g, ctx.sizes, ctx.dim)
         # copies: a view kept as an owner's gradient would keep the
         # whole gathered cotangent alive
-        return (None, None) + tuple(p.to(d, copy=True) for p, d in
-                                    zip(parts, ctx.devices))
+        return (None, None) + tuple(
+            p.to(d, copy=True) if actctx.live(d) else torch.empty(
+                p.shape, dtype=p.dtype, device="meta")
+            for p, d in zip(parts, ctx.devices))
 
 
 def place_like(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -220,18 +232,23 @@ def place_like(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         u.device, copy=True, memory_format=torch.contiguous_format))
 
 
+# leaves ``gather`` has all-gathered since the count was last set to 0
+COUNTS = {"gathers": 0}
+
+
 def gather(t: torch.Tensor, device, rank: Optional[int] = None
            ) -> torch.Tensor:
     """The leaf of shard ``t`` gathered over the data axis only (what
     ``gathered_rule`` releases) on ``device``, differentiable into each
     data shard: TP rank ``rank``'s cut of the leaf (default: the rank of
-    ``t``'s first slot).  A whole tensor, or one not cut over data, is
-    returned as it is."""
+    ``t``'s first slot); each counts one in ``COUNTS["gathers"]``.  A
+    whole tensor, or one not cut over data, is returned as it is."""
     g = group(t)
     if g is None or g.dim is None:
         return t
     if rank is None:
         rank = slot(t) % g.shape[1]
+    COUNTS["gathers"] += 1
     return _Gather.apply(g.dim, torch.device(device), *g.column(rank))
 
 
@@ -301,6 +318,7 @@ def place(model: nn.Module, mesh, rules, *, cut: bool = True
     always cut.  Returns one module a slot; slot 0's is ``model``
     itself, whose cut leaves are replaced by slot 0's shards (so the
     whole leaves are freed).  ``model`` must lie on slot 0's device."""
+    from . import actctx
     slots = list(mesh.devices.flat)
     n = len(slots)
     model_size = mesh.shape.get("model", 1)
@@ -311,11 +329,20 @@ def place(model: nn.Module, mesh, rules, *, cut: bool = True
     params = dict(model.named_parameters())
     dims = (cut_dims(model.cfg, rules, params) if n > 1
             else {k: (None, None) for k in params})
-    # the other slots' modules, their parameters placeholders until cut
+    # the other slots' modules, their parameters placeholders until cut;
+    # in one slot's reckoning (``actctx.one_slot``) the slots on ``meta``
+    # share one module, and each leaf's parts there one tensor
+    shared = actctx.skipping()
     memo = {id(p): nn.Parameter(torch.empty(0, device="meta"))
             for p in params.values()}
-    modules = [model] + [copy.deepcopy(model, dict(memo))
-                         for _ in range(n - 1)]
+    modules = [model]
+    phantom = model if shared and not actctx.live(slots[0]) else None
+    for d in slots[1:]:
+        if shared and not actctx.live(d):
+            phantom = phantom or copy.deepcopy(model, dict(memo))
+            modules.append(phantom)
+        else:
+            modules.append(copy.deepcopy(model, dict(memo)))
     replicas: Dict[torch.device, Dict[str, nn.Parameter]] = {}
     for name in list(params):
         p = params.pop(name)
@@ -344,6 +371,8 @@ def place(model: nn.Module, mesh, rules, *, cut: bool = True
             i, j = divmod(s, model_size)
             key = (i if dim is not None else 0,
                    j if tp_dim is not None else 0, d)
+            if shared and not actctx.live(d):
+                key = (None, None, d)
             if key not in made:
                 made[key] = nn.Parameter(
                     _piece(p.detach(), s, dim, tp_dim, shape).to(
@@ -418,26 +447,23 @@ def _tree_map(fn, tree, specs):
     return map_with_path(one, tree)
 
 
-def _cut_index(entry, i: int, j: int, model: int) -> Optional[int]:
-    """The index along an axis that spec ``entry`` cuts of slot (i, j)'s
-    piece (None: not cut)."""
+def _cut_index(entry, s: int, mesh) -> Optional[int]:
+    """The index along an axis that spec ``entry`` cuts of slot ``s``'s
+    piece (None: not cut): slot s's coordinates over the named axes, in
+    the entry's order, flattened."""
     if entry is None:
         return None
     axes = (entry,) if isinstance(entry, str) else tuple(entry)
-    if axes == ("data",):
-        return i
-    if axes == ("model",):
-        return j
-    if axes == ("data", "model"):
-        return i * model + j
-    raise ValueError(f"cache spec entry {entry!r}: only data and model "
-                     "axes are placed")
+    coords = dict(zip(mesh.axis_names,
+                      np.unravel_index(s, mesh.devices.shape)))
+    index = 0
+    for a in axes:
+        index = index * mesh.shape[a] + int(coords[a])
+    return index
 
 
 def _cache_key(spec, s: int, mesh) -> tuple:
-    model = mesh.shape.get("model", 1)
-    i, j = divmod(s, model)
-    return tuple(_cut_index(e, i, j, model) for e in spec)
+    return tuple(_cut_index(e, s, mesh) for e in spec)
 
 
 def _cache_piece(t: torch.Tensor, spec, s: int, mesh) -> torch.Tensor:
@@ -467,6 +493,22 @@ class PlacedCache:
         """The view of the data row whose rank 0 is slot ``first``."""
         return RowCache(self, first)
 
+    def view(self, leaf: torch.Tensor, index) -> torch.Tensor:
+        """``leaf[index]``, one view a piece and index, made once."""
+        views = self.__dict__.setdefault("_views", {})
+        key = (id(leaf), index)
+        if key not in views:
+            views[key] = leaf[index]
+        return views[key]
+
+    def over_mesh(self, modules) -> "MeshCache":
+        """The whole mesh's view (``MeshCache``) for the placement's
+        ``modules``, made once a cache (it leads back here weakly: no
+        cycle keeps a dropped cache, or its modules, alive)."""
+        if "_mesh" not in self.__dict__:
+            self._mesh = MeshCache(self, modules)
+        return self._mesh
+
 
 class RowCache:
     """A data row's view of a ``PlacedCache``: ``ranks[j]`` is TP rank
@@ -493,7 +535,11 @@ class RowCache:
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
         if axes == ("model",):
             return list(range(self._first, self._first + len(self.ranks)))
-        return list(range(len(self.placed.slots)))
+        # over (data, model): the slots of this row's pod
+        mesh = self.placed.mesh
+        pod = mesh.shape["data"] * len(self.ranks)
+        lo = self._first - self._first % pod
+        return list(range(lo, lo + pod))
 
     def kv(self, path, index) -> "SeqKV":
         """Layer ``index`` (its leading indices) of the K/V pair under
@@ -506,21 +552,121 @@ class RowCache:
         def at(tree, key):
             for k in path:
                 tree = tree[k]
-            return tree[key][index]
+            return self.placed.view(tree[key], index)
         return SeqKV([at(t, "k") for t in trees],
                      [at(t, "v") for t in trees], seq is not None)
 
 
+    def states(self, path, index) -> List[dict]:
+        """Layer ``index`` of the SSM state under ``path``: each TP rank's
+        (views)."""
+        return [_state_at(tree, path, index) for tree in self.ranks]
+
+
+def _state_at(tree, path, index) -> dict:
+    for k in path:
+        tree = tree[k]
+    return {k: v[index] for k, v in tree.items()}
+
+
+class MeshCache:
+    """The whole mesh's view of a ``PlacedCache`` in a weight-stationary
+    decode (``serve.step``'s decode over a mesh): one forward runs every
+    sequence over the TP ranks of data row 0, each product on the data
+    shards where its weight lies, and each layer's cache is read and
+    written where it lies.  ``kv`` groups the data rows by the batch rows
+    they hold (a cut batch: one row each; a batch the data axis does not
+    cut: every row holds all of it), ``states`` likewise for the SSM
+    states; ``modules`` are the placement's (one a slot), whose data
+    rows' parameters update the states they hold."""
+
+    def __init__(self, placed: PlacedCache, modules):
+        self.placed = weakref.proxy(placed)
+        self.modules = modules
+        self.t = placed.mesh.shape.get("model", 1)
+        self.firsts = list(range(0, len(placed.slots), self.t))
+
+    def _rows(self, path, r: int) -> slice:
+        """The batch rows data row ``r`` holds of the leaf at ``path``
+        (its batch axis is the fourth from last)."""
+        spec = self.placed.specs
+        for k in path:
+            spec = spec[k]
+        if spec[-4] is None:
+            return slice(None)
+        b = self.placed.batch // len(self.firsts)
+        return slice(r * b, (r + 1) * b)
+
+    def _groups(self, path, make, tensors):
+        """[(rows, [make(row view, its first slot) of each distinct
+        copy])] over the data rows, in row order, a group a distinct
+        slice of the batch; a copy is told by where ``tensors(item)``
+        lie (a view's base and offset)."""
+        groups = {}
+        for r, first in enumerate(self.firsts):
+            rows = self._rows(path, r)
+            item = make(self.placed.row(first), first)
+            key = tuple((id(t if t._base is None else t._base),
+                         t.storage_offset()) for t in tensors(item))
+            group = groups.setdefault((rows.start, rows.stop),
+                                      (rows, [], set()))
+            if key not in group[2]:
+                group[2].add(key)
+                group[1].append(item)
+        return [(rows, items) for rows, items, _ in groups.values()]
+
+    def _once(self, key, make):
+        made = self.__dict__.setdefault("_made", {})
+        if key not in made:
+            made[key] = make()
+        return made[key]
+
+    def kv(self, path, index):
+        """Layer ``index`` of the K/V pair under ``path``: a
+        ``layers.MeshKV`` (made once: its views stay the cache's)."""
+        return self._once(("kv", tuple(path), index),
+                          lambda: self._kv(path, index))
+
+    def _kv(self, path, index):
+        from ..models.layers import MeshKV, SeqKV
+        groups = self._groups(tuple(path) + ("k",),
+                              lambda row, _: row.kv(path, index),
+                              lambda kv: [*kv.k, *kv.v])
+        reads = [copies[0] if copies[0].spread else SeqKV(
+            copies[0].k[:1], copies[0].v[:1], True) for _, copies in groups]
+        return MeshKV([rows for rows, _ in groups], reads,
+                      [copies for _, copies in groups])
+
+    def states(self, path, index) -> list:
+        """Layer ``index`` of the SSM state under ``path``: one
+        ``ssm.Holder`` a distinct slice of the batch, computed with the
+        parameters of the first data row that holds it (made once)."""
+        return self._once(("ssm", tuple(path), index),
+                          lambda: self._states(path, index))
+
+    def _states(self, path, index) -> list:
+        from ..models.ssm import Holder
+        groups = self._groups(tuple(path) + ("ssm",), lambda row, first: (
+            first, row.states(path, index)), lambda item: [
+                v for st in item[1] for v in st.values()])
+        return [Holder(rows, self.modules[copies[0][0]:
+                                          copies[0][0] + self.t],
+                       [c for _, c in copies]) for rows, copies in groups]
+
+
 def _placed(make, tree, mesh, rules, batch: int) -> PlacedCache:
     """A ``PlacedCache`` of ``tree`` whose slot pieces ``make(path, leaf,
-    spec, s)`` gives (one call a distinct piece and device)."""
+    spec, s)`` gives (one call a distinct piece and device; in one slot's
+    reckoning, one tensor for every piece on ``meta``)."""
+    from . import actctx
     specs = rules.cache_specs(tree, batch)
     devices = list(mesh.devices.flat)
     made: Dict[tuple, torch.Tensor] = {}
 
     def slot_tree(s):
         def one(path, leaf, spec):
-            key = (path, _cache_key(spec, s, mesh), devices[s])
+            key = (path, None if not actctx.live(devices[s])
+                   else _cache_key(spec, s, mesh), devices[s])
             if key not in made:
                 made[key] = make(path, leaf, spec, s)
             return made[key]
@@ -577,6 +723,7 @@ def whole_cache(placed: PlacedCache, device=None):
 
 
 __all__ = ["Group", "group", "link", "slot", "split", "whole", "like",
-           "place_like", "gather", "cut_dims", "shard_dims", "set_param",
+           "place_like", "COUNTS", "gather", "cut_dims", "shard_dims", "set_param",
            "place", "batch_slots", "load_whole", "PlacedCache", "RowCache",
+           "MeshCache",
            "init_cache", "place_cache", "whole_cache"]

@@ -32,7 +32,10 @@ allocation.
 
 ``enter`` and ``leave`` put them together at a sublayer's edges: the
 ranks' normed inputs from the row's residual, and the residual's
-update from the ranks' outputs.
+update from the ranks' outputs.  ``run_ranks`` runs a part on each
+rank; in one slot's reckoning (``actctx.one_slot``) a rank, and a
+collective's destination, off the reckoned slot get ``meta``
+placeholders instead.
 
 Serving needs no gradient, and its collectives run over the ranks that
 hold a decode cache's sequence (a row's TP ranks, or every slot of the
@@ -59,16 +62,133 @@ from typing import List, Sequence
 
 import torch
 
+from . import actctx
+
 f32 = torch.float32
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def placeholder(tree):
+    """A ``meta`` tensor of each tensor's shape and dtype in ``tree`` (a
+    tensor, or lists, tuples and dicts of them): the result of work that
+    one slot's reckoning does not run (``actctx.one_slot``)."""
+    if isinstance(tree, torch.Tensor):
+        return _meta(tree.shape, tree.dtype)
+    if isinstance(tree, dict):
+        return {k: placeholder(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(placeholder(v) for v in tree)
+    return tree
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _unflatten(tree, it):
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, dict):
+        return {k: _unflatten(v, it) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten(v, it) for v in tree)
+    return tree
+
+
+class _Mark(torch.autograd.Function):
+    """Where a rank's part that one slot's reckoning does not run would
+    be, in the autograd graph: a node over the tensors the part would
+    read, which saves one of them, as the part would (so a recomputed
+    region, ``layers.remat``, runs on to it before it stops), and whose
+    backward hands them ``meta`` zeros (so the nodes around it wait for
+    it as they would for the part)."""
+
+    @staticmethod
+    def forward(ctx, *inputs):
+        ctx.shapes = [(t.shape, t.dtype) for t in inputs]
+        ctx.save_for_backward(inputs[0])
+        return _meta((), f32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(_meta(shape, dtype) for shape, dtype in ctx.shapes)
+
+
+class _Stand(torch.autograd.Function):
+    """Placeholders of the shapes of ``like`` that follow a ``_Mark``."""
+
+    @staticmethod
+    def forward(ctx, like, mark):
+        return tuple(_meta(t.shape, t.dtype) for t in like)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, _meta((), f32)
+
+
+def fan_out(items, fn, live) -> list:
+    """``[fn(i) for i in items]`` without autograd (a serving step's data
+    rows or data shards).  In one slot's reckoning an item whose work
+    cannot reach the reckoned slot (``live(i)`` false) gets a placeholder
+    of the first run item's result; where none is live, the first runs
+    (on ``meta``), so that its result's shape is known."""
+    items = list(items)
+    if not actctx.skipping():
+        return [fn(i) for i in items]
+    run = [i for i in items if live(i)] or items[:1]
+    out = {i: fn(i) for i in run}
+    ref = out[run[0]]
+    return [out[i] if i in out else placeholder(ref) for i in items]
+
+
+def run_ranks(js, fn, live=None, inputs=None) -> list:
+    """``[fn(j) for j in js]``, each under ``actctx.on_rank(j)``.  In one
+    slot's reckoning a rank whose part cannot reach the reckoned slot
+    (``live(j)``, by default ``actctx.rank_live``) gets a placeholder of
+    the first run rank's result — under autograd, one that follows a
+    ``_Mark`` over ``inputs(j)``, the tensors its part would read, made
+    where the part would run; where none is live, the first rank runs
+    (on ``meta``), so that its result's shape is known."""
+    if not actctx.skipping():
+        out = []
+        for j in js:
+            with actctx.on_rank(j):
+                out.append(fn(j))
+        return out
+    js = list(js)
+    live = live or actctx.rank_live
+    run = [j for j in js if live(j)] or js[:1]
+    out, marks = {}, {}
+    for j in js:
+        if j in run:
+            with actctx.on_rank(j):
+                out[j] = fn(j)
+        elif inputs is not None and torch.is_grad_enabled():
+            deps = [t for t in _leaves(inputs(j)) if t.requires_grad]
+            if deps:
+                marks[j] = _Mark.apply(*deps)
+    ref = out[run[0]]
+
+    def stand(j):
+        if j not in marks:
+            return placeholder(ref)
+        return _unflatten(ref, iter(_Stand.apply(_leaves(ref), marks[j])))
+    return [out[j] if j in out else stand(j) for j in js]
 
 
 def _fold(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
     """Σ parts in fp32 on ``device``, rank 0 first, cast once to the
     parts' dtype."""
-    total = parts[0].to(device, f32, copy=True)
-    for p in parts[1:]:
-        total.add_(p.to(device, f32))
-    return total.to(parts[0].dtype)
+    return fold_to(parts, device).to(parts[0].dtype)
 
 
 def _to(x: torch.Tensor, device) -> torch.Tensor:
@@ -119,7 +239,7 @@ class _AllGather(torch.autograd.Function):
         out = []
         for d in ctx.devices:
             if d not in joined:
-                joined[d] = torch.cat([p.to(d) for p in parts], dim)
+                joined[d] = _join(parts, dim, d)
                 out.append(joined[d])
             else:
                 out.append(joined[d].view_as(joined[d]))
@@ -130,9 +250,21 @@ class _AllGather(torch.autograd.Function):
         out, start = [], 0
         for d, n in zip(ctx.devices, ctx.sizes):
             out.append(_fold([g.narrow(ctx.dim, start, n) for g in grads],
-                             d))
+                             d) if actctx.live(d) else _meta(
+                grads[0].shape[:ctx.dim] + (n,) + grads[0].shape[
+                    ctx.dim + 1:], grads[0].dtype))
             start += n
         return (None,) + tuple(out)
+
+
+def _join(parts, dim: int, device) -> torch.Tensor:
+    """The parts joined along ``dim`` on ``device`` (a placeholder where
+    one slot's reckoning does not run it)."""
+    if not actctx.live(device):
+        shape = list(parts[0].shape)
+        shape[dim] = sum(p.shape[dim] for p in parts)
+        return _meta(shape, parts[0].dtype)
+    return torch.cat([p.to(device) for p in parts], dim)
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -144,7 +276,10 @@ class _ReduceScatter(torch.autograd.Function):
         sizes = _bounds(n, len(parts), dim)
         out, start = [], 0
         for d, size in zip(ctx.devices, sizes):
-            out.append(_fold([p.narrow(dim, start, size) for p in parts], d))
+            out.append(_fold([p.narrow(dim, start, size) for p in parts], d)
+                       if actctx.live(d) else _meta(
+                parts[0].shape[:dim] + (size,) + parts[0].shape[dim + 1:],
+                parts[0].dtype))
             start += size
         return tuple(out)
 
@@ -153,7 +288,7 @@ class _ReduceScatter(torch.autograd.Function):
         joined = {}
         for d in ctx.devices:
             if d not in joined:
-                joined[d] = torch.cat([g.to(d) for g in grads], ctx.dim)
+                joined[d] = _join(grads, ctx.dim, d)
         return (None,) + tuple(joined[d] for d in ctx.devices)
 
 
@@ -163,7 +298,7 @@ class _GatherRow(torch.autograd.Function):
         ctx.dim = dim
         ctx.devices = [p.device for p in parts]
         ctx.sizes = [p.shape[dim] for p in parts]
-        return torch.cat([p.to(parts[0].device) for p in parts], dim)
+        return _join(parts, dim, parts[0].device)
 
     @staticmethod
     def backward(ctx, g):
@@ -182,8 +317,7 @@ class _Split(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        return None, None, torch.cat([g.to(ctx.device) for g in grads],
-                                     ctx.dim)
+        return None, None, _join(grads, ctx.dim, ctx.device)
 
 
 def copy_to_ranks(x: torch.Tensor, devices: Sequence) -> List[torch.Tensor]:
@@ -248,7 +382,9 @@ def enter(xs: Sequence[torch.Tensor], axis, norm, devices: Sequence
     if axis is None:
         return copy_to_ranks(norm(xs[0], 0), devices)
     if axis == 1:
-        return all_gather([norm(x, j) for j, x in enumerate(xs)], 1)
+        return all_gather(run_ranks(range(len(xs)),
+                                    lambda j: norm(xs[j], j),
+                                    inputs=lambda j: xs[j]), 1)
     return copy_to_ranks(norm(gather_seq(xs, axis), 0), devices)
 
 
@@ -293,9 +429,12 @@ def _on_each(x: torch.Tensor, devices: Sequence) -> List[torch.Tensor]:
 def max_over_ranks(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The element-wise max of the parts in fp32 (exact in any order), on
     each part's device."""
-    top = parts[0].to(f32, copy=True)
-    for p in parts[1:]:
-        top = torch.maximum(top, p.to(top.device, f32))
+    if actctx.live(parts[0].device):
+        top = parts[0].to(f32, copy=True)
+        for p in parts[1:]:
+            top = torch.maximum(top, p.to(top.device, f32))
+    else:
+        top = _meta(parts[0].shape, f32)
     return _on_each(top, [p.device for p in parts])
 
 
@@ -307,7 +446,10 @@ def sum_over_ranks(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def fold_to(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
-    """Σ parts in fp32, rank 0 first, on ``device``; the sum stays fp32."""
+    """Σ parts in fp32, rank 0 first, on ``device``; the sum stays fp32
+    (a placeholder where one slot's reckoning does not run it)."""
+    if not actctx.live(device):
+        return _meta(parts[0].shape, f32)
     total = parts[0].to(device, f32, copy=True)
     for p in parts[1:]:
         total.add_(p.to(device, f32))
@@ -318,9 +460,8 @@ def gather_to(parts: Sequence[torch.Tensor], dim: int, devices: Sequence
               ) -> List[torch.Tensor]:
     """The parts joined along ``dim`` on each of ``devices`` (one join a
     distinct device, views for the rest)."""
-    joined = torch.cat([p.to(parts[0].device) for p in parts],
-                       _dim(dim, parts[0].dim())) if len(parts) > 1 \
-        else parts[0]
+    joined = _join(parts, _dim(dim, parts[0].dim()), parts[0].device) \
+        if len(parts) > 1 else parts[0]
     return _on_each(joined, devices)
 
 
@@ -333,6 +474,8 @@ def argmax_over_ranks(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     maximum is larger, so the lowest global index wins ties, as
     ``jnp.argmax`` does.  Returns int64 indices on rank 0's device."""
     dev = parts[0].device
+    if not actctx.live(dev):
+        return _meta(parts[0].shape[:-1], torch.int64)
     best_v = best_i = None
     off = 0
     for p in parts:
@@ -350,7 +493,8 @@ def argmax_over_ranks(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return best_i
 
 
-__all__ = ["copy_to_ranks", "reduce_from_ranks", "all_gather",
+__all__ = ["placeholder", "fan_out", "run_ranks", "copy_to_ranks", "reduce_from_ranks",
+           "all_gather",
            "reduce_scatter_seq", "gather_seq", "split_to_ranks", "enter",
            "ranks_to_run", "leave", "max_over_ranks", "sum_over_ranks",
            "fold_to", "gather_to", "argmax_over_ranks"]

@@ -27,21 +27,37 @@ compiles each cell on 512 placeholder TPU devices and reads
     keeps their summed peak (``peak_mode`` says so) and gives no
     per-card peak and no ``fits_80gb``.  A cell whose state alone
     exceeds 80 GB a device does not fit (the peak holds the state) and
-    runs no step; the ``pod`` and ``multipod`` layouts (``model`` = 16)
-    carry the state bytes only (``TP_QUEUED``).  Prefill and decode run
-    through ``serve.step``'s builders over the mesh, the cache cut as
-    ``cache_specs`` cuts it (``fsdp.init_cache``: a batch the data axis
-    does not divide spreads its K/V's sequence over every slot);
+    runs no step.  Prefill and decode run through ``serve.step``'s
+    builders over the mesh, the cache cut as ``cache_specs`` cuts it
+    (``fsdp.init_cache``: a batch the data axis does not divide spreads
+    its K/V's sequence over every slot), decode in the reference's
+    weight-stationary layout (no weight gathered);
+  * the ``pod`` (16 × 16) and ``multipod`` (2 × 16 × 16, FSDP over
+    ``(pod, data)``) layouts' peaks — one slot's program
+    (``slot_peaks``): under SPMD every slot runs the same program, so
+    the reckoned slot lies on the fake device and the other 255 (511)
+    on ``meta``, and the work that leaves nothing on the reckoned slot
+    is not run (``actctx.one_slot``: placeholders for the other ranks',
+    data rows' and shards' results, every buffer a collective leaves on
+    the slot made as the whole program makes it).  Slot 0, which the
+    one thread that drives a mesh loads (the whole model before
+    placement, the greedy tokens), and slot n−1 are reckoned; the
+    per-card peak is the larger.  On ``4x1``, ``1x4`` and ``2x2`` the
+    same reckoning equals the whole program's peak for that slot (its
+    other slots on ``meta``: ``tests/test_torch_pod_dryrun.py``);
   * roofline — ``analysis.step_flops`` and ``analysis.hbm_bytes`` (the
     reference's analytic terms), and a collective term reckoned from the
     step's own traffic: each layer's FSDP all-gathers (twice under
     remat: the forward and the recomputation), the reduce-scatter of the
     sharded leaves' gradients and the all-reduce of the replicated
-    leaves', and at ``model`` > 1 the tensor-parallel collectives of
-    the step, the prefill or the decode step (``tp_collectives``) —
-    with no HLO to parse,
-    ``analysis.parse_collectives`` is not used — over the NVIDIA H100
-    SXM's datasheet rates.
+    leaves'; prefill's gathers once; decode's activations over the data
+    axis (``stationary_collectives``: its weights stay where they lie),
+    and at ``model`` > 1 the tensor-parallel collectives of the step,
+    the prefill or the decode step (``tp_collectives``) — with no HLO to
+    parse, ``analysis.parse_collectives`` is not used — over the NVIDIA
+    H100 SXM's datasheet rates: one link rate, NVLink's 450 GB/s a card,
+    which holds inside one node of 8 cards (a pod's 256 cards span 32
+    nodes), as the reference keeps one ICI rate.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k \\
@@ -75,7 +91,7 @@ from ..serve import step as serve_step
 from ..train import optimizer as opt
 from ..train.step import make_train_step
 from . import analysis
-from .mesh import Mesh, axis_size, make_production_mesh
+from .mesh import Mesh, axis_size, dp_axes, make_production_mesh
 from .shapes import (SHAPES, ShapeSpec, decode_args_struct,
                      prefill_args_struct, skip_reason, train_batch_struct,
                      whisper_dec_len)
@@ -105,9 +121,6 @@ ACCUM_DTYPE = {
 }
 
 MESHES = ("1x1", "4x1", "1x4", "2x2", "pod", "multipod")
-TP_QUEUED = ("queued in the port: the pod layouts' per-slot peak (one "
-             "slot's local program of 256); the train step, prefill and "
-             "decode at model > 1 run on 1x4 / 2x2")
 
 # ------------------------------------------------------------------------ #
 
@@ -197,9 +210,10 @@ def fsdp_collectives(ref_shapes, dims, n: int, kind: str, *, accum: int,
     (each microbatch; twice under remat), the reduce-scatter of the
     sharded leaves' gradients (each microbatch) and the all-reduce of
     the replicated leaves' gradients (``grad_bytes`` an element, once);
-    prefill and decode gather once.  ``dims``: each stacked leaf's
-    (cut over data, cut over model); a leaf cut over ``model`` moves its
-    TP rank's 1/``tp`` over the data axis."""
+    prefill gathers once and decode, whose weights stay where they lie
+    (``stationary_collectives``), not at all.  ``dims``: each stacked
+    leaf's (cut over data, cut over model); a leaf cut over ``model``
+    moves its TP rank's 1/``tp`` over the data axis."""
     sharded = replicated = 0
     for name, leaf in _named_leaves(ref_shapes):
         b = int(np.prod(leaf.shape)) * leaf.dtype.itemsize
@@ -219,11 +233,65 @@ def fsdp_collectives(ref_shapes, dims, n: int, kind: str, *, accum: int,
                 "reduce-scatter", sharded / n, n) * accum
             per_op["all-reduce"] = analysis._wire_bytes(
                 "all-reduce", replicated, n)
-        else:
+        elif kind == "prefill":
             per_op["all-gather"] = analysis._wire_bytes(
                 "all-gather", sharded, n)
     return {"bytes_per_op": per_op, "total_bytes": sum(per_op.values()),
             "sharded_param_bytes": sharded}
+
+
+# a layer's products whose weight the data axis cuts along the contracted
+# (input) axis, and along the output's last axis
+_INPUT_CUT = ("wq", "wk", "wv", "w_gate", "w_up", "w_in", "z_proj",
+              "x_proj", "b_proj", "c_proj", "dt_proj")
+_OUTPUT_CUT = ("wo", "w_down", "w_out", "out_proj")
+
+
+def stationary_collectives(cfg, shape: ShapeSpec, leaves, n: int,
+                           tp: int) -> Dict[str, Any]:
+    """Per-device wire bytes over the FSDP group (``n`` data rows) of a
+    decode step in the weight-stationary layout (``analysis._wire_bytes``'
+    ring factors): every product of the step whose weight is cut over
+    data moves activations, not weights — one token of each of the
+    ``shape.batch`` sequences, replicated over data.  A weight cut along
+    its contracted axis (q/k/v, gate/up, the SSD projections, the
+    experts' gate and up) all-reduces its fp32 partials of its TP rank's
+    output columns; one cut along the output's last axis (o, down, out,
+    the SSD's out) all-gathers the slices of its output (fp32 where the
+    heads or columns are cut over ``model``, a row-parallel partial).
+    ``leaves``: (the port's parameter name, its per-layer shape, the
+    axis cut over data, the axis cut over ``model``) of every parameter;
+    the encoder's layers and the cross-attention's K/V projections run
+    in prefill only."""
+    per_op = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
+    rows = shape.batch
+    item = _dtype_bytes(cfg.dtype)
+    products = 0
+    for name, pshape, dim, tp_dim in leaves:
+        parts = name.split(".")
+        leaf = parts[-1]
+        if dim is None or parts[0] == "enc_layers" or (
+                "cross" in parts and leaf in ("wk", "wv")):
+            continue
+        local = list(pshape)
+        if tp_dim is not None:
+            local[tp_dim] //= tp
+        numel = int(np.prod(local))
+        if leaf in _INPUT_CUT:
+            per_op["all-reduce"] += analysis._wire_bytes(
+                "all-reduce", rows * numel // local[dim] * 4, n)
+        elif leaf in _OUTPUT_CUT:
+            experts = leaf == "w_down" and len(local) == 3
+            out = local[-1] * (local[0] if experts else 1)
+            wide = tp_dim is not None and not experts
+            per_op["all-gather"] += analysis._wire_bytes(
+                "all-gather", rows * out * (4 if wide else item), n)
+        else:
+            raise ValueError(f"{name}: a weight cut over data that no "
+                             "decode product is known to use")
+        products += 1
+    return {"bytes_per_op": per_op, "total_bytes": sum(per_op.values()),
+            "products": products, "rows": rows}
 
 
 def _named_leaves(tree, prefix=""):
@@ -248,18 +316,21 @@ def tp_collectives(cfg, shape: ShapeSpec, mesh: Mesh, *, accum: int,
     again in the recomputation under remat, and swapped in the backward;
     the SSD mixers also all-gather B and C (their convs' outputs); the
     vocabulary-parallel loss all-reduces three fp32 numbers a token
-    (max, sum of exponentials, gold logit).  Decode: each sublayer's
-    partials all-reduced (B × 1 × d); each attention layer all-gathers
-    the token's query heads and reduces three fp32 terms over the ranks
-    that hold the cache's sequence (``cache_specs``: the row's TP ranks,
-    or every slot for a batch the data axis does not divide) — the
-    scores' max and sum (B × H each) and the context (B × H × hd); the
-    SSD mixers all-gather B and C.  Serving's greedy token all-gathers
-    a value and an index a row and rank (``tp.argmax_over_ranks``)."""
+    (max, sum of exponentials, gold logit).  Decode, which runs every
+    sequence over one row's ranks (the weight-stationary layout):
+    each sublayer's partials all-reduced (B × 1 × d) and each attention
+    layer's query heads all-gathered, over the whole batch; three fp32
+    terms reduced over the ranks that hold a data row's cache sequence
+    (``cache_specs``: the row's TP ranks, or a pod's slots for a batch
+    the data axis does not divide), for the rows it holds — the scores'
+    max and sum (B × H each) and the context (B × H × hd); the SSD
+    mixers all-gather B and C.  Serving's greedy token all-gathers a
+    value and an index a sequence and rank
+    (``tp.argmax_over_ranks``)."""
     from ..models.convert import ShapeLeaf
     t = mesh.shape["model"]
-    data = mesh.shape["data"]
-    rows = shape.batch // data if shape.batch % data == 0 else shape.batch
+    dp = axis_size(mesh, dp_axes(mesh))
+    rows = shape.batch // dp if shape.batch % dp == 0 else shape.batch
     item = _dtype_bytes(cfg.dtype)
     if cfg.is_encoder_decoder:
         sub = 2 * cfg.num_encoder_layers + 3 * cfg.num_layers
@@ -280,19 +351,22 @@ def tp_collectives(cfg, shape: ShapeSpec, mesh: Mesh, *, accum: int,
         seq = ShardingRules(cfg, mesh).cache_specs(
             {"k": ShapeLeaf((shape.batch, shape.seq, cfg.num_kv_heads,
                              cfg.head_dim))}, shape.batch)["k"][1]
-        m = 1 if seq is None else (t if seq == "model" else mesh.size)
+        m = 1 if seq is None else axis_size(mesh, seq)
         heads = cfg.num_heads * cfg.head_dim
-        per_op["all-reduce"] = wire("all-reduce", rows * cfg.d_model * item,
+        # the stationary decode runs every sequence over one row's ranks;
+        # each data row attends for the rows it holds (``rows``)
+        per_op["all-reduce"] = wire("all-reduce",
+                                    shape.batch * cfg.d_model * item,
                                     t) * sub
-        per_op["all-gather"] = wire("all-gather", rows * heads * item,
-                                    t) * attn
+        per_op["all-gather"] = wire("all-gather",
+                                    shape.batch * heads * item, t) * attn
         if m > 1:
             per_op["all-reduce"] += wire(
                 "all-reduce", rows * (2 * cfg.num_heads + heads) * 4, m) * attn
         if mixers and gn % t == 0:
             per_op["all-gather"] += wire("all-gather", 2 * rows * gn * item,
                                          t) * mixers
-        per_op["all-gather"] += wire("all-gather", rows * 12, t)
+        per_op["all-gather"] += wire("all-gather", shape.batch * 12, t)
         return {"bytes_per_op": per_op, "total_bytes": sum(per_op.values()),
                 "sublayers": sub, "sequence_parallel": False,
                 "sequence_ranks": m}
@@ -318,11 +392,11 @@ def tp_collectives(cfg, shape: ShapeSpec, mesh: Mesh, *, accum: int,
             "sublayers": sub, "sequence_parallel": sp}
 
 
-def _stacked_dims(cfg, rules, params) -> Dict[str, tuple]:
+def _stacked_dims(cuts) -> Dict[str, tuple]:
     """Whether each reference leaf (dotted stacked name) is cut over the
-    FSDP axes, and whether over ``model``."""
+    FSDP axes, and whether over ``model``, from ``fsdp.cut_dims``."""
     out = {}
-    for name, (dim, tp_dim) in fsdp.cut_dims(cfg, rules, params).items():
+    for name, (dim, tp_dim) in cuts.items():
         key = ".".join(p for p in name.split(".") if not p.isdigit())
         data_cut, tp_cut = out.get(key, (False, False))
         out[key] = (data_cut or dim is not None, tp_cut or tp_dim is not None)
@@ -383,20 +457,31 @@ def _run_serve(cfg, model, shape, mesh, rules):
 
 def measure_peak(cfg, shape: ShapeSpec, mesh: Mesh, *, accum: int = 1,
                  moment_dtype: str = "float32",
-                 accum_dtype: str = "float32", fake: bool = True
-                 ) -> Dict[str, int]:
+                 accum_dtype: str = "float32", fake: bool = True,
+                 one_slot: bool = False) -> Dict[str, int]:
     """Each device's peak bytes (``MemTracker``) over one call of the
     port's step for ``shape``: the model built (on the CPU, then moved
     to the mesh's first device), its placement, the optimizer state and
     one train step; or one prefill / decode.  On fake tensors, or
-    (``fake=False``, a small config on the CPU) real ones."""
+    (``fake=False``, a small config on the CPU) real ones.  Slots on the
+    ``meta`` device hold no bytes; ``one_slot``: the slots but one lie
+    there, and the work that leaves nothing on the other is not run
+    (``actctx.one_slot``)."""
     import contextlib
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
+    import torch._dynamo.config as dynamo_config
     rules = ShardingRules(cfg, mesh)
     first = mesh.devices.flat[0]
+    live = next(d for d in mesh.devices.flat if d.type != "meta")
+    # fake cuda and meta tensors in one program trip the fake tensors'
+    # dispatch cache in torch 2.11 (an in-kernel assertion at the first
+    # backward op): run such a reckoning without the cache
+    mixed = live.type == "cuda" and any(d.type == "meta"
+                                        for d in mesh.devices.flat)
     with (FakeTensorMode(allow_non_fake_inputs=True) if fake
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()), \
+            dynamo_config.patch(fake_tensor_cache_enabled=not mixed):
         model = build_model(cfg)
         if first != model.device:
             # parameter by parameter: Module.to cannot swap fake tensors
@@ -407,7 +492,8 @@ def measure_peak(cfg, shape: ShapeSpec, mesh: Mesh, *, accum: int = 1,
         tracker.track_external(model)
         # one thread runs the backward of every device: the fake mode's
         # state is not safe across the autograd engine's device threads
-        with tracker, torch.autograd.set_multithreading_enabled(False):
+        with tracker, torch.autograd.set_multithreading_enabled(False), \
+                (actctx.one_slot() if one_slot else contextlib.nullcontext()):
             if shape.kind == "train":
                 _run_train(cfg, model, shape, mesh, accum, moment_dtype,
                            accum_dtype)
@@ -415,7 +501,31 @@ def measure_peak(cfg, shape: ShapeSpec, mesh: Mesh, *, accum: int = 1,
                 _run_serve(cfg, model, shape, mesh, rules)
         peak = tracker.get_tracker_snapshot("peak")
     return {str(d): int(v["Total"]) for d, v in peak.items()
-            if d.type == first.type}
+            if d.type == live.type}
+
+
+def slot_mesh(mesh: Mesh, s: int, device) -> Mesh:
+    """``mesh``'s layout with slot ``s`` on ``device`` and every other
+    slot on ``meta``: one slot's reckoning."""
+    grid = np.full(mesh.devices.shape, torch.device("meta"), dtype=object)
+    grid.flat[s] = torch.device(device)
+    return Mesh(grid, mesh.axis_names)
+
+
+def slot_peaks(cfg, shape: ShapeSpec, mesh: Mesh, device, *, slots=None,
+               **kw) -> Dict[str, int]:
+    """One slot's peak bytes a reckoned slot (``measure_peak(...,
+    one_slot=True)`` on ``slot_mesh``): slots 0 and n−1 by default —
+    slot 0 holds what the one thread that drives the mesh puts there
+    (the model before placement, the greedy tokens), slot n−1 is a slot
+    like any other.  Keys ``"slot <s>"``."""
+    n = mesh.size
+    out = {}
+    for s in (sorted({0, n - 1}) if slots is None else slots):
+        peaks = measure_peak(cfg, shape, slot_mesh(mesh, s, device),
+                             one_slot=True, **kw)
+        out[f"slot {s}"] = peaks[str(torch.device(device))]
+    return out
 
 
 # ------------------------------------------------------------------------ #
@@ -452,7 +562,9 @@ def lower_cell(arch: str, shape, mesh, *, device: str = "cuda",
         model = build_model(cfg)
         params = dict(model.named_parameters())
         ref_shapes = reference_shapes(cfg, params)
-        dims = _stacked_dims(cfg, rules, params)
+        cuts = fsdp.cut_dims(cfg, rules, params)
+        dims = _stacked_dims(cuts)
+        leaves = [(k, tuple(p.shape), *cuts[k]) for k, p in params.items()]
         cache_struct = (decode_args_struct(cfg, shape, model)[0]
                         if shape.kind == "decode" else None)
         del model, params
@@ -461,24 +573,28 @@ def lower_cell(arch: str, shape, mesh, *, device: str = "cuda",
                         cache_struct=cache_struct)
 
     tp = mesh.shape["model"]
-    queued = tp > 1 and ("pod" in mesh.axis_names or mesh.size > 4)
+    # a pod's 256 slots (512 over two pods) run one slot's program each
+    one_slot = mesh.size > 4
     over = state["total"] >= HBM_CAPACITY
     t0 = time.time()
     peaks, peak_reason = None, None
-    if queued:
-        peak_reason = TP_QUEUED
-    elif over:
+    kw = dict(accum=accum, moment_dtype=mdt, accum_dtype=adt)
+    if over:
         # the port holds at least the spec tables' state on each device
         peak_reason = (f"the state alone, {state['total'] / 1e9:.1f} GB a "
                        f"device, exceeds {HBM_CAPACITY / 1e9:.0f} GB")
+    elif peak and one_slot:
+        peaks = slot_peaks(cfg, shape, mesh, torch.device(device, 0)
+                           if device != "cpu" else "cpu", **kw)
     elif peak:
-        peaks = measure_peak(cfg, shape, mesh, accum=accum,
-                             moment_dtype=mdt, accum_dtype=adt)
+        peaks = measure_peak(cfg, shape, mesh, **kw)
     measure_s = time.time() - t0
     per_device = max(peaks.values()) if peaks else None
-    shared = len(set(mesh.devices.flat)) < n
+    shared = not one_slot and len(set(mesh.devices.flat)) < n
     peak_mode = None if peaks is None else (
-        f"fake {mesh.devices.flat[0].type} tensors, "
+        f"one slot's program on fake {device} tensors (slots "
+        f"{', '.join(k[5:] for k in peaks)} of {n}; the others meta)"
+        if one_slot else f"fake {mesh.devices.flat[0].type} tensors, "
         + (f"the {n} slots sharing one device: each peak is their sum"
            if shared else "one device a slot"))
     if peaks is not None and shared:
@@ -500,23 +616,24 @@ def lower_cell(arch: str, shape, mesh, *, device: str = "cuda",
                                      shape.kind, n,
                                      cache_bytes_total=cache_bytes)
     grad_item = _dtype_bytes(adt) if accum > 1 else _dtype_bytes(cfg.dtype)
-    coll = None
-    if not queued:
-        coll = fsdp_collectives(
-            ref_shapes, dims, rules.fsdp_size, shape.kind, accum=accum,
-            remat=True, grad_bytes=grad_item, tp=tp)
-        if tp > 1:
-            coll["tp"] = tp_collectives(cfg, shape, mesh, accum=accum,
-                                        remat=True)
-            coll["total_bytes"] += coll["tp"]["total_bytes"]
+    coll = fsdp_collectives(
+        ref_shapes, dims, rules.fsdp_size, shape.kind, accum=accum,
+        remat=True, grad_bytes=grad_item, tp=tp)
+    if shape.kind == "decode" and rules.fsdp_size > 1:
+        coll["data"] = stationary_collectives(cfg, shape, leaves,
+                                              rules.fsdp_size, tp)
+        coll["total_bytes"] += coll["data"]["total_bytes"]
+    if tp > 1:
+        coll["tp"] = tp_collectives(cfg, shape, mesh, accum=accum,
+                                    remat=True)
+        coll["total_bytes"] += coll["tp"]["total_bytes"]
     mf = model_flops(cfg, shape)
     compute_t = a_flops_total / n / PEAK_FLOPS
     memory_t = a_bytes_dev / HBM_BW
-    coll_t = None if coll is None else coll["total_bytes"] / LINK_BW
+    coll_t = coll["total_bytes"] / LINK_BW
     terms = {"compute": compute_t, "memory": memory_t,
              "collective": coll_t}
-    dominant = max(((k, v) for k, v in terms.items() if v is not None),
-                   key=lambda kv: kv[1])[0]
+    dominant = max(terms.items(), key=lambda kv: kv[1])[0]
     return {
         "arch": arch, "shape": shape.name, "kind": shape.kind,
         "batch": shape.batch, "seq": shape.seq,
@@ -552,14 +669,16 @@ def main(argv=None) -> None:
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
-        help="the fake devices of the 1x1 / 4x1 / 1x4 / 2x2 meshes.  cuda: "
-             "fake cuda:0..3 tensors, one device a slot, so each peak is one "
+        help="the fake devices.  cuda: fake cuda:0..3 tensors for 1x1 / "
+             "4x1 / 1x4 / 2x2, one device a slot, so each peak is one "
              "card's; needs a PyTorch built with CUDA and as many visible "
              "cards as the mesh has slots (four for 4x1, 1x4, 2x2), whose "
-             "memory it does not use.  cpu: the CPU path, runs anywhere; "
-             "the slots of a four-slot mesh share the one CPU device, so "
-             "its record holds their summed peak and no per-card peak or "
-             "fit")
+             "memory it does not use; pod and multipod reckon one slot's "
+             "program on a fake cuda:0 (one card), the other slots meta.  "
+             "cpu: the CPU path, runs anywhere; the slots of a four-slot "
+             "mesh share the one CPU device, so its record holds their "
+             "summed peak and no per-card peak or fit; a pod's reckoned "
+             "slot is the CPU, its peak one slot's")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)

@@ -103,16 +103,84 @@ def remat(fn, *args):
     return fn(*args)
 
 
-def contract(x: torch.Tensor, w: torch.Tensor, keep_f32: bool
+def contract(x: torch.Tensor, w: torch.Tensor, keep_f32: bool, k: int = 1
              ) -> torch.Tensor:
-    """Contract the last axis of ``x`` (..., d) with the first axis of
-    ``w`` (d, *rest) -> (..., *rest).  ``keep_f32``: the product stays
-    fp32 (``mm_f32``); else it is in ``x``'s dtype."""
+    """Contract the last axis of ``x`` (..., d) with the first ``k`` axes
+    of ``w`` (d = their product; (*lead, *rest)) -> (..., *rest).
+    ``keep_f32``: the product stays fp32 (``mm_f32``); else it is in
+    ``x``'s dtype.  A data shard of a weight in a weight-stationary
+    decode multiplies where it lies (``over_data``)."""
+    if not actctx.stationary():
+        return _contract(x, w, keep_f32, k)
+    return over_data(x, w, lambda x, w, keep: _contract(x, w, keep, k),
+                     keep_f32)
+
+
+def _contract(x, w, keep_f32: bool, k: int):
     lead, d = x.shape[:-1], x.shape[-1]
-    rest = w.shape[1:]
+    rest = w.shape[k:]
     x2, w2 = x.reshape(-1, d), w.reshape(d, -1)
     out = mm_f32(x2, w2) if keep_f32 else x2 @ w2.to(x.dtype)
     return out.reshape(*lead, *rest)
+
+
+def _data_column(w):
+    """(the axis ``w`` is cut along over ``data``, the data shards of
+    its column), where ``w`` is one slot's shard of a weight cut over
+    ``data`` in a weight-stationary decode (``actctx.stationary``); else
+    None.  The column is the running TP rank's where ``w`` lies in it
+    (a leaf the model axis does not cut is one tensor a device, shared
+    by the ranks there), else ``w``'s own."""
+    if not actctx.stationary():
+        return None
+    from ..distributed import fsdp
+    g = fsdp.group(w)
+    if g is None or g.dim is None:
+        return None
+    shards = g.shards
+    t = g.shape[1]
+    at = next(s for s, sh in enumerate(shards) if sh is w)
+    j = actctx.running_rank()
+    if shards[at - at % t + j] is not w:
+        j = at % t
+    return g.dim, g.column(j)
+
+
+def over_data(x: torch.Tensor, w: torch.Tensor, fn, keep_f32: bool,
+              w_axis: int = 0) -> torch.Tensor:
+    """``fn(x, w, keep_f32)`` — a product that contracts the last axis of
+    ``x`` with axis ``w_axis`` of ``w``, fp32 where ``keep_f32``, else in
+    ``x``'s dtype — where ``w`` may be one slot's shard of a weight cut
+    over ``data`` in a weight-stationary decode (the reference's decode
+    layout: the weights stay cut over both axes, the activations are
+    replicated over ``data``).  Each data shard of the column computes on
+    its own device.  Where the shards cut the contracted axis, shard i
+    multiplies its chunk of ``x``'s last axis into an fp32 partial and
+    the partials are summed once on ``x``'s device (``tp.fold_to``, data
+    row 0 first), then cast unless ``keep_f32``: one rounding, as one
+    device's product.  Where they cut the output's last axis, each shard
+    gives its slice of it, joined on ``x``'s device (``tp.gather_to``).  Anything else:
+    ``fn(x, w, keep_f32)``."""
+    col = _data_column(w)
+    if col is None:
+        return fn(x, w, keep_f32)
+    from ..distributed import tp
+    dim, shards = col
+
+    def each(one):          # one(i, shard) on every data shard
+        return tp.fan_out(range(len(shards)), lambda i: one(i, shards[i]),
+                          lambda i: actctx.live(shards[i].device))
+    if dim == w_axis:
+        n = x.shape[-1] // len(shards)
+        total = tp.fold_to(each(lambda i, sh: fn(
+            x.narrow(-1, i * n, n).to(sh.device), sh, True)), x.device)
+        return total if keep_f32 else total.to(x.dtype)
+    if dim != w.dim() - 1:
+        raise ValueError(f"a weight cut over data along axis {dim} of "
+                         f"{w.dim()}, which the product neither contracts "
+                         "nor keeps last")
+    return tp.gather_to(each(lambda i, sh: fn(x.to(sh.device), sh,
+                                              keep_f32)), -1, [x.device])[0]
 
 
 # --------------------------------------------------------------------- #
@@ -281,9 +349,10 @@ def attention(params: Mapping, x: torch.Tensor, *,
     grouping (head h ↦ h // (num_heads / G)), slicing the whole
     ``wk``/``wv`` (or ``kv_override``) for the compute only, and the
     output is the rank's row-parallel partial of the sum over heads, in
-    fp32 (``mlp``'s ``partial``).  With a cache (the rank's whole copy of a sequence the mesh does not
-    cut) the rank writes every kv head and attends with its own; a cache
-    whose sequence the mesh cuts is ``attention_tp_decode``'s.
+    fp32 (``mlp``'s ``partial``).  With a cache (in prefill, the rank's
+    whole copy of a sequence the mesh does not cut) the rank writes every
+    kv head and attends with its own; decode over a mesh is
+    ``attention_mesh_decode``'s.
     """
     b, s, d = x.shape
     wide = s > 1        # decode accumulates in the activation dtype
@@ -353,8 +422,8 @@ def attention(params: Mapping, x: torch.Tensor, *,
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = torch.einsum("bgrst,btgk->bsgrk", probs, v.to(x.dtype))
         ctx = ctx.reshape(b, 1, num_heads, hd).to(x.dtype)
-        out = contract(ctx.reshape(b, 1, num_heads * hd),
-                       params["wo"].reshape(num_heads * hd, d), part)
+        out = contract(ctx.reshape(b, 1, num_heads * hd), params["wo"],
+                       part, k=2)
         return out if part else out.to(x.dtype), new_cache
 
     if kv_idx is None:
@@ -377,8 +446,8 @@ def attention(params: Mapping, x: torch.Tensor, *,
                   x.dtype)
             for i in range(0, s, Q_CHUNK)], dim=1)
     ctx = ctx.to(x.dtype)
-    out = contract(ctx.reshape(b, s, num_heads * hd),
-                   params["wo"].reshape(num_heads * hd, d), part)
+    out = contract(ctx.reshape(b, s, num_heads * hd), params["wo"], part,
+                   k=2)
     return out if part else out.to(x.dtype), new_cache
 
 
@@ -457,82 +526,117 @@ def _attend_spread(qs, ks, vs, offsets, positions, window: int,
     rank 0 first, and cast once.  Returns (B, 1, G', R', hd)."""
     from ..distributed import tp
     hd = qs[0].shape[-1]
-    scores = []
-    for q, k, off in zip(qs, ks, offsets):
-        dev = k.device
-        sc = torch.einsum("bsgrk,btgk->bgrst", q.to(f32),
-                          k.to(dtype).to(f32)) / math.sqrt(hd)
-        t_pos = off + torch.arange(k.shape[1], device=dev)
+
+    def score(p):
+        dev = ks[p].device
+        sc = torch.einsum("bsgrk,btgk->bgrst", qs[p].to(f32),
+                          ks[p].to(dtype).to(f32)) / math.sqrt(hd)
+        t_pos = offsets[p] + torch.arange(ks[p].shape[1], device=dev)
         pos0 = positions[:, 0].to(dev)
         mask = _window_mask(pos0, t_pos, window)               # (B,T)
         if causal:
             mask = mask & (t_pos[None, :] <= pos0[:, None])
-        scores.append(sc.masked_fill(~mask[:, None, None, None, :],
-                                     MASK_VALUE))
-    tops = tp.max_over_ranks([sc.amax(-1, keepdim=True) for sc in scores])
-    exps = [torch.exp(sc - m) for sc, m in zip(scores, tops)]
-    sums = tp.sum_over_ranks([e.sum(-1, keepdim=True) for e in exps])
-    parts = [torch.einsum("bgrst,btgk->bsgrk", (e / z).to(dtype).to(f32),
-                          v.to(dtype).to(f32))
-             for e, z, v in zip(exps, sums, vs)]
+        return sc.masked_fill(~mask[:, None, None, None, :], MASK_VALUE)
+
+    def each(fn):           # fn(p) on every rank (``tp.fan_out``)
+        return tp.fan_out(range(len(ks)), fn,
+                          lambda p: actctx.live(ks[p].device))
+    scores = each(score)
+    tops = tp.max_over_ranks(each(lambda p: scores[p].amax(-1,
+                                                          keepdim=True)))
+    exps = each(lambda p: torch.exp(scores[p] - tops[p]))
+    sums = tp.sum_over_ranks(each(lambda p: exps[p].sum(-1, keepdim=True)))
+    parts = each(lambda p: torch.einsum(
+        "bgrst,btgk->bsgrk", (exps[p] / sums[p]).to(dtype).to(f32),
+        vs[p].to(dtype).to(f32)))
     return tp.fold_to(parts, device).to(dtype)
 
 
-def attention_tp_decode(params: Sequence[Mapping], xs: Sequence[torch.Tensor],
-                        kv: SeqKV, *, positions: torch.Tensor, window: int,
-                        num_heads: int, num_kv_heads: int, rope: bool,
-                        rope_theta: float, norm_eps: float,
-                        causal: bool = True, cache_pos: Optional[int] = None
-                        ) -> List[torch.Tensor]:
-    """Decode (S == 1) attention of a data row's TP ranks over a cache
-    whose sequence the mesh cuts over its sequence ranks (``kv.spread``):
-    rank j holds ``params[j]`` (its heads of ``wq`` / ``wo``; ``wk`` /
-    ``wv`` whole) and ``xs[j]``, its copy of the normed input (B, 1, d).
-    ``cache_pos``: the token's position, where its K/V (every kv head,
-    from rank 0's copy) go into the piece that holds it (None: a
-    cross-attention's cache, read only).  The ranks' query heads are gathered onto each
-    sequence rank, each scores every head over its positions, the
-    softmax's max and sum are reduced over them (``_attend_spread``) and
-    the context lands on rank 0's device; each TP rank takes its heads of
-    it into its rows of ``wo``.  Returns the ranks' outputs (B, 1, d):
-    fp32 row-parallel partials where the heads are cut (to be summed,
+class MeshKV(NamedTuple):
+    """One layer's K/V cache as a weight-stationary decode sees it over
+    the whole mesh (``fsdp.MeshCache.kv``): one group a distinct slice of
+    the batch — its ``rows``, the pieces it attends over (``reads``, a
+    ``SeqKV`` in sequence order: the data row's TP ranks, every slot of a
+    sequence spread over ``(data, model)``, or the one whole copy of the
+    row's rank 0), and every copy its K/V are written into (``writes``:
+    each data row that holds those rows)."""
+    rows: List[slice]
+    reads: List[SeqKV]
+    writes: List[List[SeqKV]]
+
+
+def attention_mesh_decode(params: Sequence[Mapping],
+                          xs: Sequence[torch.Tensor], kv: MeshKV, *,
+                          positions: torch.Tensor, window: int,
+                          num_heads: int, num_kv_heads: int, rope: bool,
+                          rope_theta: float, norm_eps: float,
+                          causal: bool = True,
+                          cache_pos: Optional[int] = None
+                          ) -> List[torch.Tensor]:
+    """Decode (S == 1) attention of the TP ranks of a weight-stationary
+    decode over the mesh's cache: rank j holds ``params[j]`` (its heads
+    of ``wq`` / ``wo``; ``wk`` / ``wv`` whole over ``model``; every leaf
+    one data row's cut, used where it lies: ``contract``) and ``xs[j]``,
+    its copy of the normed input of the whole batch (B, 1, d).  Each
+    rank's query heads are projected for every sequence (the partials of
+    the data shards summed in fp32); the token's K/V (every kv head, from
+    rank 0's copy) go into each group's copies at ``cache_pos`` (None: a
+    cross-attention's cache, read only).  Each group attends where its
+    cache lies: the ranks' query heads of its rows are gathered onto the
+    slots that hold its sequence, each scores every head over its
+    positions, and the softmax's max and sum are reduced over them
+    (``_attend_spread``); the groups' contexts are joined over ``data``
+    on rank 0's device and each TP rank takes its heads of them into its
+    rows of ``wo`` (each data shard its slice of the output's columns,
+    joined).  Returns the ranks' outputs (B, 1, d): fp32 row-parallel
+    partials where the heads are cut (to be summed,
     ``tp.reduce_from_ranks``), else rank 0's whole output alone, in the
-    input's dtype.  The reference accumulates decode's projections in
-    the activation dtype; here the partials are summed in fp32 and cast
-    once, so the output is one device's up to the order of the sum."""
+    input's dtype."""
     from ..distributed import actctx, tp
     b, _, d = xs[0].shape
     dtype = xs[0].dtype
     local = params[0]["wq"].shape[-2]
     ranks = range(len(params)) if local < num_heads else range(1)
-    qs = []
-    for j in ranks:
-        with actctx.on_rank(j):
-            q = contract(xs[j], params[j]["wq"], False).to(f32)
-            if "q_norm" in params[j]:
-                q = rms_norm(q, params[j]["q_norm"], norm_eps)
-            if rope:
-                q = apply_rope(q, positions.to(q.device), rope_theta)
-            qs.append(q.to(dtype))
+
+    def query(j):
+        q = contract(xs[j], params[j]["wq"], False).to(f32)
+        if "q_norm" in params[j]:
+            q = rms_norm(q, params[j]["q_norm"], norm_eps)
+        if rope:
+            q = apply_rope(q, positions.to(q.device), rope_theta)
+        return q.to(dtype)
+    qs = tp.run_ranks(ranks, query)
     if cache_pos is not None:
-        write_kv(kv, *cache_kv(params[0], xs[0], positions=positions,
-                               rope=rope, rope_theta=rope_theta,
-                               norm_eps=norm_eps, dtype=kv.k[0].dtype),
-                 int(cache_pos))
+        k, v = cache_kv(params[0], xs[0], positions=positions, rope=rope,
+                        rope_theta=rope_theta, norm_eps=norm_eps,
+                        dtype=kv.reads[0].k[0].dtype)
     g, hd = num_kv_heads, qs[0].shape[-1]
-    q_all = tp.gather_to(qs, 2, [k.device for k in kv.k])
-    ctx = _attend_spread(
-        [q.reshape(b, 1, g, num_heads // g, hd) for q in q_all], kv.k, kv.v,
-        kv.offsets(), positions, window, causal, dtype, xs[0].device
-    ).reshape(b, 1, num_heads * hd)
+
+    def attend(i):          # group i's rows, where its cache lies
+        rows, read, writes = kv.rows[i], kv.reads[i], kv.writes[i]
+        n = qs[0][rows].shape[0]
+        if cache_pos is not None:
+            for copy in writes:
+                write_kv(copy, k[rows], v[rows], int(cache_pos))
+        q_all = tp.gather_to([q[rows] for q in qs], 2,
+                             [kk.device for kk in read.k])
+        return _attend_spread(
+            [q.reshape(n, 1, g, num_heads // g, hd) for q in q_all], read.k,
+            read.v, read.offsets(), positions[rows], window, causal, dtype,
+            xs[0].device).reshape(n, 1, num_heads * hd)
+
+    def live(i):            # the group touches a live slot
+        return any(actctx.live(t.device) for t in (
+            xs[0], *kv.reads[i].k, *(kk for c in kv.writes[i] for kk in c.k)))
+    ctxs = tp.fan_out(range(len(kv.rows)), attend, live)
+    ctx = torch.cat(ctxs, 0) if len(ctxs) > 1 else ctxs[0]
     partial = len(ranks) > 1
-    outs = []
-    for j in ranks:
-        w = params[j]["wo"].reshape(local * hd, d)
-        part = ctx[..., j * local * hd:(j + 1) * local * hd].to(w.device)
-        out = contract(part, w, partial)
-        outs.append(out if partial else out.to(dtype))
-    return outs
+
+    def output(j):
+        part = ctx[..., j * local * hd:(j + 1) * local * hd].to(xs[j].device)
+        out = contract(part, params[j]["wo"], partial, k=2)
+        return out if partial else out.to(dtype)
+    return tp.run_ranks(ranks, output)
 
 
 # --------------------------------------------------------------------- #
@@ -629,12 +733,10 @@ def vocab_parallel_ce_loss(hiddens, heads, labels: torch.Tensor,
     rem = s - n_chunks * chunk
 
     def one(y, m, *hs):
-        logits = []
-        for j, (h, w) in enumerate(zip(hs, heads)):
-            with actctx.on_rank(j):
-                lj = mm_f32(h.reshape(-1, d), w).reshape(
-                    h.shape[0], h.shape[1], -1)
-                logits.append(actctx.shard(lj, "btf", size=vocab))
+        logits = tp.run_ranks(range(len(hs)), lambda j: actctx.shard(
+            mm_f32(hs[j].reshape(-1, d), heads[j]).reshape(
+                hs[j].shape[0], hs[j].shape[1], -1), "btf", size=vocab),
+            inputs=lambda j: (hs[j], heads[j]))
         with torch.no_grad():
             top = torch.stack([lj.amax(-1).to(dev) for lj in logits]
                               ).amax(0)                        # (B, c)
@@ -669,4 +771,5 @@ __all__ = ["mm_f32", "remat", "chunked_ce_loss", "vocab_parallel_ce_loss",
            "contract", "rms_norm", "layer_norm", "swiglu", "gelu",
            "rope_frequencies", "apply_rope", "normal", "init_attention",
            "init_mlp", "init_embedding", "attention", "mlp", "Q_CHUNK",
-           "SeqKV", "cache_kv", "write_kv", "attention_tp_decode"]
+           "SeqKV", "cache_kv", "write_kv", "MeshKV", "attention_mesh_decode",
+           "over_data"]

@@ -28,7 +28,7 @@ from typing import List, Mapping, NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import normal, remat
+from .layers import normal, over_data, remat
 
 f32 = torch.float32
 
@@ -197,19 +197,23 @@ def _experts(params: Mapping, x: torch.Tensor, dispatch: torch.Tensor,
     # activation dtype, as the reference does
     wide = x.shape[1] > 1
     xin = torch.einsum("bsd,bsec->becd", x, dispatch).to(x.dtype)
-    if wide:
-        g = torch.einsum("becd,edf->becf", xin.to(f32),
-                         params["w_gate"].to(f32))
-        u = torch.einsum("becd,edf->becf", xin.to(f32),
-                         params["w_up"].to(f32))
-    else:
-        g = torch.einsum("becd,edf->becf", xin, params["w_gate"])
-        u = torch.einsum("becd,edf->becf", xin, params["w_up"])
+    g = over_data(xin, params["w_gate"], _expert_mm, wide, 1)
+    u = over_data(xin, params["w_up"], _expert_mm, wide, 1)
     h = (F.silu(g.to(f32)) * u.to(f32)).to(x.dtype)
-    eo = torch.einsum("becf,efd->becd", h, params["w_down"]).to(x.dtype)
+    eo = over_data(h, params["w_down"], _expert_mm, False, 1).to(x.dtype)
     if partial:
         return torch.einsum("becd,bsec->bsd", eo.to(f32), combine.to(f32))
     return torch.einsum("becd,bsec->bsd", eo, combine).to(x.dtype)
+
+
+def _expert_mm(x: torch.Tensor, w: torch.Tensor, keep_f32: bool
+               ) -> torch.Tensor:
+    """(B, E, C, k) × (E, k, n) -> (B, E, C, n): fp32 products where
+    ``keep_f32`` (both operands widened, exact in fp32), else in ``x``'s
+    dtype."""
+    if keep_f32:
+        return torch.einsum("becd,edf->becf", x.to(f32), w.to(f32))
+    return torch.einsum("becd,edf->becf", x, w)
 
 
 def _moe_core(params: Mapping, x: torch.Tensor, *, top_k: int,
@@ -245,8 +249,9 @@ def moe_ffn_tp(params: Sequence[Mapping], xs: Sequence[torch.Tensor], *,
         else:
             dsp = tp.copy_to_ranks(dispatch, devices)
             cmb = tp.copy_to_ranks(combine, devices)
-        return (*[_experts(p, w, dj, cj, partial) for p, w, dj, cj
-                  in zip(params, ws, dsp, cmb)], aux)
+        return (*tp.run_ranks(range(len(params)), lambda j: _experts(
+            params[j], ws[j], dsp[j], cmb[j], partial),
+            inputs=lambda j: (ws[j], dsp[j], cmb[j])), aux)
 
     outs, aux = _windows(window, xs, chunk)
     return outs, aux, partial

@@ -16,7 +16,7 @@ segment (z, x, B, C, dt) as in the reference.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -224,8 +224,23 @@ def mamba2_block(params: Mapping, x: torch.Tensor, cfg,
     return out, new_state
 
 
+class Holder(NamedTuple):
+    """The slots that hold one slice of a serving batch's SSM state (a
+    data row's, or every row's copy of a batch the axis does not cut):
+    its batch ``rows``; ``ranks``, the modules of the data row whose
+    state is computed (None: the caller's ``params``); ``copies``, each
+    copy of the state as its TP ranks hold it (one dict a rank: the SSM
+    state's heads and the conv histories' channels as ``cache_specs``
+    cuts them), the first computed and every one written."""
+    rows: slice
+    ranks: Optional[list]
+    copies: List[List[dict]]
+
+
 def mamba2_block_tp(params: Sequence[Mapping], xs: Sequence[torch.Tensor],
-                    cfg, states: Optional[Sequence[dict]] = None):
+                    cfg, states: Optional[Sequence[dict]] = None,
+                    holders: Optional[Sequence[Holder]] = None,
+                    select=None):
     """``mamba2_block`` over the TP ranks of a data row: rank j holds
     ``params[j]`` and ``xs[j]``, its copy of the input (B, L, d), and,
     when serving, ``states[j]``, its cut of the layer's state (the SSM
@@ -242,92 +257,146 @@ def mamba2_block_tp(params: Sequence[Mapping], xs: Sequence[torch.Tensor],
     seeds each rank's scan from its state and returns its final chunk
     state.  Returns (outputs — fp32 partials to sum, as ``layers.mlp``'s
     —, whether they are partials, each rank's new state or None); heads
-    the axis does not cut run whole on every rank."""
+    the axis does not cut run whole on every rank (each updates its own
+    state), and rank 0's output is the sublayer's.
+
+    ``holders`` (a weight-stationary decode over the mesh; ``states``
+    unused): the ranks project every sequence where their weights lie
+    (``layers.contract``); each holder's conv and state update run on
+    the slots that hold its rows, with its data row's parameters
+    (``select(module)``: the layer's of a rank's module), its new state
+    written into each of its copies; the rows' outputs are joined over
+    ``data`` on each rank's device before ``out_proj``.  Returns (the
+    outputs, whether partials, None)."""
     from ..distributed import actctx, tp
     heads, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
     p = cfg.ssm_head_dim
     k = cfg.ssm_conv
     local = params[0]["A_log"].shape[-1]
-    sts = [None] * len(xs) if states is None else list(states)
-    if local == heads:
-        if params[0]["b_proj"].shape[-1] < g * n:
-            raise ValueError(f"SSD heads ({heads}) that the model axis does "
-                             "not cut, with B/C projections that it does")
-        done = [mamba2_block(pj, x, cfg, state=st)
-                for pj, x, st in zip(params, xs, sts)]
-        return [o for o, _ in done], False, \
-            None if states is None else [st for _, st in done]
+    cut_bc = params[0]["b_proj"].shape[-1] < g * n
+    if local == heads and cut_bc:
+        raise ValueError(f"SSD heads ({heads}) that the model axis does "
+                         "not cut, with B/C projections that it does")
+    partial = local < heads
     rep = heads // g
     b, l, d = xs[0].shape
-    decode = states is not None and l == 1
+    decode = (states is not None or holders is not None) and l == 1
+    dtype = xs[0].dtype
 
     def proj(x, w):
         return contract(x, w, False).to(x.dtype)
 
-    parts = []
-    for j, (pj, x, st) in enumerate(zip(params, xs, sts)):
-        with actctx.on_rank(j):
-            q = {"z": proj(x, pj["z_proj"]), "dt_r": proj(x, pj["dt_proj"])}
+    raws = tp.run_ranks(range(len(xs)), lambda j: {
+        key: proj(xs[j], params[j][f"{key}_proj"])
+        for key in ("z", "dt", "x", "b", "c")}, inputs=lambda j: xs[j])
+    if holders is None:
+        holders = [Holder(slice(None), None, [
+            [None] * len(xs) if states is None else list(states)])]
+        write = False
+    else:
+        write = True
+    chunk = min(cfg.ssm_chunk, l)
+    pad = (-l) % chunk
+    news = []
+
+    def one(i):             # holder i's rows, where its state lies
+        holder = holders[i]
+        hp = params if holder.ranks is None else [select(m)
+                                                  for m in holder.ranks]
+        sts = holder.copies[0]
+        rows = raws[0]["x"][holder.rows].shape[0]
+        devs = [x.device if st is None else st["ssm"].device
+                for x, st in zip(xs, sts)]
+
+        def convs(j):
+            pj, raw, st, dev = hp[j], raws[j], sts[j], devs[j]
+            q = {key: raw[key][holder.rows].to(dev) for key in ("z", "dt")}
             for key in ("x", "b", "c"):
-                raw = proj(x, pj[f"{key}_proj"])
+                r = raw[key][holder.rows].to(dev)
                 w, bias = pj[f"conv_{key}_w"], pj[f"conv_{key}_b"]
                 if decode:
                     q[f"{key}c"], q[f"conv_{key}"] = _conv_step(
-                        raw, w, bias, st[f"conv_{key}"])
+                        r, w, bias, st[f"conv_{key}"])
                     continue
                 q[f"{key}c"] = _causal_conv(
-                    raw, w, bias, None if st is None else st[f"conv_{key}"])
+                    r, w, bias, None if st is None else st[f"conv_{key}"])
                 if st is not None:   # histories from the unpadded rows
                     q[f"conv_{key}"] = torch.cat(
-                        [st[f"conv_{key}"], raw], dim=1)[:, -(k - 1):]
-            parts.append(q)
-    if params[0]["b_proj"].shape[-1] < g * n:
-        for key in ("bc", "cc"):
-            for part, full in zip(parts, tp.all_gather(
-                    [q[key] for q in parts], -1)):
-                part[key] = full
-    chunk = min(cfg.ssm_chunk, l)
-    pad = (-l) % chunk
-    outs, news = [], []
-    for j, (pj, x, q, st) in enumerate(zip(params, xs, parts, sts)):
-        off = j * local
-        lo, hi = off // rep, (off + local - 1) // rep + 1
-        if local % (hi - lo) or (hi - lo > 1 and (off % rep or local % rep)):
-            raise ValueError(f"TP rank {j}'s SSD heads {off}..{off + local} "
-                             f"straddle the groups of {rep} heads")
-        xh = F.silu(q["xc"].to(f32)).to(x.dtype).reshape(b, l, local, p)
-        Bm = F.silu(q["bc"].to(f32)).to(x.dtype).reshape(b, l, g, n)[
-            :, :, lo:hi]
-        Cm = F.silu(q["cc"].to(f32)).to(x.dtype).reshape(b, l, g, n)[
-            :, :, lo:hi]
-        dt = F.softplus(q["dt_r"].to(f32) + pj["dt_bias"][None, None, :])
-        if decode:
-            r = local // (hi - lo)
-            a = torch.exp(-torch.exp(pj["A_log"])[None, :] * dt[:, 0])
-            Bh = torch.repeat_interleave(Bm[:, 0], r, dim=1)
-            Ch = torch.repeat_interleave(Cm[:, 0], r, dim=1)
-            xdt = xh[:, 0].to(f32) * dt[:, 0][..., None]
-            h_last = (st["ssm"] * a[:, :, None, None]
-                      + torch.einsum("bhp,bhn->bhpn", xdt, Bh.to(f32)))
-            y = (torch.einsum("bhpn,bhn->bhp", h_last, Ch.to(f32))
-                 + pj["D"][None, :, None] * xh[:, 0].to(f32))[:, None]
-        else:
-            if pad:  # inert padding: dt=0 => a=1, Δx=0
-                xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-                dt = F.pad(dt, (0, 0, 0, pad))
-                Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
-                Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
-            y, h_last = _ssd_chunked(xh, dt, pj["A_log"], Bm, Cm, pj["D"],
-                                     chunk,
-                                     h0=None if st is None else st["ssm"])
-            y = y[:, :l]
-        y = y.reshape(b, l, local * p).to(x.dtype)
-        y = y * F.silu(q["z"].to(f32)).to(x.dtype)
-        outs.append(contract(y, pj["out_proj"], True))   # fp32 partial
-        if st is not None:
-            news.append({"ssm": h_last, **{f"conv_{key}": q[f"conv_{key}"]
-                                           for key in ("x", "b", "c")}})
-    return outs, True, news if states is not None else None
+                        [st[f"conv_{key}"], r], dim=1)[:, -(k - 1):]
+            return q
+        parts = tp.run_ranks(range(len(xs)), convs,
+                             inputs=lambda j: raws[j])
+        if cut_bc:
+            for key in ("bc", "cc"):
+                for part, full in zip(parts, tp.all_gather(
+                        [q[key] for q in parts], -1)):
+                    part[key] = full
+
+        def scan(j):
+            pj, q, st = hp[j], parts[j], sts[j]
+            off = j * local if partial else 0
+            lo, hi = off // rep, (off + local - 1) // rep + 1
+            if local % (hi - lo) or (hi - lo > 1
+                                     and (off % rep or local % rep)):
+                raise ValueError(f"TP rank {j}'s SSD heads {off}..."
+                                 f"{off + local} straddle the groups of "
+                                 f"{rep} heads")
+            xh = F.silu(q["xc"].to(f32)).to(dtype).reshape(rows, l, local, p)
+            Bm = F.silu(q["bc"].to(f32)).to(dtype).reshape(rows, l, g, n)[
+                :, :, lo:hi]
+            Cm = F.silu(q["cc"].to(f32)).to(dtype).reshape(rows, l, g, n)[
+                :, :, lo:hi]
+            dt = F.softplus(q["dt"].to(f32) + pj["dt_bias"][None, None, :])
+            if decode:
+                r = local // (hi - lo)
+                a = torch.exp(-torch.exp(pj["A_log"])[None, :] * dt[:, 0])
+                Bh = torch.repeat_interleave(Bm[:, 0], r, dim=1)
+                Ch = torch.repeat_interleave(Cm[:, 0], r, dim=1)
+                xdt = xh[:, 0].to(f32) * dt[:, 0][..., None]
+                h_last = (st["ssm"] * a[:, :, None, None]
+                          + torch.einsum("bhp,bhn->bhpn", xdt, Bh.to(f32)))
+                y = (torch.einsum("bhpn,bhn->bhp", h_last, Ch.to(f32))
+                     + pj["D"][None, :, None] * xh[:, 0].to(f32))[:, None]
+            else:
+                if pad:  # inert padding: dt=0 => a=1, Δx=0
+                    xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+                    dt = F.pad(dt, (0, 0, 0, pad))
+                    Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+                    Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+                y, h_last = _ssd_chunked(xh, dt, pj["A_log"], Bm, Cm,
+                                         pj["D"], chunk,
+                                         h0=None if st is None else st["ssm"])
+                y = y[:, :l]
+            new = None if st is None else {
+                "ssm": h_last, **{f"conv_{key}": q[f"conv_{key}"]
+                                  for key in ("x", "b", "c")}}
+            return y.reshape(rows, l, local * p).to(dtype), new
+        done = tp.run_ranks(range(len(xs)), scan,
+                            inputs=lambda j: parts[j])
+        for j, (_, new) in enumerate(done):
+            if new is not None:
+                news.append(new)
+                if write:
+                    for copy in holder.copies:
+                        for key, v in new.items():
+                            copy[j][key].copy_(v)
+        return [y for y, _ in done]
+
+    def live(i):            # the holder's state touches a live slot
+        return holders[i].ranks is None or any(
+            actctx.live(st["ssm"].device) for c in holders[i].copies
+            for st in c)
+    ys = [[y.to(x.device) for y in per] for x, per in zip(xs, zip(
+        *tp.fan_out(range(len(holders)), one, live)))]
+
+    def output(j):
+        y = torch.cat(ys[j], 0) if len(ys[j]) > 1 else ys[j][0]
+        y = y * F.silu(raws[j]["z"].to(f32)).to(dtype)
+        out = contract(y, params[j]["out_proj"], partial)   # fp32 partial
+        return out if partial else out.to(dtype)
+    outs = tp.run_ranks(range(len(xs)), output,
+                        inputs=lambda j: (ys[j], raws[j]["z"]))
+    return outs, partial, None if write or states is None else news
 
 
 def init_mamba_state(cfg, batch: int, dtype: torch.dtype,
@@ -343,5 +412,5 @@ def init_mamba_state(cfg, batch: int, dtype: torch.dtype,
     }
 
 
-__all__ = ["init_mamba2", "mamba2_block", "mamba2_block_tp", "_ssd_chunked", "_causal_conv",
+__all__ = ["init_mamba2", "mamba2_block", "mamba2_block_tp", "Holder", "_ssd_chunked", "_causal_conv",
            "_conv_step", "init_mamba_state"]

@@ -56,9 +56,11 @@ def check_not_tp(module) -> None:
 
 def serves_rows(cache) -> bool:
     """Whether a forward runs over the running data row's ranks: inside
-    a tensor-parallel row, or with a mesh's cache (``fsdp.RowCache``).
-    Inside such a row a cache must be the row's view of a placed one."""
-    if isinstance(cache, fsdp.RowCache):
+    a tensor-parallel row, or with a mesh's cache (a row's
+    ``fsdp.RowCache`` in prefill, the mesh's ``fsdp.MeshCache`` in
+    decode).  Inside such a row a cache must be a view of a placed
+    one."""
+    if isinstance(cache, (fsdp.RowCache, fsdp.MeshCache)):
         return True
     if actctx.tp_ranks() is None:
         return False
@@ -77,14 +79,15 @@ def embed_tp(embeds, tokens: torch.Tensor, vocab: int) -> torch.Tensor:
     the sum is exact).  Returns the rows on rank 0's device."""
     if embeds[0].shape[0] == vocab:
         return embeds[0][tokens.to(embeds[0].device)]
-    parts, off = [], 0
-    for e in embeds:
-        tok = tokens.to(e.device).long() - off
+
+    def lookup(j):
+        e = embeds[j]
+        tok = tokens.to(e.device).long() - j * e.shape[0]
         inside = (tok >= 0) & (tok < e.shape[0])
         rows = e[tok.clamp(0, e.shape[0] - 1)]
-        parts.append(rows * inside[..., None].to(rows.dtype))
-        off += e.shape[0]
-    return tp.reduce_from_ranks(parts)
+        return rows * inside[..., None].to(rows.dtype)
+    return tp.reduce_from_ranks(tp.run_ranks(range(len(embeds)), lookup,
+                                             inputs=lambda j: embeds[j]))
 
 
 def sublayer_tp(xs, axis, norm, run):
@@ -94,10 +97,8 @@ def sublayer_tp(xs, axis, norm, run):
     outputs are row-parallel partials."""
     devices = actctx.tp_devices()
     hs = tp.enter(xs, axis, norm, devices)
-    outs = []
-    for j in tp.ranks_to_run(run.partial, axis, len(devices)):
-        with actctx.on_rank(j):
-            outs.append(run(j, hs[j]))
+    outs = tp.run_ranks(tp.ranks_to_run(run.partial, axis, len(devices)),
+                        lambda j: run(j, hs[j]), inputs=lambda j: hs[j])
     return add_tp(xs, axis, outs, run.partial)
 
 
@@ -138,23 +139,23 @@ def attention_tp(cfg, xs, axis, ps, norm, positions, *, window: int,
                  cache_pos=None, write: bool = True):
     """The attention sublayer over the running row's ranks:
     ``sublayer_tp(xs, axis, norm, attention_run(...))``, with a serving
-    cache — ``cache``, the layer's ``layers.SeqKV`` (``write`` False: a
-    cross-attention's, read only, in decode).  Where the mesh cuts its
-    sequence: prefill attends over the fresh K/V, as training does, and
+    cache — ``cache``, the layer's ``layers.SeqKV`` in prefill, or its
+    ``layers.MeshKV`` in a weight-stationary decode
+    (``layers.attention_mesh_decode``; ``write`` False: a
+    cross-attention's, read only).  Prefill, where the mesh cuts the
+    cache's sequence, attends over the fresh K/V, as training does, and
     writes the K/V of every kv head (from rank 0's input) into the pieces
-    that hold the prompt's positions; decode is
-    ``layers.attention_tp_decode``.
-    Where the sequence is whole, every rank writes and reads its own copy
-    in its ``layers.attention`` (every rank runs, so that each copy is
-    written), or, read only, takes it as its K/V."""
+    that hold the prompt's positions; where the sequence is whole, every
+    rank writes its own copy in its ``layers.attention`` (every rank
+    runs, so that each copy is written)."""
     devices = actctx.tp_devices()
     hs = tp.enter(xs, axis, norm, devices)
     t = len(devices)
     local = ps[0]["wq"].shape[-2]
     partial = local < cfg.num_heads
     caches = None
-    if cache is not None and cache.spread and hs[0].shape[1] == 1:
-        outs = L.attention_tp_decode(
+    if isinstance(cache, L.MeshKV):
+        outs = L.attention_mesh_decode(
             ps, hs, cache, positions=positions, window=window,
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             rope=rope, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
@@ -166,18 +167,13 @@ def attention_tp(cfg, xs, axis, ps, norm, positions, *, window: int,
             rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
             dtype=cache.k[0].dtype), int(cache_pos))
     elif cache is not None:
-        if write:
-            caches = [{"k": k, "v": v} for k, v in zip(cache.k, cache.v)]
-        else:
-            kv = list(zip(cache.k, cache.v))
+        caches = [{"k": k, "v": v} for k, v in zip(cache.k, cache.v)]
     run = attention_run(cfg, ps, positions, window=window, rope=rope,
                         causal=causal, kv=kv, caches=caches,
                         cache_pos=cache_pos)
-    outs = []
-    for j in (range(t) if caches is not None
-              else tp.ranks_to_run(partial, axis, t)):
-        with actctx.on_rank(j):
-            outs.append(run(j, hs[j]))
+    outs = tp.run_ranks(range(t) if caches is not None
+                        else tp.ranks_to_run(partial, axis, t),
+                        lambda j: run(j, hs[j]), inputs=lambda j: hs[j])
     return add_tp(xs, axis, outs, partial)
 
 
@@ -687,13 +683,22 @@ class LM(nn.Module):
             lambda h, j: L.rms_norm(h, ps[j]["ln2"], cfg.norm_eps))
         return (*xs, aux)
 
-    def _mixer_ssm_tp(self, xs, axis, ps, norm, states=None):
+    def _mixer_ssm_tp(self, xs, axis, ps, norm, cache=None, path=(),
+                      index=(), select=None):
         """The SSD mixer over the row's ranks: every rank's input first,
         then ``mamba2_block_tp`` (B/C are gathered between the ranks'
-        projections and their scans), then ``tp.leave``.  ``states``:
-        each rank's state of the layer (views into the row's cache),
-        updated in place."""
+        projections and their scans), then ``tp.leave``.  ``cache``: the
+        row's view (each rank's state of layer ``index`` under ``path``,
+        updated in place), or the mesh's in a weight-stationary decode
+        (the states updated where they lie, with the parameters
+        ``select(module)`` of the data row that holds them)."""
         hs = tp.enter(xs, axis, norm, actctx.tp_devices())
+        if isinstance(cache, fsdp.MeshCache):
+            outs, partial, _ = SSM.mamba2_block_tp(
+                ps, hs, self.cfg, holders=cache.states(path, index),
+                select=select)
+            return add_tp(xs, axis, outs, partial)
+        states = None if cache is None else cache.states(path, index)
         outs, partial, news = SSM.mamba2_block_tp(ps, hs, self.cfg, states)
         for st, new in zip(states or (), news or ()):
             for k, v in new.items():
@@ -704,11 +709,10 @@ class LM(nn.Module):
         cfg = self.cfg
         ps = [actctx.gather_params(m.layers[l], rank=j)
               for j, m in enumerate(actctx.row_ranks())]
-        states = None if cache is None else [
-            {k: v[l] for k, v in tree.items()} for tree in cache.ranks]
         out = self._mixer_ssm_tp(
             list(xs), axis, [p["mamba"] for p in ps],
-            lambda h, j: L.rms_norm(h, ps[j]["ln"], cfg.norm_eps), states)
+            lambda h, j: L.rms_norm(h, ps[j]["ln"], cfg.norm_eps), cache,
+            (), (l,), lambda m: m.layers[l]["mamba"])
         return tuple(out)
 
     def _hybrid_block_tp(self, bi, positions, remat, axis, *xs, cache=None,
@@ -740,11 +744,9 @@ class LM(nn.Module):
                         cache_pos=cache_pos))
                 ps = [actctx.gather_params(b["mamba"][mi], rank=r)
                       for r, b in enumerate(blocks)]
-                states = None if cache is None else [
-                    {k: v[bi, mi] for k, v in tree["mamba"].items()}
-                    for tree in cache.ranks]
-                return tuple(self._mixer_ssm_tp(list(xs), axis, ps,
-                                                norm("ln1"), states))
+                return tuple(self._mixer_ssm_tp(
+                    list(xs), axis, ps, norm("ln1"), cache, ("mamba",),
+                    (bi, mi), lambda m: m.layers[bi]["mamba"][mi]))
 
             def ffn(axis, *xs, gl_moe=gl_moe, di=di, ei=ei):
                 ps = [actctx.gather_params(

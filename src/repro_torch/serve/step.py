@@ -13,16 +13,25 @@ greedily (``argmax``, the first index among equal logits, as
 With ``mesh=`` (a ``(data, model)`` ``launch.mesh.Mesh``) the steps
 serve the module as the reference's dry run lowers them on a mesh: the
 first call places it once as the train step does (``fsdp.place``:
-weights cut over ``model`` by ``ShardingRules.param_specs``, over
-``data`` and gathered layer by layer inside each layer), the placement
-kept (``MeshStep.slots``, one module a slot) and shared by every
-builder of the module on that mesh; the cache is a
+weights cut over ``model`` by ``ShardingRules.param_specs`` and over
+``data``), the placement kept (``MeshStep.slots``, one module a slot)
+and shared by every builder of the module on that mesh; the cache is a
 ``fsdp.PlacedCache`` cut as ``cache_specs`` cuts it (the K/V's sequence
 over ``model``, or over ``(data, model)`` for a batch the data axis does
 not divide; SSM heads and conv channels over ``model``; the batch over
-``data``).  Each data row that serves a batch shard (``fsdp.
-batch_slots``) runs over its ranks, and its greedy token is the argmax
-over the vocabulary cut over them (``tp.argmax_over_ranks``).  ``MeshStep.last_logits()``
+``data``).  Prefill, as the reference lowers it with its
+``gather_rules``, runs each data row that serves a batch shard
+(``fsdp.batch_slots``) over its ranks, each layer's weights gathered
+over ``data`` inside the layer.  Decode runs in the reference's
+weight-stationary layout (its ``actctx.configure(mesh, None)``): no
+weight moves; one forward takes every sequence over the TP ranks of
+data row 0, the activations replicated over ``data``; each product with
+a weight cut over ``data`` runs on every data shard where it lies (fp32
+partials summed once, or column slices joined: ``layers.over_data``),
+and each layer's cache is read and written where it lies
+(``fsdp.MeshCache``), the contexts and states of the data rows joined
+over ``data``.  The greedy token is the argmax over the vocabulary cut
+over the ranks (``tp.argmax_over_ranks``).  ``MeshStep.last_logits()``
 joins the last call's logits (B, vocab) on slot 0's device, for a check
 against the one-device call.
 
@@ -197,9 +206,10 @@ class MeshStep:
     call's cache and runs ``rows`` — ``call(module, rows, row cache)``
     on each data row that serves a batch shard (``fsdp.batch_slots``),
     over its ranks, the weights gathered over ``data`` layer by layer —
-    whose logits are the rows' ranks' columns.  ``slots``: one module a
-    slot; ``last_logits()`` joins the last call's logits (B, vocab) on
-    slot 0's device."""
+    or ``stationary`` — ``call(module, mesh cache)`` once, the weights
+    used where they lie —, whose logits are the ranks' columns.
+    ``slots``: one module a slot; ``last_logits()`` joins the last
+    call's logits (B, vocab) on slot 0's device."""
 
     def __init__(self, model, mesh, body):
         self.model, self.mesh, self.body = model, mesh, body
@@ -219,6 +229,12 @@ class MeshStep:
         runners, split = fsdp.batch_slots(rules, batch)
         logits = []
         for i, s in enumerate(runners):
+            if split > 1 and not any(actctx.live(d)
+                                     for d in slots[s:s + t]):
+                # one slot's reckoning: a row of a cut batch that holds
+                # nothing of the reckoned slot leaves nothing on it
+                logits.append(None)
+                continue
             rows = (slice(i * batch // split, (i + 1) * batch // split)
                     if split > 1 else slice(None))
             with actctx.use(self.mesh, rules.dp, gather_rules=rules), \
@@ -226,9 +242,29 @@ class MeshStep:
                                        ranks=self.slots[s:s + t],
                                        devices=slots[s:s + t]):
                 logits.append(call(self.slots[s], rows, cache.row(s)))
+        ref = next(row for row in logits if row is not None)
+        logits = [tp.placeholder(ref) if row is None else row
+                  for row in logits]
         self._logits = logits if split > 1 else logits[:1]
         return torch.cat([tp.argmax_over_ranks(row).to(slots[0])
                           for row in self._logits]).to(torch.int32)
+
+    def stationary(self, cache, call) -> torch.Tensor:
+        """The next tokens (B,), on slot 0's device, of a decode in the
+        weight-stationary layout: ``call(module, fsdp.MeshCache)`` once,
+        over the TP ranks of data row 0, the pins replicating the batch
+        over ``data`` and no weight gathered."""
+        from ..distributed import actctx, fsdp, tp
+        _, self.slots = placement(self.model, self.mesh)
+        slots = list(self.mesh.devices.flat)
+        t = self.mesh.shape.get("model", 1)
+        # one data row (no weight cut over data): nothing to fan out
+        with actctx.use(self.mesh, None, stationary=len(slots) > t), \
+                actctx.local_shard(1, slots[0], ranks=self.slots[:t],
+                                   devices=slots[:t]):
+            logits = call(self.slots[0], cache.over_mesh(self.slots))
+        self._logits = [logits]
+        return tp.argmax_over_ranks(logits).to(slots[0]).to(torch.int32)
 
     def last_logits(self) -> torch.Tensor:
         dev = self.mesh.devices.flat[0]
@@ -299,9 +335,8 @@ def make_decode(model, mesh=None) -> Callable:
         return decode
 
     def body(step, cache, token, pos):
-        return step.rows(token.shape[0], cache, lambda m, rows, c:
-                         m.decode_step(c, _part(token, rows, m.device),
-                                       pos)[0])[:, None], cache
+        return step.stationary(cache, lambda m, c: m.decode_step(
+            c, token.to(m.device), pos)[0])[:, None], cache
     return MeshStep(model, mesh, body)
 
 

@@ -44,8 +44,12 @@ parallelism over the model axis; ``distributed.fsdp``):
     AdamW on the tensors it is the first to hold.
 
 So the step's numbers are the single-device step's up to the order of
-sums.  Peak activation memory is the single-device step's too, not
-1/n of it: every row's forward is alive until the routing fractions are
+sums.  In one slot's reckoning (``actctx.one_slot``, the dry run) a
+data row none of whose slots is reckoned runs no forward or backward:
+the reckoned slot receives, in its place, the gradient slices the
+row's gathers would send it; and the slots off it update nothing.
+Peak activation memory is the single-device step's too, not 1/n of
+it: every row's forward is alive until the routing fractions are
 reduced.
 """
 
@@ -56,7 +60,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from . import optimizer as opt
-from ..distributed import actctx, fsdp
+from ..distributed import actctx, fsdp, tp
 from ..distributed.collectives import all_reduce_mean
 from ..distributed.sharding import ShardingRules
 from ..models import moe as MOE
@@ -184,17 +188,19 @@ def _classes(params, names, mesh):
     on a row for a cut over data, all of them for a replicated leaf.
     Every tensor of a group ends up with the group's summed gradient."""
     t = mesh.shape.get("model", 1)
+    slots = list(mesh.devices.flat)
     owners, classes = {}, {}
     for k in names:
         seen, per = {}, {}
         g = fsdp.group(params[0][k])
-        for s, ps in enumerate(params):
-            obj = ps[k]
-            if id(obj) in seen:
-                continue
-            seen[id(obj)] = s
+        for s in range(len(params)):
             key = (None if g is None or g.dim is None else s // t,
                    None if g is None or g.tp_dim is None else s % t)
+            # a distinct tensor: a distinct part on a distinct device (what
+            # ``fsdp.place`` shares; one slot's reckoning shares more)
+            if key + (slots[s],) in seen:
+                continue
+            seen[key + (slots[s],)] = s
             per.setdefault(key, []).append(s)
         owners[k] = sorted(seen.values())
         classes[k] = list(per.values())
@@ -268,6 +274,9 @@ def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
         b = next(iter(mb.values())).shape[0]
         outs = []
         for i, s in enumerate(runners):
+            if not row_live(s, split):
+                outs.append(None)
+                continue
             lo, hi = (i * b // split, (i + 1) * b // split) if split > 1 \
                 else (0, b)
             part = {k: torch.as_tensor(v[lo:hi]).to(slots[s])
@@ -276,21 +285,60 @@ def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
             with use, local, MOE.collect_aux_stats() as stats:
                 loss = modules[s].loss(part, remat=remat)
             outs.append((loss, stats))
+        ref = next(o for o in outs if o is not None)
+        if any(o is None for o in outs):
+            used[:] = _gathered(ref[0])
+        outs = [(tp.placeholder(ref[0]), [st._replace(
+            me=tp.placeholder(st.me), ce=tp.placeholder(st.ce))
+            for st in ref[1]]) if o is None else o for o in outs]
         losses, aux = _global_aux(outs, split, model.cfg.num_experts)
         for i, s in enumerate(runners):
             use, local = in_row(s, split)
             with use, local, torch.autograd.set_multithreading_enabled(
                     not spread):  # the recomputed regions gather again
-                torch.autograd.backward(losses[i])
+                if row_live(s, split):
+                    torch.autograd.backward(losses[i])
+                else:
+                    arrivals(s)
         losses = [l.detach().to(slots[0]) for l in losses[:split]]
         return sum(losses) / split, aux.to(slots[0])
 
+    def row_live(s, split) -> bool:
+        """Whether the data row whose rank 0 is slot ``s`` runs: always,
+        but in one slot's reckoning, where a row of a cut batch none of
+        whose slots is reckoned leaves nothing on the reckoned slot but
+        the slices its gathers' backward sends it (``arrivals``)."""
+        return split == 1 or any(actctx.live(d) for d in slots[s:s + t])
+
+    used = []       # the reckoned slot's shards a row's backward reaches
+
+    def arrivals(s):
+        """One slot's reckoning, in place of the backward of a data row
+        (rank 0 at slot ``s``) that it does not run: what the backward of
+        the row's gathers that reach the reckoned slot's shards — those
+        the reckoned slot's own row reaches (``_gathered``), a row's rank
+        using the same leaves in every row — leaves there: each its slice
+        of the row's gradient (the reduce-scatter), a fresh tensor that
+        becomes the shard's gradient or is added into it, as autograd
+        accumulates it."""
+        with torch.no_grad():
+            for p in used:
+                fresh = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+                if p.grad is None:
+                    p.grad = fresh
+                else:
+                    p.grad.add_(fresh)
+                del fresh
+
     def grad_of(s, k):
         p = params[s][k]
+        if not actctx.live(slots[s]):
+            return None     # one slot's reckoning: made where needed
         g = p.grad
         p.grad = None
         # a replica no rank's part reached (a router on a TP rank > 0)
         return torch.zeros_like(p) if g is None else g
+
 
     def train_step(opt_state: Dict, batch: Dict) -> Dict:
         if held["opt_id"] != id(opt_state):
@@ -308,14 +356,20 @@ def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
             loss, aux = loss + l, aux + a
             if accum_steps > 1:
                 for s in range(n):
+                    if not actctx.live(slots[s]):
+                        continue
                     for k in owned[s]:
                         g = grad_of(s, k)
                         if k in acc[s]:
                             acc[s][k].add_(g)
                         else:
                             acc[s][k] = g.to(accum_dtype, copy=True)
-        grads = [{k: acc[s].pop(k) if accum_steps > 1 else grad_of(s, k)
-                  for k in owned[s]} for s in range(n)]
+        grads = [{k: acc[s].pop(k, None) if accum_steps > 1
+                  else grad_of(s, k) for k in owned[s]} for s in range(n)]
+
+        def grad(s, k):     # one slot's reckoning: a placeholder
+            g = grads[s][k]
+            return tp.placeholder(params[s][k]) if g is None else g
         # the mean over the data rows and microbatches: the tensors that
         # hold one part of a leaf (a data cut's model replicas, a
         # replicated leaf's devices, a replica each TP rank used) are
@@ -323,7 +377,9 @@ def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
         count = len(runners) * accum_steps
         for k in names:
             for cls in classes[k]:
-                parts = [grads[s][k] for s in cls]
+                if not any(actctx.live(slots[s]) for s in cls):
+                    continue
+                parts = [grad(s, k) for s in cls]
                 if len(parts) == 1:
                     if count > 1:
                         parts[0].div_(count)
@@ -338,14 +394,14 @@ def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
             g0 = fsdp.group(params[0][k])
             if g0 is not None:
                 first = {id(params[s][k]): s for s in owners[k]}
-                fsdp.link([grads[first[id(p)]][k] for p in g0.shards],
+                fsdp.link([grad(first[id(p)], k) for p in g0.shards],
                           g0.dim, tp_dim=g0.tp_dim, shape=g0.shape)
         if grad_transform is not None:
             # a slot that shares its device with an earlier one and
             # holds no shard owns nothing
             grads = [grad_transform(g) if g else g for g in grads]
         # the global norm: each part of each leaf once
-        sq = [torch.linalg.vector_norm(grads[cls[0]][k], dtype=f32
+        sq = [torch.linalg.vector_norm(grad(cls[0], k), dtype=f32
                                        ).square().to(slots[0])
               for k in names for cls in classes[k]]
         gnorm = torch.sqrt(torch.stack(sq).sum())
@@ -353,9 +409,13 @@ def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
         for s in range(n):
             g = grads[s]
             grads[s] = None
-            _, _, m = opt.update(opt_cfg, g, held["opt"][s],
-                                 {k: params[s][k] for k in owned[s]},
-                                 gnorm=gnorm.to(slots[s]))
+            if not actctx.live(slots[s]) and s:
+                continue        # one slot's reckoning: nothing lands here
+            live = actctx.live(slots[s])
+            _, _, m = opt.update(opt_cfg, g if live else {},
+                                 held["opt"][s],
+                                 {k: params[s][k] for k in owned[s]}
+                                 if live else {}, gnorm=gnorm.to(slots[s]))
             del g
             metrics = m if metrics is None else metrics
         metrics["loss"] = loss / accum_steps
@@ -364,6 +424,24 @@ def _data_parallel_step(model, opt_cfg, mesh, names, accum_steps, remat,
 
     train_step.slots = modules
     return train_step
+
+
+def _gathered(loss) -> list:
+    """The shards on a live device (``actctx.live``) whose gathers
+    (``fsdp.gather``) the autograd graph of ``loss`` reaches, once a
+    gather."""
+    out, seen, stack = [], set(), [loss.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        nexts = [f for f, _ in node.next_functions if f is not None]
+        if isinstance(node, fsdp._Gather._backward_cls):
+            out += [f.variable for f in nexts if hasattr(f, "variable")
+                    and actctx.live(f.variable.device)]
+        stack.extend(nexts)
+    return out
 
 
 def _global_aux(outs, split: int, num_experts: int):

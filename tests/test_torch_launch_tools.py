@@ -292,13 +292,18 @@ def test_state_bytes_match_reference_spec_tables(ref, fake_models, name):
 
 
 def test_lower_cell_records_without_a_fake_run():
-    """A whole record for a train cell and a pod cell: state bytes, the
-    FSDP collective term (none on one device; the reference's ring
-    factors on four) and the roofline terms on the H100 datasheet
-    rates."""
+    """A whole record for a train cell (no fake run) and a pod cell:
+    state bytes, the FSDP collective term (none on one device; the
+    reference's ring factors on four) and the roofline terms on the H100
+    datasheet rates; the pod's decode (a smoke config, one slot's
+    program on the CPU for slots 0 and 255) with a per-card peak, its
+    fit, and a collective term of the data axis's activations and the
+    model axis's, no weight gathered."""
     one = dryrun.lower_cell("qwen3-4b", "train_4k", "1x1", peak=False)
     four = dryrun.lower_cell("qwen3-4b", "train_4k", "4x1", peak=False)
-    pod = dryrun.lower_cell("qwen3-4b", "decode_32k", "pod")
+    pod = dryrun.lower_cell("qwen3-4b", shapes.ShapeSpec(
+        "decode", "decode", 256, 32), "pod", device="cpu",
+        cfg=smoke_config("qwen3-4b"))
     assert one["collectives"]["total_bytes"] == 0
     sharded = four["collectives"]["sharded_param_bytes"]
     ops = four["collectives"]["bytes_per_op"]
@@ -308,9 +313,17 @@ def test_lower_cell_records_without_a_fake_run():
     assert one["roofline_s"]["compute"] == (
         analysis.step_flops(get_config("qwen3-4b"), 256, 4096, "train")
         / dryrun.PEAK_FLOPS)
-    assert pod["peak_bytes"] is None and pod["collectives"] is None
-    assert pod["peak_reason"] == dryrun.TP_QUEUED
-    assert pod["fits_80gb"] is None
+    assert set(pod["peak_bytes"]) == {"slot 0", "slot 255"}
+    assert pod["per_device_peak_bytes"] == max(pod["peak_bytes"].values())
+    assert pod["per_device_peak_bytes"] > pod["state_bytes"]["total"]
+    assert pod["peak_reason"] is None and pod["fits_80gb"] is True
+    coll = pod["collectives"]
+    assert coll["bytes_per_op"]["all-gather"] == 0    # no weight gathered
+    assert coll["data"]["total_bytes"] > 0 and coll["tp"]["total_bytes"] > 0
+    assert coll["total_bytes"] == coll["data"]["total_bytes"] \
+        + coll["tp"]["total_bytes"]
+    assert pod["roofline_s"]["collective"] == (coll["total_bytes"]
+                                               / dryrun.LINK_BW)
     skipped = dryrun.lower_cell("qwen3-4b", "long_500k", "1x1")
     assert "skipped" in skipped
 
@@ -361,7 +374,6 @@ def test_serving_records_at_1x4_and_2x2():
         spec = shapes.ShapeSpec(kind, kind, 32, 8)
         rec = dryrun.lower_cell("qwen3-4b", spec, mesh, device="cpu",
                                 cfg=cfg)
-        assert rec["peak_reason"] != dryrun.TP_QUEUED
         assert rec["peak_bytes"]["cpu"] > rec["state_bytes"]["total"]
         tp = rec["collectives"]["tp"]
         assert tp["total_bytes"] > 0 and tp["sublayers"] == 2 * \
@@ -392,10 +404,14 @@ def test_batch_one_decode_cuts_its_cache_over_the_data_axis():
         (cfg.num_layers, 1, 16, cfg.num_kv_heads, cfg.head_dim)] * 4
 
 
-def test_cli_writes_one_file_a_cell(tmp_path, capsys):
+def test_cli_writes_one_file_a_cell(tmp_path, capsys, monkeypatch):
+    """One file a cell and a status line each; the pods' one-slot peaks
+    (``tests/test_torch_pod_dryrun.py``) stand in as given numbers."""
+    monkeypatch.setattr(dryrun, "slot_peaks", lambda cfg, shape, mesh, dev,
+                        **kw: {"slot 0": 3e9, f"slot {mesh.size - 1}": 2e9})
     dryrun.main(["--arch", "qwen3-4b", "--shape", "train_4k", "--mesh",
                  "pod,multipod", "--out", str(tmp_path)])
     files = sorted(os.listdir(tmp_path))
     assert files == ["qwen3-4b__train_4k__multipod.json",
                      "qwen3-4b__train_4k__pod.json"]
-    assert "peak=n/a" in capsys.readouterr().out
+    assert capsys.readouterr().out.count("peak=3.00GB fits_80gb=True") == 2

@@ -153,16 +153,20 @@ def port_run(name, params0, mesh, toks, frames, feed, max_len=MAX_LEN):
     prefill = (make_prefill_encdec if cfg.is_encoder_decoder
                else make_prefill)(model, max_len, mesh=mesh)
     decode = make_decode(model, mesh=mesh)
+    fsdp.COUNTS["gathers"] = 0
     cache, nxt = prefill(*args)
+    gathers = [fsdp.COUNTS["gathers"]]
     logits, tokens = [prefill.last_logits().numpy()], [nxt.numpy()]
     for i, tok in enumerate(feed):
+        fsdp.COUNTS["gathers"] = 0
         nxt, cache = decode(cache, torch.from_numpy(
             tok[:toks.shape[0], None]), S + i)
+        gathers.append(fsdp.COUNTS["gathers"])
         logits.append(decode.last_logits().numpy())
         tokens.append(nxt.numpy()[:, 0])
     return types.SimpleNamespace(
         logits=logits, tokens=tokens, cache=_host(fsdp.whole_cache(cache)),
-        model=model, slots=prefill.slots, placed=cache)
+        model=model, slots=prefill.slots, placed=cache, gathers=gathers)
 
 
 def _leaves(tree, path=()):
@@ -240,6 +244,7 @@ def assert_slots_hold_spec_shapes(ref, run, name, data, model, batch):
 
 CASES = [("dense", (2, 2), {}), ("moe", (2, 2), {}), ("ssm", (2, 2), {}),
          ("hybrid", (2, 2), {}), ("encdec", (2, 2), {}),
+         ("dense", (2, 1), {}), ("encdec", (2, 1), {}),
          ("dense", (1, 4), {}), ("moe", (1, 4), {}), ("hybrid", (1, 2), {}),
          ("dense", (2, 2), {"max_len": 15}), ("dense", (2, 2), {"batch": 3}),
          ("hybrid", (2, 2), {"batch": 3})]
@@ -256,7 +261,10 @@ def test_mesh_serving_matches_one_device_and_reference(ref, runs, family,
     """Prefill and 6 decode steps over a ``(data, model)`` mesh: the last
     logits at every step, the greedy tokens and the joined cache equal
     the port's one-device run and the reference's; every slot holds
-    exactly its spec's weights and cache piece.  ``(1, 4)`` gives each
+    exactly its spec's weights and cache piece; decode, in the
+    reference's weight-stationary layout, gathers no weight
+    (``fsdp.COUNTS``), prefill gathers each layer cut over data.
+    ``(2, 1)`` cuts every weight over data alone.  ``(1, 4)`` gives each
     rank one of the smoke model's 4 query heads against 2 kv heads (the
     GQA mapping), and its dense case decodes past danube's window of 8
     with 4 positions a rank, so rank 0's are all masked at the last
@@ -283,6 +291,8 @@ def test_mesh_serving_matches_one_device_and_reference(ref, runs, family,
                        RTOL * scale)
         near_tie_equal(run.tokens[i], want.argmax(-1), want,
                        TIE_TOL * float(np.abs(want).max()))
+    assert run.gathers[1:] == [0] * STEPS
+    assert (run.gathers[0] > 0) == (data > 1)
     filled = S + STEPS
     tree_close(run.cache, r.one.cache, RTOL, RTOL, batch, filled)
     tree_close(run.cache, r.ref_cache, REF_TOL, REF_TOL, batch, filled)
@@ -396,6 +406,29 @@ def test_place_and_whole_cache_round_trip(family):
                 z = _at(zeros.slots[s], path)
                 assert z.shape == _at(placed.slots[s], path).shape
                 assert not z.any()
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)])
+def test_mesh_decode_leaves_no_cycle(mesh):
+    """A model, its steps and its cache over a mesh are freed by their
+    reference counts once dropped, after a decode (whose mesh view of
+    the cache is kept on the cache): no cycle waits for the collector
+    with the model's weights."""
+    import gc
+    import weakref
+    gc.disable()
+    try:
+        model = LM(smoke_config("qwen3-4b"), device="cpu", seed=0)
+        grid = make_host_mesh(data=mesh[0], model=mesh[1], device="cpu")
+        prefill = make_prefill(model, 8, mesh=grid)
+        decode = make_decode(model, mesh=grid)
+        cache, nxt = prefill(torch.zeros((2, 4), dtype=torch.long))
+        decode(cache, nxt[:, None], 4)
+        alive = weakref.ref(model)
+        del model, prefill, decode, cache, nxt
+        assert alive() is None
+    finally:
+        gc.enable()
 
 
 def test_ssm_decode_with_cut_b_and_c():
