@@ -9,7 +9,9 @@ parent unpacked by ``git archive`` into an ignored directory:
     for t in build/parent . . build/parent; do python3 chip_ab.py $t; done
 
 Prints the phases' JSON lines and one ``AB <checkout> {kernel: ms}``
-line per run.
+line per run; ``topk_f32_bench_max`` is the checkout's ``distance_topk``
+at Q = 1024 × N = 65,536 × d = 768, kp = 16 (``bench_kernels.py``'s
+largest shape), timed in the same process.
 
 An optional second argument names LM phases to run first in the same
 process, as ``chip_smoke.main`` does, to see what they leave behind for
@@ -78,5 +80,13 @@ if __name__ == "__main__":
     del call
     torch.cuda.empty_cache()
     kernels += cs.phase_unfiltered(table)
-    print("AB", root, json.dumps({k["name"]: k["ms"] for k in kernels}),
-          flush=True)
+    del table
+    torch.cuda.empty_cache()
+    from repro_torch.kernels.distance_topk import distance_topk
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xb = torch.randn((1024, 768), generator=gen, device="cuda")
+    yb = torch.randn((65_536, 768), generator=gen, device="cuda")
+    ms = {k["name"]: k["ms"] for k in kernels}
+    ms["topk_f32_bench_max"] = cs.cuda_ms(lambda: distance_topk(xb, yb, 16),
+                                          reps=3)
+    print("AB", root, json.dumps(ms), flush=True)

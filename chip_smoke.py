@@ -11,7 +11,7 @@ Phases:
      csrc`` with nvcc and prints what ``-Xptxas -v`` reports;
   2. kernels vs plain at edge shapes (k = 128, ragged N, N < k, owners
      with no candidates, exact ties from duplicated rows, ip, bf16, d =
-     97 (the scalar-load instantiation), d = 100, 768 and 2,560 (the
+     97 and a misaligned base (4-byte copies), d = 100, 768 and 2,560 (the
      LM's width, kernels A and B under three owner layouts), Q = 1 and
      129, SQ8 at d = 4096, 8 and 130, Q = 1024 × N = 65,536 × d = 768
      for the unsegmented kernels, and kernels A and B (B at kqp = 8, 40
@@ -64,6 +64,9 @@ Phases:
      must move, and each is held against its plain version on the inputs
      the phase gave it and timed beside its plain version, the torch
      composition, the one PyTorch call where there is one, and its bound;
+     ``topk_f32`` also under the other tile and split choices
+     (``ms_by_policy``) and at Q = 1024 × N = 65,536 × d = 768
+     (``bench_max``), with its ptxas registers and spills;
   6. serving, on the main path's index (not rebuilt): (a) checkpoint it
      to a temporary directory (bytes, save time) and restore it as a
      ``RetrievalEngine`` (time to the first answered wave; the answers
@@ -336,14 +339,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_NAMES = ("topk_f32_pass", "pairwise_f32_pass", "qtopk_seg_pass",
-                "merge_flagged_partials", "tile_owner_ranges")
+KERNEL_NAMES = ("topk_seg_f32_pass", "topk_dense_pass", "pairwise_f32_pass",
+                "qtopk_seg_pass", "merge_flagged_partials",
+                "tile_owner_ranges")
 
 
 def ptxas_summary(log: str):
     """One ``"name<template args>: R regs, S/L spill bytes"`` string per
     kernel from the ``-Xptxas -v`` log (template flags and ints in
-    declaration order, e.g. ``topk_f32_pass<SEG,L2,BF16,VEC,BQ,BN,TM,TN>``),
+    declaration order, e.g. ``topk_seg_f32_pass<L2,BF16,VEC,BQ,BN,TM,TN>``),
     and the kernels that spill."""
     import re
     out, spills, name, spill = [], [], None, (0, 0)
@@ -629,18 +633,32 @@ def phase_edges_unsegmented(dev, rng) -> None:
     from repro_torch.kernels.distance_topk import dense_topk, distance_topk
     from repro_torch.kernels.quant import (quantize_sq8, quantized_topk,
                                            sq8_dense)
-    from repro_torch.kernels.tuning import F32_WIDE, select_f32_tiles
+    from repro_torch.kernels.tuning import DENSE_WIDE, select_dense_tile
 
-    def case(q, n, d, dup=False):
+    def case(q, n, d, dup=False, offset=0):
         x, y, _, _ = _seg_case(rng, q, n, d, 1, dup)
-        return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        if offset:  # a view `offset` words into its buffer: 4-byte copies
+            buf = torch.empty(n * d + offset, device=dev)
+            buf[offset:] = y.reshape(-1)
+            y = buf[offset:].view(n, d)
+        return x, y
 
     big = (1024, 65_536, 768)
-    k_wide = max(k for k in range(1, 129)            # the wide tile's
-                 if select_f32_tiles(128, k=k) == F32_WIDE)   # largest k
-    for name, shape, kp, metric, accum, dup in [
+
+    def k_max(resident):  # the wide tile's largest k at d = 128
+        return max(k for k in range(1, 129)
+                   if select_dense_tile(128, 128, k)
+                   == (*DENSE_WIDE, resident))
+
+    for name, shape, kp, metric, accum, dup, *offset in [
             ("k128", (100, 5000, 128), 128, "l2", "f32", False),
-            ("k_wide_max", (128, 5000, 128), k_wide, "l2", "f32", False),
+            ("k_wide_max", (128, 5000, 128), k_max(False), "l2", "f32",
+             False),
+            ("k_wide_resident_max", (128, 5000, 128), k_max(True), "l2",
+             "f32", False),
+            ("misaligned", (129, 3000, 128), 16, "l2", "f32", False, 1),
+            ("ip_ties_splits", (128, 40_000, 64), 16, "ip", "f32", True),
             ("ragged_n", (70, 1037, 64), 16, "l2", "f32", False),
             ("n_below_k", (33, 50, 32), 64, "l2", "f32", False),
             ("ties", (64, 900, 48), 40, "l2", "f32", True),
@@ -651,11 +669,11 @@ def phase_edges_unsegmented(dev, rng) -> None:
             ("q1", (1, 3000, 128), 16, "l2", "f32", False),
             ("q129", (129, 3000, 128), 16, "ip", "f32", False),
             ("bench_max", big, 16, "l2", "f32", False)]:
-        x, y = case(*shape, dup=dup)
+        x, y = case(*shape, dup=dup, offset=offset[0] if offset else 0)
         err, tol = check_close_topk(distance_topk, dense_topk, x, y, kp,
                                     metric=metric, accum=accum)
-        emit(phase="edges", kernel="topk_f32", case=name, max_abs_err=err,
-             tol=tol)
+        emit(phase="edges", kernel="topk_f32", case=name, kp=kp,
+             max_abs_err=err, tol=tol)
     for name, shape, kp, dup in [
             ("k128", (100, 5000, 128), 128, False),
             ("ragged_n", (70, 1037, 64), 40, False),
@@ -848,7 +866,7 @@ def measure_kernel_a(args, kwargs, launches, tiles):
     n = y.shape[0]
     bytes_ = q * d * 4 + live * d * 4 + (q + n) * 4 + q * kp * 8
     bound_ms, bound_by = _bound(bytes_, 2 * pairs * d, PEAK_F32)
-    bq, bn = select_f32_tiles(q, k=kp, segmented=True)
+    bq, bn = select_f32_tiles(q, segmented=True)
     computed_flop = 2 * one_call["computed"] * bq * bn * d
     return {"name": "topk_seg_f32", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_seg.cu",
@@ -1165,7 +1183,16 @@ def phase_unfiltered(table: torch.Tensor):
 
 
 def measure_topk_f32(args, kwargs, launches):
-    from repro_torch.kernels.distance_topk import dense_topk, distance_topk
+    """``topk_f32`` on the unfiltered phase's inputs (held against its
+    plain version and timed beside it, the composition and its bound),
+    its tile and split policy against the others it could take
+    (``ms_by_policy``), its time at ``bench_max`` beside that bound, and
+    what ``-Xptxas -v`` reported for its instantiations."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import distance_topk as dt
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.distance_topk import (dense_plan, dense_topk,
+                                                   distance_topk)
     x, y, kp = args
     err, tol = check_close_topk(distance_topk, dense_topk, *args, **kwargs)
     ms = cuda_ms(lambda: distance_topk(*args, **kwargs))
@@ -1180,8 +1207,36 @@ def measure_topk_f32(args, kwargs, launches):
     n = y.shape[0]
     bound_ms, bound_by = _bound((q + n) * d * 4 + q * kp * 8, 2 * q * n * d,
                                 PEAK_F32)
+    by_policy = {}          # the policy's choice against the others
+    choose, waves = dt.select_dense_tile, tuning.DENSE_WAVES
+    try:
+        for name, tile, w in [("wide_waves1", None, 1),
+                              ("wide_waves2", None, 2),
+                              ("wide_waves3", None, 3),
+                              ("narrow_waves1", tuning.DENSE_NARROW, 1)]:
+            tuning.DENSE_WAVES = w
+            if tile is not None:
+                dt.select_dense_tile = (
+                    lambda q_, d_, k_, t=tile: (*t, tuning.dense_smem_bytes(
+                        *t, k_, d_, True) <= tuning.SMEM_BUDGET))
+            by_policy[name] = cuda_ms(
+                lambda: distance_topk(*args, **kwargs))
+            dt.select_dense_tile = choose
+    finally:
+        tuning.DENSE_WAVES, dt.select_dense_tile = waves, choose
+    gen = torch.Generator(device=x.device).manual_seed(7)
+    bq_, bn_, dq_ = 1024, 65_536, 768           # bench_kernels.py's largest
+    xb = torch.randn((bq_, dq_), generator=gen, device=x.device)
+    yb = torch.randn((bn_, dq_), generator=gen, device=x.device)
+    bench_ms = cuda_ms(lambda: distance_topk(xb, yb, 16), reps=3)
+    bench_bound, bench_by = _bound((bq_ + bn_) * dq_ * 4 + bq_ * 16 * 8,
+                                   2 * bq_ * bn_ * dq_, PEAK_F32)
+    del xb, yb
+    ptxas = [ln for ln in ptxas_summary(_build.build_log())[0]
+             if ln.startswith("topk_dense_pass")]
+    bq, bn, resident, splits = dense_plan(q, n, d, kp)
     return {"name": "topk_f32", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/topk_seg.cu",
+            "source": "src/repro_torch/kernels/csrc/topk_dense.cu",
             "replaces": "src/repro/kernels/distance_topk.py:62",
             "launches": launches, "max_abs_err": err, "tol": tol,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1189,7 +1244,14 @@ def measure_topk_f32(args, kwargs, launches):
             "library_note": "no single PyTorch call ranks distances",
             "composition_ms": comp_ms,
             "tflops": 2 * q * n * d / ms / 1e9,
-            "shape": {"Q": q, "N": n, "d": d, "kp": kp, **kwargs}}
+            "ms_by_policy": by_policy,
+            "bench_max": {"Q": bq_, "N": bn_, "d": dq_, "kp": 16,
+                          "ms": bench_ms, "bound_ms": bench_bound,
+                          "bound_by": bench_by,
+                          "tflops": 2 * bq_ * bn_ * dq_ / bench_ms / 1e9},
+            "ptxas": ptxas,
+            "shape": {"Q": q, "N": n, "d": d, "kp": kp, "bq": bq, "bn": bn,
+                      "x_resident": resident, "splits": splits, **kwargs}}
 
 
 def measure_qtopk_sq8(args, launches, call_ms):

@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "topk_seg_f32": [_P] * 8 + [_I] * 10 + [_P] * 4,
     "qtopk_seg_sq8": [_P] * 13 + [_I] * 7 + [_P] * 4,
-    "topk_f32": [_P] * 3 + [_I] * 10 + [_P] * 4,
+    "topk_f32": [_P] * 5 + [_I] * 11 + [_P] * 4,
     "qtopk_sq8": [_P] * 8 + [_I] * 7 + [_P] * 4,
     "pairwise_f32": [_P] * 2 + [_I] * 8 + [_P] * 2,
 }

@@ -1,5 +1,4 @@
-// Kernel A: segmented exact fp32 top-k (`topk_seg_f32`), and its
-// unsegmented instantiation (`topk_f32`).
+// Kernel A: segmented exact fp32 top-k (`topk_seg_f32`).
 //
 // `topk_seg_f32` replaces the TPU kernel `_topk_seg_kernel` (src/repro/
 // kernels/distance_topk.py:97, launched by `_seg_pallas_call`).  Query row r
@@ -9,19 +8,12 @@
 // accumulation (accum "bf16").  Output: (Q, kp) ascending distances and flat
 // column indices, (+inf, -1) where fewer than kp columns match.
 //
-// `topk_f32` replaces `_topk_kernel` (distance_topk.py:62, launched by
-// `distance_topk`, reached from `ops.topk`): the same pass with SEG = false,
-// which reads no owners and folds every column below N.  Columns >= N never
-// enter the fold, so the caller pads nothing.
-//
 // What bounds it: at the segmented main-path shape (Qp = 128, N = 2,097,152,
 // d = 128) all pairs would be 2·Qp·N·d = 69 GFLOP of fp32 FMA, but only 3.5 %
 // of the pairs have matching owners (PERF.md §4), so the work the data needs
 // (query rows, live candidate rows, products of matched pairs) is bound by
-// bytes at 0.186 ms.  Unsegmented, every pair is live: at Q = 128, N =
-// 1,048,576, d = 128 the 34.4 GFLOP take 0.51 ms at the 67 TFLOP/s fp32 peak
-// against 0.16 ms for the 0.54 GB of rows, so `topk_f32` is bound by
-// operations.
+// bytes at 0.186 ms.  (The unsegmented top-k, where every pair is live and
+// operations bound it, is `topk_f32` in topk_dense.cu.)
 //
 // Design.  A split-N pass, then a merge: Hopper runs blocks in no order, so
 // the running top-k the TPU kernel carries across its sequential N axis
@@ -39,7 +31,7 @@
 // Once a row's list is full, few columns of a tile make the cut, so most rows
 // cost one fold or nothing.
 //
-// The owner skip (SEG), the fold (RegList, fold_rows) and the merge are
+// The owner skip, the fold (RegList, fold_rows) and the merge are
 // shared with kernel B and described in topk_common.cuh: rows are taken in
 // the order of a stable argsort of qseg, and a (row tile, column tile) pair
 // is computed only if their two-sign owner ranges meet; the block then
@@ -65,9 +57,9 @@ struct PassArgs {
   const float* y;
   const int* qseg;
   const int* cseg;
-  const int* perm;         // row order (SEG), or nullptr: rows in order
-  const int4* ranges;      // per column tile (SEG)
-  const int4* row_ranges;  // per row tile of the sorted rows (SEG)
+  const int* perm;         // row order: the stable argsort of qseg
+  const int4* ranges;      // per column tile
+  const int4* row_ranges;  // per row tile of the sorted rows
   int Q, N, D, kp, tiles_per_split, S;
   unsigned long long* partial;  // (Q, S, kp) keys, row = sorted position
   int* flags;                   // (row tiles, S): 1 where the lists exist
@@ -82,9 +74,8 @@ inline size_t f32_topk_smem_bytes(int bq, int bn, int kp) {
          size_t(bq) * CAND + size_t(bq) * kp * 8;
 }
 
-template <bool SEG, bool L2, bool BF16, bool VEC, int BQ, int BN, int TM,
-          int TN>
-__global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
+template <bool L2, bool BF16, bool VEC, int BQ, int BN, int TM, int TN>
+__global__ void __launch_bounds__(NT, 2) topk_seg_f32_pass(PassArgs a) {
   using T = F32Tile<BQ, BN, TM, TN>;
   constexpr int DS = BN + 4;  // row stride of the distance tile
   constexpr size_t STAGE = size_t(2) * F32_KC * (BQ + BN);
@@ -112,19 +103,17 @@ __global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
   const int t_begin = blockIdx.y * a.tiles_per_split;
   const int t_end = min(n_tiles, t_begin + a.tiles_per_split);
 
-  int4 rr = make_int4(0, 0, 0, 0);
-  if (SEG) {  // every thread reaches the same verdict: no barrier needed
-    rr = a.row_ranges[blockIdx.x];
-    if (!split_meets(rr, a.ranges, t_begin, t_end)) {  // nothing can match
-      if (tid == 0) a.flags[blockIdx.x * a.S + blockIdx.y] = 0;
-      return;
-    }
+  // every thread reaches the same verdict: no barrier needed
+  const int4 rr = a.row_ranges[blockIdx.x];
+  if (!split_meets(rr, a.ranges, t_begin, t_end)) {  // nothing can match
+    if (tid == 0) a.flags[blockIdx.x * a.S + blockIdx.y] = 0;
+    return;
   }
   for (int r = tid; r < BQ; r += NT) {
     const int p = row0 + r;
-    const int g = p < a.Q ? (a.perm != nullptr ? a.perm[p] : p) : -1;
+    const int g = p < a.Q ? a.perm[p] : -1;
     xrow[r] = g;
-    qs[r] = (SEG && g >= 0) ? a.qseg[g] : 0;
+    qs[r] = g >= 0 ? a.qseg[g] : 0;
   }
   __syncthreads();
   for (int i = tid; i < BQ * a.kp; i += NT) lists[i] = KEY_MASKED;
@@ -146,7 +135,7 @@ __global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
   }
 
   for (int t = t_begin; t < t_end; ++t) {
-    if (SEG && !ranges_meet(rr, a.ranges[t])) continue;  // block-uniform
+    if (!ranges_meet(rr, a.ranges[t])) continue;  // block-uniform
     const int col0 = t * BN;
     float acc[TM][TN];
     f32_tile_product<BQ, BN, TM, TN, VEC, BF16, L2, false>(
@@ -155,7 +144,7 @@ __global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
     // barrier, so they are free now.
     for (int c = tid; c < BN; c += NT) {
       const int col = col0 + c;
-      cs[c] = col < a.N ? (SEG ? a.cseg[col] : 0) : INT_MIN;
+      cs[c] = col < a.N ? a.cseg[col] : INT_MIN;
     }
     for (int r = tid; r < BQ; r += NT) cnt[r] = 0;
     __syncthreads();  // y2s, cs, cnt
@@ -177,7 +166,7 @@ __global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
           const float p = acc[i][4 * j4 + jj];
           v[jj] = L2 ? fmaxf(xr + y2s[c + jj] - 2.f * p, 0.f) : -p;
           const int o = cs[c + jj];
-          const bool ok = o != INT_MIN && (!SEG || o == q);
+          const bool ok = o != INT_MIN && o == q;
           if (ok && !(v[jj] > kv)) pass |= 1u << (4 * j4 + jj);
         }
         *reinterpret_cast<float4*>(buf + r * DS + c) =
@@ -189,11 +178,11 @@ __global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
     }
     __syncthreads();
     if (a.kp <= 32)
-      fold_rows<1, SEG, BN, DS>(lists, a.kp, buf, cnt, cand, cs, qs, kthv,
-                                col0, warp, lane, BQ);
+      fold_rows<1, true, BN, DS>(lists, a.kp, buf, cnt, cand, cs, qs, kthv,
+                                 col0, warp, lane, BQ);
     else
-      fold_rows<4, SEG, BN, DS>(lists, a.kp, buf, cnt, cand, cs, qs, kthv,
-                                col0, warp, lane, BQ);
+      fold_rows<4, true, BN, DS>(lists, a.kp, buf, cnt, cand, cs, qs, kthv,
+                                 col0, warp, lane, BQ);
     // the next tile's f32_tile_product starts with a barrier
   }
   __syncthreads();
@@ -207,17 +196,16 @@ __global__ void __launch_bounds__(NT, 2) topk_f32_pass(PassArgs a) {
     if (a.counter != nullptr) {  // the tiles computed above, counted again
       int computed = 0;          // here so no counter lives across the loop
       for (int t = t_begin; t < t_end; ++t)
-        computed += !SEG || ranges_meet(rr, a.ranges[t]);
+        computed += ranges_meet(rr, a.ranges[t]);
       atomicAdd(a.counter, static_cast<unsigned long long>(computed));
     }
   }
 }
 
-template <bool SEG, bool L2, bool BF16, bool VEC, int BQ, int BN, int TM,
-          int TN>
+template <bool L2, bool BF16, bool VEC, int BQ, int BN, int TM, int TN>
 cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
   const size_t smem = f32_topk_smem_bytes(BQ, BN, a.kp);
-  auto kernel = topk_f32_pass<SEG, L2, BF16, VEC, BQ, BN, TM, TN>;
+  auto kernel = topk_seg_f32_pass<L2, BF16, VEC, BQ, BN, TM, TN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -226,54 +214,39 @@ cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool SEG, int BQ, int BN, int TM, int TN>
+template <int BQ, int BN, int TM, int TN>
 cudaError_t dispatch_pass(bool l2, bool bf16, bool vec, const PassArgs& a,
                           cudaStream_t st) {
   if (l2) {
     if (bf16)
-      return vec ? launch_pass<SEG, true, true, true, BQ, BN, TM, TN>(a, st)
-                 : launch_pass<SEG, true, true, false, BQ, BN, TM, TN>(a, st);
-    return vec ? launch_pass<SEG, true, false, true, BQ, BN, TM, TN>(a, st)
-               : launch_pass<SEG, true, false, false, BQ, BN, TM, TN>(a, st);
+      return vec ? launch_pass<true, true, true, BQ, BN, TM, TN>(a, st)
+                 : launch_pass<true, true, false, BQ, BN, TM, TN>(a, st);
+    return vec ? launch_pass<true, false, true, BQ, BN, TM, TN>(a, st)
+               : launch_pass<true, false, false, BQ, BN, TM, TN>(a, st);
   }
   if (bf16)
-    return vec ? launch_pass<SEG, false, true, true, BQ, BN, TM, TN>(a, st)
-               : launch_pass<SEG, false, true, false, BQ, BN, TM, TN>(a, st);
-  return vec ? launch_pass<SEG, false, false, true, BQ, BN, TM, TN>(a, st)
-             : launch_pass<SEG, false, false, false, BQ, BN, TM, TN>(a, st);
+    return vec ? launch_pass<false, true, true, BQ, BN, TM, TN>(a, st)
+               : launch_pass<false, true, false, BQ, BN, TM, TN>(a, st);
+  return vec ? launch_pass<false, false, true, BQ, BN, TM, TN>(a, st)
+             : launch_pass<false, false, false, BQ, BN, TM, TN>(a, st);
 }
 
-// The range pre-pass (SEG), the split-N pass for one (metric, operand type,
-// load width, tile), then the merge.
-template <bool SEG>
+// The range pre-pass, the split-N pass for one (metric, operand type, load
+// width) on the narrow tile (a small row tile for the skip), then the merge.
 int run_topk(PassArgs a, int metric_ip, int bf16, int vec, int bq, int bn,
              float* out_v, int* out_i, cudaStream_t st) {
-  const bool wide = bq == F32_WIDE_BQ && bn == F32_WIDE_BN;
-  const bool narrow = bq == F32_NARROW_BQ && bn == F32_NARROW_BN;
-  // kernel A runs the narrow tile only (a small row tile for the skip)
   if (a.Q <= 0 || a.N <= 0 || a.D <= 0 || a.kp < 1 || a.kp > 128 ||
-      a.S < 1 || a.S > 65535 || !(narrow || (!SEG && wide)) ||
-      f32_topk_smem_bytes(bq, bn, a.kp) > 232448 ||
-      (SEG && (a.perm == nullptr || a.ranges == nullptr ||
-               a.row_ranges == nullptr)))
+      a.S < 1 || a.S > 65535 || bq != F32_NARROW_BQ || bn != F32_NARROW_BN ||
+      f32_topk_smem_bytes(bq, bn, a.kp) > 232448 || a.perm == nullptr ||
+      a.ranges == nullptr || a.row_ranges == nullptr)
     return int(cudaErrorInvalidValue);
   const int n_tiles = (a.N + bn - 1) / bn;
   a.tiles_per_split = (n_tiles + a.S - 1) / a.S;
-  cudaError_t err;
-  if (SEG) {
-    err = launch_owner_ranges(a.cseg, a.qseg, a.perm, a.Q, a.N, bq, bn,
-                              const_cast<int4*>(a.ranges), st);
-    if (err != cudaSuccess) return int(err);
-  }
-  const bool l2 = !metric_ip;
-  if constexpr (SEG)
-    err = dispatch_pass<SEG, F32_NARROW_BQ, F32_NARROW_BN, 8, 4>(l2, bf16,
-                                                                 vec, a, st);
-  else
-    err = narrow ? dispatch_pass<SEG, F32_NARROW_BQ, F32_NARROW_BN, 8, 4>(
-                       l2, bf16, vec, a, st)
-                 : dispatch_pass<SEG, F32_WIDE_BQ, F32_WIDE_BN, 8, 8>(
-                       l2, bf16, vec, a, st);
+  cudaError_t err = launch_owner_ranges(a.cseg, a.qseg, a.perm, a.Q, a.N, bq,
+                                        bn, const_cast<int4*>(a.ranges), st);
+  if (err != cudaSuccess) return int(err);
+  err = dispatch_pass<F32_NARROW_BQ, F32_NARROW_BN, 8, 4>(!metric_ip, bf16,
+                                                          vec, a, st);
   if (err != cudaSuccess) return int(err);
   return int(launch_merge(a.partial, a.flags, a.perm, a.Q, a.S, a.kp, bq,
                           out_v, out_i, st));
@@ -305,24 +278,8 @@ extern "C" int topk_seg_f32(const void* x, const void* y, const void* qseg,
              static_cast<unsigned long long*>(partial),
              static_cast<int*>(flags),
              static_cast<unsigned long long*>(counter)};
-  return run_topk<true>(a, metric_ip, bf16, vec, bq, bn,
-                        static_cast<float*>(out_v), static_cast<int*>(out_i),
-                        static_cast<cudaStream_t>(stream));
-}
-
-// The same without owners: every column of y is a candidate of every row,
-// rows in order; (bq, bn) = (128, 128) or (32, 256).
-extern "C" int topk_f32(const void* x, const void* y, void* flags, int Q,
-                        int N, int D, int kp, int metric_ip, int bf16, int vec,
-                        int bq, int bn, int S, void* partial, void* out_v,
-                        void* out_i, void* stream) {
-  PassArgs a{static_cast<const float*>(x), static_cast<const float*>(y),
-             nullptr, nullptr, nullptr, nullptr, nullptr, Q, N, D, kp, 0, S,
-             static_cast<unsigned long long*>(partial),
-             static_cast<int*>(flags), nullptr};
-  return run_topk<false>(a, metric_ip, bf16, vec, bq, bn,
-                         static_cast<float*>(out_v), static_cast<int*>(out_i),
-                         static_cast<cudaStream_t>(stream));
+  return run_topk(a, metric_ip, bf16, vec, bq, bn, static_cast<float*>(out_v),
+                  static_cast<int*>(out_i), static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* kernels_error_string(int err) {

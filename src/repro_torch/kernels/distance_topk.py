@@ -10,8 +10,8 @@ every query row against the flat columns of its own owner.
 ``distance_topk`` ranks every query row against every row of the base.
 
 ``topk_seg_f32`` is the wrapper of kernel A (``csrc/topk_seg.cu``, the
-port of the Pallas ``_topk_seg_kernel``), ``distance_topk`` of its
-unsegmented instantiation ``topk_f32`` (the port of ``_topk_kernel``):
+port of the Pallas ``_topk_seg_kernel``), ``distance_topk`` of
+``topk_f32`` (``csrc/topk_dense.cu``, the port of ``_topk_kernel``):
 on a CUDA tensor each launches the hand-written kernel, on a CPU tensor
 it runs its plain PyTorch version (``segmented_dense_topk``,
 ``dense_topk``).  Both honour the same contract: (Q, k) ascending
@@ -34,7 +34,8 @@ import torch
 
 from . import _build
 from .ref import pairwise_negdot_ref, pairwise_sqdist_ref
-from .tuning import select_f32_splits, select_f32_tiles
+from .tuning import (select_dense_splits, select_dense_tile,
+                     select_f32_splits, select_f32_tiles)
 
 _INF = float("inf")
 _I32_MAX, _I32_MIN = 2 ** 31 - 1, -2 ** 31
@@ -130,13 +131,20 @@ def scan_buffers(q: int, kp: int, bq: int, s: int, device: torch.device):
             torch.empty((q, kp), dtype=torch.int32, device=device))
 
 
-def f32_scan_buffers(q: int, n: int, kp: int, device: torch.device, *,
-                     segmented: bool):
-    """Tiles, N-splits and fresh buffers of one fp32 split-N top-k
-    launch: ``(bq, bn, S, *scan_buffers)``."""
-    bq, bn = select_f32_tiles(q, k=kp, segmented=segmented)
-    s = select_f32_splits(q, n, bq, bn, k=kp, segmented=segmented)
+def f32_scan_buffers(q: int, n: int, kp: int, device: torch.device):
+    """Tiles, N-splits and fresh buffers of one kernel A launch:
+    ``(bq, bn, S, *scan_buffers)``."""
+    bq, bn = select_f32_tiles(q, segmented=True)
+    s = select_f32_splits(q, n, bq, bn, k=kp, segmented=True)
     return (bq, bn, s, *scan_buffers(q, kp, bq, s, device))
+
+
+def dense_plan(q: int, n: int, d: int, kp: int):
+    """``(bq, bn, resident, S)`` of one ``topk_f32`` launch: its tile,
+    whether x stays in shared memory, and its N-splits."""
+    bq, bn, resident = select_dense_tile(q, d, kp)
+    s = select_dense_splits(q, n, bq, bn, k=kp, d=d, resident=resident)
+    return bq, bn, resident, s
 
 
 def vec_loads_ok(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -261,8 +269,8 @@ def topk_seg_f32(x: torch.Tensor, y: torch.Tensor, qseg: torch.Tensor,
                             ("qseg", qseg, torch.int32, (q,)),
                             ("cseg", cseg, torch.int32, (n,))))
     _require(q > 0 and n > 0 and d > 0, f"empty scan ({q}, {n}, {d})")
-    bq, bn, s, flags, partial, vals, idx = f32_scan_buffers(
-        q, n, kp, x.device, segmented=True)
+    bq, bn, s, flags, partial, vals, idx = f32_scan_buffers(q, n, kp,
+                                                            x.device)
     n_tiles, q_tiles = -(-n // bn), -(-q // bq)
     perm, ranges = owner_sort(qseg, q_tiles, n_tiles)
     counter = tile_counter("topk_seg_f32", x.device, q_tiles * n_tiles)
@@ -285,11 +293,12 @@ topk_seg_f32.launches = 0
 def distance_topk(x: torch.Tensor, y: torch.Tensor, kp: int, *,
                   metric: str = "l2", accum: str = "f32"):
     """``topk_f32``: exact fp32 top-kp of ``x`` (Q, d) against every row
-    of ``y`` (N, d).  Ragged N is masked in the kernel, so nothing is
-    padded or copied; columns ≥ N never enter the result, and rows with
-    fewer than kp columns end in (+inf, -1).  CPU tensors take the plain
-    version ``dense_topk``; CUDA tensors launch ``csrc/topk_seg.cu``'s
-    unsegmented entry (``launches`` counts those launches) or raise."""
+    of ``y`` (N, d).  Ragged Q and N are masked in the kernel, so nothing
+    is padded or copied; columns ≥ N never enter the result, and rows
+    with fewer than kp columns end in (+inf, -1).  CPU tensors take the
+    plain version ``dense_topk``; CUDA tensors launch
+    ``csrc/topk_dense.cu`` (``launches`` counts those launches) or
+    raise."""
     _check_topk_args(metric, accum, kp)
     if x.device.type == "cpu":
         return dense_topk(x, y, kp, metric=metric, accum=accum)
@@ -299,15 +308,21 @@ def distance_topk(x: torch.Tensor, y: torch.Tensor, kp: int, *,
     check_inputs(x.device, (("x", x, torch.float32, (q, d)),
                             ("y", y, torch.float32, (n, d))))
     _require(q > 0 and n > 0 and d > 0, f"empty scan ({q}, {n}, {d})")
-    bq, bn, s, flags, partial, vals, idx = f32_scan_buffers(
-        q, n, kp, x.device, segmented=False)
+    bq, bn, resident, s = dense_plan(q, n, d, kp)
+    flags, partial, vals, idx = scan_buffers(q, kp, bq, s, x.device)
+    # the rows' shared bounds, then the publication flags (set in the C
+    # entry), and the lists the blocks publish once
+    bound = torch.empty(q + flags.shape[0], dtype=torch.int32,
+                        device=x.device)
+    pub = torch.empty_like(partial)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check("topk_f32", lib.topk_f32(
-        x.data_ptr(), y.data_ptr(), flags.data_ptr(), q, n, d, kp,
-        int(metric == "ip"), int(accum == "bf16"), int(vec_loads_ok(x, y)),
-        bq, bn, s, partial.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        stream))
+        x.data_ptr(), y.data_ptr(), flags.data_ptr(), bound.data_ptr(),
+        pub.data_ptr(), q, n, d, kp, int(metric == "ip"),
+        int(accum == "bf16"), int(vec_loads_ok(x, y)), bq, bn,
+        int(resident), s, partial.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), stream))
     distance_topk.launches += 1
     return vals, idx
 
@@ -414,7 +429,7 @@ def distance_topk_descriptors(vectors, base_ids, deleted, x, qseg, starts,
 
 __all__ = ["topk_seg_f32", "distance_topk", "dense_distance",
            "segmented_dense_topk", "dense_topk", "masked_topk", "stable_topk",
-           "scan_buffers", "f32_scan_buffers", "vec_loads_ok",
+           "scan_buffers", "f32_scan_buffers", "dense_plan", "vec_loads_ok",
            "tile_owner_ranges", "tiles_meet", "tile_stats",
            "reset_tile_stats", "tile_counter", "owner_sort", "check_inputs",
            "expand_descriptors",

@@ -30,7 +30,7 @@ rows (whose fold pays each row's overhead for 64 columns instead of
 partial lists and merge cost more per split than kernel A's, so its
 splits are longer).
 
-**fp32 kernels** (``csrc/topk_seg.cu``, ``csrc/pairwise.cu``;
+**fp32 kernels A and C** (``csrc/topk_seg.cu``, ``csrc/pairwise.cu``;
 ``select_f32_tiles``, ``select_f32_splits``, ``f32_smem_bytes``).  Two
 block tiles (``F32_TILES``): *wide* 128×128 with 8×8 outputs per thread,
 and *narrow* 32×256 with 8×4, each operand fragment one float4 shared
@@ -48,13 +48,34 @@ from registers) ``2·F32_CHUNK·(block_q + block_n)·4 + (2·block_q +
 block_n)·4``.  The CUDA entry points compute the same sums.  Kernel A
 (segmented) always takes the narrow tile: a small row tile keeps each
 row tile's owners few, so the owner skip drops most (row tile, column
-tile) pairs.  The unsegmented top-k and the pairwise kernel take the
-wide tile when Q > 32 (and, for the top-k, when two blocks still fit on
-an SM: k ≤ 39), else the narrow one.  Splits: enough blocks for two per
-SM, and when segmented about ``F32_SEG_TILES_PER_SPLIT`` column tiles
-per split, so a row tile's matched stretch of N spreads over many
-blocks while blocks that meet nothing exit at once; the partial lists
-(Q·S·k·8 bytes) stay under ``F32_PARTIAL_CAP``.
+tile) pairs.  The pairwise kernel takes the wide tile when Q > 32, else
+the narrow one.  Splits: enough blocks for two per SM, and
+when segmented about ``F32_SEG_TILES_PER_SPLIT`` column tiles per split,
+so a row tile's matched stretch of N spreads over many blocks while
+blocks that meet nothing exit at once; the partial lists (Q·S·k·8
+bytes) stay under ``F32_PARTIAL_CAP``.
+
+**The unsegmented fp32 top-k** (``csrc/topk_dense.cu``, ``topk_f32``;
+``select_dense_tile``, ``select_dense_splits``, ``dense_smem_bytes``).
+The same two block tiles (``DENSE_TILES``), operands copied
+asynchronously into a ring of stages, each staged row padded by one
+16-byte unit; ``DENSE_CHUNKS`` gives the words of a chunk and the
+stages of each (tile, x resident) instantiation.  The per-block working
+set is
+
+    block_q·CANDIDATES·8                     listed candidate keys (u64)
+  + (3·block_q + 2·block_n)·4                per-row / per-column scalars
+  + 8·32·8                                   the union's lists (u64)
+  + stages·rows·(chunk/4 + 1)·16             the ring (rows: block_n, or
+                                             block_n + block_q when x streams)
+  + block_q·k·8                              running top-k keys (u64)
+  + ceil(d / chunk)·block_q·(chunk/4 + 1)·16 the resident x (if resident)
+
+more than half an SM: one block an SM.  The tile: wide when Q > 32 and
+it fits, x resident where it fits beside the ring, else streamed;
+otherwise narrow, which fits every k ≤ 128 and every d.  Splits:
+``DENSE_WAVES`` blocks per SM over the row tiles, every split the same
+number of column tiles but the last.
 
 There is no interpret-mode or implementation switch: the device of the
 tensors a wrapper is given chooses the path (CUDA kernel or its plain
@@ -80,6 +101,14 @@ F32_CHUNK = 16                  # 32-bit words of one operand d-chunk
 F32_SEG_TILES_PER_SPLIT = 4     # column tiles per split, segmented
 F32_PARTIAL_CAP = 64 << 20      # bytes of partial lists per launch
 CANDIDATES = 32                 # listed fold candidates per row and tile
+# the unsegmented fp32 top-k: block tile -> register tile, as F32_TILES,
+# and (block tile, x resident) -> (words of a d-chunk, stages of the ring)
+DENSE_WIDE = (128, 128)
+DENSE_NARROW = (32, 256)
+DENSE_TILES = {DENSE_WIDE: (8, 8), DENSE_NARROW: (8, 4)}
+DENSE_CHUNKS = {(DENSE_WIDE, True): (64, 3), (DENSE_WIDE, False): (32, 4),
+                (DENSE_NARROW, True): (32, 4), (DENSE_NARROW, False): (32, 4)}
+DENSE_WAVES = 1                 # waves of blocks the splits aim at
 SQ8_TILE = (32, 256)            # SQ8 kernels' block tile (rows, columns)
 SQ8_CHUNK = 128                 # bytes of an operand row in one d-chunk
 SQ8_SEG_TILES_PER_SPLIT = 20    # column tiles per split, segmented
@@ -113,16 +142,12 @@ def f32_blocks_per_sm(bq: int, bn: int, k: int) -> int:
     return SM_SMEM // (f32_smem_bytes(bq, bn, k) + SMEM_PER_BLOCK_RESERVED)
 
 
-def select_f32_tiles(q: int, *, k: int = 0,
-                     segmented: bool = False) -> Tuple[int, int]:
-    """Pick ``(block_q, block_n)`` of the fp32 kernels: the narrow tile
-    for the segmented top-k and for Q ≤ 32, else the wide tile if two
-    blocks of it fit on an SM at this k (k = 0: the pairwise kernel)."""
+def select_f32_tiles(q: int, *, segmented: bool = False) -> Tuple[int, int]:
+    """Pick ``(block_q, block_n)`` of kernels A and C: the narrow tile for
+    the segmented top-k and for Q ≤ 32, else the wide one."""
     if segmented or q <= F32_NARROW[0]:
         return F32_NARROW
-    if f32_blocks_per_sm(*F32_WIDE, k) >= 2:
-        return F32_WIDE
-    return F32_NARROW
+    return F32_WIDE
 
 
 def _splits(q: int, n: int, block_q: int, block_n: int, k: int,
@@ -145,6 +170,51 @@ def select_f32_splits(q: int, n: int, block_q: int, block_n: int, *,
                    F32_SEG_TILES_PER_SPLIT)
 
 
+def dense_smem_bytes(bq: int, bn: int, k: int, d: int,
+                     resident: bool) -> int:
+    """Dynamic shared memory of one ``topk_f32`` block (module
+    docstring); the kernel computes the same sum."""
+    chunk, stages = DENSE_CHUNKS[((bq, bn), resident)]
+    unit = (chunk // 4 + 1) * 16
+    rows = bn if resident else bn + bq
+    return (bq * CANDIDATES * 8 + (3 * bq + 2 * bn) * 4 + 8 * 32 * 8
+            + stages * rows * unit + bq * k * 8
+            + (-(-d // chunk) * bq * unit if resident else 0))
+
+
+def dense_blocks_per_sm(bq: int, bn: int, k: int, d: int,
+                        resident: bool) -> int:
+    """Blocks of ``topk_f32`` that shared memory lets one SM hold."""
+    return SM_SMEM // (dense_smem_bytes(bq, bn, k, d, resident)
+                       + SMEM_PER_BLOCK_RESERVED)
+
+
+def select_dense_tile(q: int, d: int, k: int) -> Tuple[int, int, bool]:
+    """``(block_q, block_n, resident)`` of ``topk_f32``: the wide tile
+    when Q > 32 and it fits at this (d, k), x resident where it fits,
+    else streamed; otherwise the narrow tile."""
+    tiles = ([DENSE_WIDE] if q > DENSE_NARROW[0] else []) + [DENSE_NARROW]
+    for bq, bn in tiles:
+        for resident in (True, False):
+            if dense_smem_bytes(bq, bn, k, d, resident) <= SMEM_BUDGET:
+                return bq, bn, resident
+    raise ValueError(f"no topk_f32 tile fits k={k}, d={d}")
+
+
+def select_dense_splits(q: int, n: int, block_q: int, block_n: int, *,
+                        k: int, d: int, resident: bool) -> int:
+    """N-splits S of ``topk_f32``: ``DENSE_WAVES`` times the blocks the
+    SMs hold at once, over the row tiles, at most one split per column
+    tile, then evened so every split has the same number of column tiles
+    but the last."""
+    q_tiles = max(1, math.ceil(q / block_q))
+    n_tiles = max(1, math.ceil(n / block_n))
+    slots = DENSE_WAVES * SM_COUNT * max(1, dense_blocks_per_sm(
+        block_q, block_n, k, d, resident))
+    s = max(1, min(n_tiles, slots // q_tiles, 65_535))
+    return math.ceil(n_tiles / math.ceil(n_tiles / s))
+
+
 def sq8_smem_bytes(bq: int, bn: int, k: int) -> int:
     """Dynamic shared memory of one SQ8 pass block (module docstring)."""
     return (2 * SQ8_CHUNK * (bq + bn) + (6 * bq + 3 * bn) * 4
@@ -163,4 +233,7 @@ __all__ = ["select_splits", "SMEM_BUDGET", "SM_COUNT", "SQ8_DIM_CAP",
            "select_f32_tiles", "select_f32_splits", "f32_smem_bytes",
            "f32_blocks_per_sm", "F32_TILES", "F32_WIDE", "F32_NARROW",
            "F32_CHUNK", "THREADS", "CANDIDATES", "select_sq8_splits",
-           "sq8_smem_bytes", "SQ8_TILE", "SQ8_CHUNK"]
+           "sq8_smem_bytes", "SQ8_TILE", "SQ8_CHUNK", "DENSE_TILES",
+           "DENSE_WIDE", "DENSE_NARROW", "DENSE_CHUNKS",
+           "dense_smem_bytes", "dense_blocks_per_sm", "select_dense_tile",
+           "select_dense_splits"]

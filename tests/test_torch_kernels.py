@@ -367,31 +367,32 @@ def test_sq8_tile_and_splits_h100_budget(kqp, d):
 @pytest.mark.parametrize("k", [1, 16, 40, 128])
 @pytest.mark.parametrize("q", [1, 100, 128, 1000])
 def test_select_f32_tiles_h100_budget(q, k):
-    """The fp32 kernels' policy: an instantiated tile whose 256-thread
-    grid divides it, within one block's shared memory (at least two blocks
-    per SM on the wide tile), and ≥ 2 blocks per SM at N ≥ 10⁶; the
-    segmented tile is the narrow one, and its partial lists stay under
-    the cap."""
+    """The fp32 kernels' policy (kernel A segmented, ``pairwise_f32`` at
+    k = 0 unsegmented): an instantiated tile whose 256-thread grid divides
+    it, within one block's shared memory (at least two blocks per SM on
+    the wide tile), and ≥ 2 blocks per SM at N ≥ 10⁶; the segmented tile
+    is the narrow one, and its partial lists stay under the cap."""
     for segmented in (False, True):
-        bq, bn = ttune.select_f32_tiles(q, k=k, segmented=segmented)
+        kk = k if segmented else 0
+        bq, bn = ttune.select_f32_tiles(q, segmented=segmented)
         tm, tn = ttune.F32_TILES[(bq, bn)]
         assert bq % tm == 0 and bn % tn == 0 and tm % 4 == 0 and tn % 4 == 0
         assert (bq // tm) * (bn // tn) == ttune.THREADS
         assert bq % 32 == 0 and bn % 32 == 0        # the stage swizzle
-        assert ttune.f32_smem_bytes(bq, bn, k) <= ttune.SMEM_BUDGET
+        assert ttune.f32_smem_bytes(bq, bn, kk) <= ttune.SMEM_BUDGET
         if (bq, bn) == ttune.F32_WIDE:
-            assert ttune.f32_blocks_per_sm(bq, bn, k) >= 2
+            assert ttune.f32_blocks_per_sm(bq, bn, kk) >= 2
             assert not segmented and q > 32
         if segmented:
             assert (bq, bn) == ttune.F32_NARROW
         for n in (1000, 2_097_152):
-            s = ttune.select_f32_splits(q, n, bq, bn, k=k,
+            s = ttune.select_f32_splits(q, n, bq, bn, k=kk,
                                         segmented=segmented)
             assert 1 <= s <= max(-(-n // bn), 1) and s <= 65_535
             if n >= 10 ** 6:
                 assert -(-q // bq) * s >= 2 * ttune.SM_COUNT
             if segmented and s > ttune.select_splits(q, n, bq, bn):
-                assert q * s * k * 8 <= ttune.F32_PARTIAL_CAP
+                assert q * s * kk * 8 <= ttune.F32_PARTIAL_CAP
     pw = ttune.select_f32_tiles(q)
     assert ttune.f32_smem_bytes(*pw, 0) <= ttune.SMEM_BUDGET
     assert pw == (ttune.F32_NARROW if q <= 32 else ttune.F32_WIDE)

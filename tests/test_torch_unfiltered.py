@@ -106,6 +106,138 @@ def test_topk_matches_reference(ref, metric, accum, k, n, dup, impl):
 
 
 # --------------------------------------------------------------------- #
+# topk_f32's split fold with a shared row bound, simulated in plain code
+# --------------------------------------------------------------------- #
+
+_MASKED = np.uint64(2 ** 64 - 1)
+
+
+def _words(dist):
+    """make_key's order-preserving uint32 of fp32 distances (-0 as +0)."""
+    b = np.ascontiguousarray(dist, np.float32).view(np.uint32)
+    b = np.where(b << np.uint32(1) == 0, np.uint32(0), b)
+    return np.where(b >> np.uint32(31) == 1, ~b,
+                    b | np.uint32(0x80000000)).astype(np.uint64)
+
+
+def _value(words):
+    u = np.asarray(words, np.uint64).astype(np.uint32)
+    b = np.where(u >> np.uint32(31) == 1, u & np.uint32(0x7FFFFFFF), ~u)
+    return b.view(np.float32)
+
+
+def _simulate_split_fold(dist, kp, bn, splits, seed, publish_at=0,
+                         union_at=1):
+    """The fold of ``csrc/topk_dense.cu`` in plain code: the column tiles
+    of each split visited in an order drawn from ``seed`` (blocks run in
+    no order), each row's running top-kp keys per split, a tile keeping
+    only columns whose distance word is at or below the lesser of the
+    row's own k-th word and the bound shared by every split (lowered by
+    each full list, and by the k-th of the union of the lists the splits
+    published once); then the merge.  Returns (values, columns) with
+    (+inf, -1) where a slot stays empty."""
+    q, n = dist.shape
+    words = _words(dist)
+    keys = (words << np.uint64(32)) | np.arange(n, dtype=np.uint64)
+    n_tiles = -(-n // bn)
+    per = -(-n_tiles // splits)
+    lists = np.full((splits, q, kp), _MASKED, np.uint64)
+    bound = np.full(q, 2 ** 32 - 1, np.uint64)
+    pub, done = {}, [0] * splits
+    todo = [s for s in range(splits) for _ in range(
+        max(0, min(n_tiles, (s + 1) * per) - s * per))]
+    np.random.default_rng(seed).shuffle(todo)
+    for s in todo:
+        t = s * per + done[s]
+        cols = slice(t * bn, min(n, (t + 1) * bn))
+        kth = lists[s, :, kp - 1]
+        own = np.where(kth == _MASKED, np.uint64(2 ** 32 - 1),
+                       kth >> np.uint64(32))
+        thr = np.minimum(own, bound)
+        cand = np.where(words[:, cols] <= thr[:, None], keys[:, cols],
+                        _MASKED)
+        lists[s] = np.sort(np.concatenate([lists[s], cand], 1), 1)[:, :kp]
+        full = lists[s, :, kp - 1] != _MASKED
+        bound = np.where(full, np.minimum(
+            bound, lists[s, :, kp - 1] >> np.uint64(32)), bound)
+        if done[s] == publish_at:
+            pub[s] = lists[s].copy()
+        if done[s] == union_at and pub:
+            union = np.sort(np.concatenate(list(pub.values()), 1),
+                            1)[:, kp - 1]
+            bound = np.where(union != _MASKED, np.minimum(
+                bound, union >> np.uint64(32)), bound)
+        done[s] += 1
+    best = np.sort(lists.transpose(1, 0, 2).reshape(q, -1), 1)[:, :kp]
+    empty = best == _MASKED
+    vals = np.where(empty, np.inf, _value(best >> np.uint64(32)))
+    empty |= np.isposinf(vals)
+    return (np.where(empty, np.inf, vals).astype(np.float32),
+            np.where(empty, -1, (best & np.uint64(0xFFFFFFFF))
+                     .astype(np.int64)).astype(np.int32))
+
+
+@pytest.mark.parametrize("metric,dup,n,kp,seed", [
+    ("l2", False, 1000, 16, 0), ("ip", False, 1000, 16, 1),
+    ("l2", True, 997, 16, 2),                  # exact ties across splits
+    ("ip", True, 997, 8, 3),                   # negative ties
+    ("ip", True, 1200, 40, 4), ("l2", False, 37, 64, 5),   # N < kp
+    ("l2", "many", 1000, 16, 6), ("ip", "many", 1000, 40, 7)])
+def test_topk_f32_split_fold_with_shared_bound(ref, metric, dup, n, kp,
+                                               seed):
+    """Dropping every column above the lesser of a row's own k-th and the
+    bound its splits share, in any order of the splits' tiles, keeps the
+    exact top-kp: the keys equal ``dense_topk``'s and the reference
+    ``_topk_kernel``'s (interpret mode), ids and sentinels alike.
+    ``"many"``: 20 distinct rows, so every rank is a tie across splits."""
+    x, y = _data(20 + seed, 9, n, 24, dup=dup is True)
+    if dup == "many":
+        y = y[np.random.default_rng(seed).integers(0, 20, n)]
+    want_v, want_i = tdt.dense_topk(_t(x), _t(y), kp, metric=metric)
+    dist = tdt.dense_distance(_t(x), _t(y), metric=metric).numpy()
+    jx, jy = ref.jnp.asarray(x), ref.jnp.asarray(y)
+    rv, ri = ref.ops.topk(jx, jy, kp, metric=metric, interpret=True)
+    for order in range(3):
+        got_v, got_i = _simulate_split_fold(dist, kp, bn=32, splits=7,
+                                            seed=100 * seed + order)
+        assert np.array_equal(got_i, want_i.numpy())
+        assert np.array_equal(got_v, want_v.numpy())
+        _same(rv, ri, got_v, got_i)
+    if metric == "ip":
+        assert (dist < 0).any()
+
+
+@pytest.mark.parametrize("q", [1, 100, 128, 1000])
+@pytest.mark.parametrize("k", [1, 16, 40, 128])
+def test_topk_f32_tile_policy_h100_budget(q, k):
+    """``topk_f32``'s policy: a tile of ``DENSE_TILES`` whose thread grid
+    is the block's 256 threads, within one block's shared memory at every
+    d (x resident where it fits, streamed past that), one block an SM,
+    and one wave of blocks at N = 2^20 that fills at least 90 % of it."""
+    from repro_torch.kernels import tuning as tt
+    for d in (8, 97, 128, 768, 4096):
+        bq, bn, resident = tt.select_dense_tile(q, d, k)
+        tm, tn = tt.DENSE_TILES[(bq, bn)][:2]
+        assert (bq // tm) * (bn // tn) == tt.THREADS
+        assert tt.dense_smem_bytes(bq, bn, k, d, resident) <= tt.SMEM_BUDGET
+        assert tt.dense_blocks_per_sm(bq, bn, k, d, resident) == 1
+        if (bq, bn) == tt.DENSE_WIDE:
+            assert q > tt.DENSE_NARROW[0]
+        if not resident:
+            assert tt.dense_smem_bytes(bq, bn, k, d, True) > tt.SMEM_BUDGET
+        for n in (1000, 2 ** 20):
+            s = tt.select_dense_splits(q, n, bq, bn, k=k, d=d,
+                                       resident=resident)
+            n_tiles, q_tiles = -(-n // bn), -(-q // bq)
+            assert 1 <= s <= n_tiles
+            per = -(-n_tiles // s)
+            assert -(-n_tiles // per) == s          # no empty split
+            if n == 2 ** 20 and q_tiles <= tt.SM_COUNT:
+                assert q_tiles * s <= tt.SM_COUNT
+                assert q_tiles * s >= 0.9 * tt.SM_COUNT
+
+
+# --------------------------------------------------------------------- #
 # ops.pairwise_sqdist (pairwise_f32's plain version)
 # --------------------------------------------------------------------- #
 
@@ -262,13 +394,30 @@ def _agree(vk, ik, vp, ip, tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("metric,accum,kp,n,d,dup", [
-    ("l2", "f32", 16, 5000, 128, False), ("l2", "f32", 128, 3000, 64, False),
-    ("ip", "f32", 24, 1037, 100, False), ("l2", "bf16", 16, 2000, 128,
-                                          False),
-    ("l2", "f32", 40, 900, 48, True), ("l2", "f32", 64, 50, 32, False)])
-def test_gpu_topk_f32_matches_plain(cuda, metric, accum, kp, n, d, dup):
-    x, y = (_t(a, cuda) for a in _data(12, 100, n, d, dup=dup))
+@pytest.mark.parametrize("metric,accum,kp,q,n,d,dup,offset", [
+    ("l2", "f32", 16, 100, 5000, 128, False, 0),
+    ("l2", "f32", 128, 100, 3000, 64, False, 0),
+    ("ip", "f32", 24, 100, 1037, 100, False, 0),
+    ("l2", "bf16", 16, 100, 2000, 128, False, 0),
+    ("l2", "f32", 40, 100, 900, 48, True, 0),
+    ("l2", "f32", 64, 100, 50, 32, False, 0),      # N < kp
+    ("l2", "f32", 16, 200, 20000, 768, False, 0),  # x streamed
+    ("l2", "f32", 32, 50, 777, 97, False, 1),      # misaligned: 4-byte copies
+    ("l2", "f32", 16, 129, 3000, 128, False, 1),
+    ("ip", "f32", 16, 129, 3000, 128, False, 0),   # ragged Q
+    ("l2", "f32", 128, 129, 5000, 128, False, 0),
+    ("ip", "f32", 16, 128, 40000, 64, True, 0)])   # ties across splits
+def test_gpu_topk_f32_matches_plain(cuda, metric, accum, kp, q, n, d, dup,
+                                    offset):
+    x, y = _data(12, q, n, d, dup=dup)
+    x = _t(x, cuda)
+    if offset:  # a view that starts `offset` words into its buffer
+        buf = torch.empty(n * d + offset, device=cuda)
+        buf[offset:] = _t(y, cuda).reshape(-1)
+        y = buf[offset:].view(n, d)
+        assert not tdt.vec_loads_ok(x, y)
+    else:
+        y = _t(y, cuda)
     before = tdt.distance_topk.launches
     vk, ik = tdt.distance_topk(x, y, kp, metric=metric, accum=accum)
     torch.cuda.synchronize()
