@@ -67,6 +67,20 @@ Phases:
      ``topk_f32`` also under the other tile and split choices
      (``ms_by_policy``) and at Q = 1024 × N = 65,536 × d = 768
      (``bench_max``), with its ptxas registers and spills;
+  5b. beam — ``beam_f32`` (``csrc/beam.cu``, the fused HNSW beam)
+     against its plain version ``hnsw_torch._beam`` on the same table:
+     level-0 lists of each node's 32 exact nearest neighbours
+     (``ops.topk``) within 8 graphs of 131,072 nodes (one bucket, 64
+     queries against each: P = 512, visited bitmaps in shared memory)
+     and within one graph of all 1,048,576 nodes (each node's last edge
+     to a random node of another eighth; P = 64, bitmaps in device
+     memory); ef = 64, k = 10, l2 and ip, unfiltered and under masks
+     allowing 10 % and 50 % of ids; integer-valued vectors bit-equal to
+     the plain version, float vectors ≥ 99 % of pairs the same ids and
+     recall@10 ≥ 0.995 against it; distances within 1e-5 of an fp32
+     recomputation, ids allowed by their masks; the float cases timed
+     beside the plain version and the byte bound (visited nodes and
+     steps from the kernel's optional outputs);
   6. serving, on the main path's index (not rebuilt): (a) checkpoint it
      to a temporary directory (bytes, save time) and restore it as a
      ``RetrievalEngine`` (time to the first answered wave; the answers
@@ -105,9 +119,12 @@ Phases:
      the port's plain
      PyTorch path on the CPU (near ties aside), graph-free requests equal
      the NumPy host oracle, and every answer is a live record that
-     satisfies its predicate at its true distance; then one profiled
-     wave (``graphs_profile``: the host time blocked in the beam's
-     convergence checks and the copies);
+     satisfies its predicate at its true distance; every beam call of
+     the card's executor launched ``beam_f32`` once (its counter against
+     the executor's fused, filtered and per-state beam calls); then one
+     profiled wave (``graphs_profile``: one ``beam_f32`` kernel a beam
+     call, no blocking host call inside the beam's range, and the bound
+     from the kernel's visited and step counts);
   9. the LM, second part: a child process builds the index of the
      embeddings on the host (``T=40, M=8, ef_con=50``, the example's tag
      and price attributes; about 4 minutes of Python HNSW work) from the
@@ -119,14 +136,16 @@ Phases:
      ``sq8`` and ``none``: every id satisfies its predicate, graph-free
      requests equal a brute force on the card (recall 1.0), the mean
      recall@10 of the graph-state CONTAINS requests against the host
-     oracle, kernels A and B launched (counted), and a checkpoint
+     oracle, kernels A and B launched (counted), every beam call of the
+     phase one ``beam_f32`` launch, and a checkpoint
      restored with identical answers; ``lm_kernels`` — kernels A and B
      held against their plain versions at this phase's shape (d = 2,560)
      and timed beside them and their bounds; ``lm_generate_profile`` —
      one decode step under ``torch.profiler`` (last: a traced process
      launches more slowly afterwards);
   10. the ``kernels`` line (kernels A and B with their launches and
-     times in the sharded and LM phases too); 11. the card line and the
+     times in the sharded and LM phases too; ``beam_f32`` with the
+     graphs phase's launches and the LM's); 11. the card line and the
      ``ok`` line.
 
 Between the LM's first part and the main path run the training phases
@@ -153,8 +172,8 @@ step have no ``pallas_call``):
      busy share, the top device kernels;
   T3. ``train_embedder`` — ``examples/train_embedder.py`` at its own
      size (mamba2-370m cut to 12 layers, vocab 8,192, fp32, chunk 64),
-     300 steps of 8 × 128: the loss must drop; async checkpoints at 100
-     and 200 and a final one (bytes, seconds); a restore and one more
+     150 steps of 8 × 128: the loss must drop; async checkpoints at 50
+     and 100 and a final one (bytes, seconds); a restore and one more
      step; 3 steps + checkpoint + restore + 3 against 6 uninterrupted
      (atol 1e-5 + rtol 1e-4).
 
@@ -238,7 +257,8 @@ training; no kernel of the port runs in them either) run last:
 
 ``--phases build`` or ``--phases build,edges`` runs only those phases
 and stops without the ``kernels`` and ``ok`` lines: a short check of new
-kernels on the card; ``--phases`` also takes ``train_parity``,
+kernels on the card; ``--phases beam`` runs the beam phase on a table
+of its own; ``--phases`` also takes ``train_parity``,
 ``train_full``, ``train_embedder``, ``train_dp_parity``,
 ``train_dp_full`` (which runs ``train_full`` first), ``psum``,
 ``train_fsdp_parity``, ``train_fsdp_full`` (``train_full`` first),
@@ -341,7 +361,7 @@ def card_line() -> str:
 
 KERNEL_NAMES = ("topk_seg_f32_pass", "topk_dense_pass", "pairwise_f32_pass",
                 "qtopk_seg_pass", "merge_flagged_partials",
-                "tile_owner_ranges")
+                "tile_owner_ranges", "beam_f32_kernel")
 
 
 def ptxas_summary(log: str):
@@ -1340,15 +1360,17 @@ BLOCKING = ("cudaStreamSynchronize", "cudaEventSynchronize",
             "aten::_local_scalar_dense")
 
 
-def device_profile(fn, blocking=None, ranges=None):
+def device_profile(fn, blocking=None, ranges=None, kernels=None):
     """``fn()`` once under ``torch.profiler``: (wall ms, device busy ms or
     None when the trace holds no device time, the top 8 device kernels
     by time).  With ``blocking`` (a dict), it also receives the host
     time and count of each ``BLOCKING`` call and of kernel launches, and
     under ``"device_kernels"`` the count of kernels the device ran.
     ``ranges`` (a dict keyed by ``record_function`` names): each entry
-    receives that range's calls and the device ms of the kernels
-    launched inside it."""
+    receives that range's calls and the number of ``BLOCKING`` host
+    calls made inside them.  ``kernels`` (a dict keyed by parts of
+    kernel names): each entry receives the count and device ms of the
+    device kernels whose names contain it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1358,13 +1380,16 @@ def device_profile(fn, blocking=None, ranges=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
+    if ranges is not None:
+        host = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CPU]
+        for name in ranges:
+            spans = [e.time_range for e in host if e.name == name]
+            ranges[name] = {"calls": len(spans), "blocking": sum(
+                any(s.start <= e.time_range.start
+                    and e.time_range.end <= s.end for s in spans)
+                for e in host if e.name in BLOCKING)}
     for e in prof.key_averages():
-        if ranges is not None and e.key in ranges and \
-                e.device_type != torch.autograd.DeviceType.CUDA:
-            dev_us = getattr(e, "device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "cuda_time_total", 0)
-            ranges[e.key] = {"calls": e.count, "device_ms": dev_us / 1e3}
         if blocking is not None and (e.key in BLOCKING
                                      or e.key == "cudaLaunchKernel"):
             blocking[e.key] = {"ms": e.cpu_time_total / 1e3,
@@ -1376,6 +1401,11 @@ def device_profile(fn, blocking=None, ranges=None):
             dev_us = getattr(e, "self_cuda_time_total", 0)
         if dev_us > 0:
             rows.append((dev_us / 1e3, e.key, e.count))
+        for part in kernels or ():
+            if part in e.key:
+                got = kernels[part] or {"count": 0, "ms": 0.0}
+                kernels[part] = {"count": got["count"] + e.count,
+                                 "ms": got["ms"] + dev_us / 1e3}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) if rows else None   # None: no trace
     if blocking is not None:
@@ -2096,6 +2126,7 @@ def _graph_free_requests(vm, patterns):
 def phase_graphs() -> None:
     import tempfile
 
+    from repro_torch.core import hnsw_torch
     from repro_torch.core.predicate import as_predicate
     from repro_torch.core.vectormaton import VectorMaton, VectorMatonConfig
     from repro_torch.data.corpora import make_corpus, sample_patterns
@@ -2121,12 +2152,20 @@ def phase_graphs() -> None:
     patterns = (sample_patterns(seqs, 2, 32, seed=1)
                 + sample_patterns(seqs, 1, 32, seed=2))
     live_seqs = list(seqs)
+    hnsw_torch.beam_f32.launches = 0
+    card_beams = 0              # the card executor's beam calls
 
     def wave(name):
+        nonlocal card_beams
         q = rng.standard_normal((len(patterns), vecs.shape[1])).astype(
             np.float32)
         t0 = time.perf_counter()
-        res = {b: vm.query_batch(q, patterns, K) for b, vm in vms.items()}
+        res = {}
+        for b, vm in vms.items():
+            before = graph_beam_calls()
+            res[b] = vm.query_batch(q, patterns, K)
+            if b == "cuda":
+                card_beams += graph_beam_calls() - before
         dt = time.perf_counter() - t0
         free = _graph_free_requests(vms["cuda"], patterns)
         table = vms["cuda"].vectors
@@ -2176,29 +2215,53 @@ def phase_graphs() -> None:
     stats = {b: vm.maintenance_stats() for b, vm in vms.items()}
     check(set(stats["cuda"]) == set(stats["cpu"]) == set(stats["numpy"]),
           "maintenance_stats keys differ across backends")
+    launches = hnsw_torch.beam_f32.launches
+    check(launches == card_beams > 0,
+          f"beam_f32 launched {launches} times for the card executor's "
+          f"{card_beams} beam calls")
     emit(phase="graphs_done", graph_states=n_graphs, build_s=build_s,
          save_and_restore_s=restore_s,
          compactions=stats["cuda"]["compactions"],
          launch_graph_fused=stats["cuda"].get("launch_graph_fused", 0),
          launch_graph_fused_filt=stats["cuda"].get(
-             "launch_graph_fused_filt", 0))
+             "launch_graph_fused_filt", 0),
+         card_beam_calls=card_beams, beam_f32_launches=launches)
     # after the counted waves, one wave on the card under the profiler:
-    # what the beam's every-16-steps convergence check (``bool(active.
-    # any())``, under ``aten::_local_scalar_dense``) and the copies cost
-    # the host
-    blocked = {}
+    # one beam_f32 launch a bucket, no host sync inside the beam's range
+    blocked, beam_kernel = {}, {"beam_f32_kernel": None}
     q = rng.standard_normal((len(patterns), vecs.shape[1])).astype(
         np.float32)
     beams, calls = _beam_ranges()
     try:
         wall_ms, busy, top = device_profile(
-            lambda: vms["cuda"].query_batch(q, patterns, K), blocked, beams)
+            lambda: vms["cuda"].query_batch(q, patterns, K), blocked, beams,
+            beam_kernel)
     finally:
         _beam_ranges(restore=True)
+    n_calls = sum(len(c) for c in calls.values())
+    got = beam_kernel["beam_f32_kernel"] or {"count": 0, "ms": 0.0}
+    check(got["count"] == n_calls > 0,
+          f"{got['count']} beam_f32 kernels for {n_calls} beam calls in the "
+          "profiled wave")
+    check(all(r["blocking"] == 0 for r in beams.values()),
+          f"host syncs inside the beam's range: {beams}")
     emit(phase="graphs_profile", wall_ms=wall_ms, device_busy_ms=busy,
-         top=top[:4], host_blocked=blocked,
-         beam={name: {**beams.get(name, {"calls": 0, "device_ms": 0.0}),
-                      **_beam_bound(calls[name])} for name in calls})
+         top=top[:4], host_blocked=blocked, beam_kernel=got,
+         beam={name: {**beams[name], **_beam_bound(calls[name])}
+               for name in calls})
+    return launches
+
+
+GRAPH_BEAMS = ("graph_fused", "graph_fused_filt", "graph_state",
+               "graph_state_filt")
+
+
+def graph_beam_calls() -> int:
+    """The executors' beam calls so far (``ops.launch_stats``: fused
+    buckets, filtered buckets and the per-state launches)."""
+    from repro_torch.kernels import ops
+    stats = ops.launch_stats()
+    return sum(stats.get(kind, 0) for kind in GRAPH_BEAMS)
 
 
 _BEAMS = ("hnsw_search_fused", "hnsw_search_fused_filtered")
@@ -2230,32 +2293,247 @@ def _beam_ranges(restore: bool = False):
 
 
 def _beam_bound(calls):
-    """The least time the beam calls could take: the bytes of every
-    vector they read — each visited node's, counted by running the same
-    search again with ``hnsw_torch._beam``'s visited count — plus the
-    queries and the results, over the card's memory rate."""
+    """The least time the beam calls could take: ``beam_bytes`` of each
+    call, with the pairs' visited and expanded slots from the kernel's
+    optional outputs (the calls launched again with ``stats``), over the
+    card's memory rate."""
     from repro_torch.core import hnsw_torch
-    nbytes, visited = 0, 0
+    nbytes, visited, unique, steps_max = 0, 0, 0, 0
     for args, kw in calls:
-        out = []
         if len(args) == 8:                          # the filtered variant
             vectors, ids, level0, entry, masks, midx, gidx, queries = args
-            hnsw_torch._beam(vectors, ids, level0, entry, gidx, queries,
-                             masks=masks, midx=midx, visited_out=out,
-                             max_iter=kw.get("max_iter"),
-                             **{k: kw[k] for k in ("k", "ef", "metric")})
+            fk = dict(masks=masks, midx=midx)
         else:
             vectors, ids, level0, entry, gidx, queries = args
-            hnsw_torch._beam(vectors, ids, level0, entry, gidx, queries,
-                             visited_out=out, max_iter=kw.get("max_iter"),
-                             **{k: kw[k] for k in ("k", "ef", "metric")})
-        n = int(out[0].sum())
-        visited += n
-        nbytes += (n * vectors.shape[1] * vectors.element_size()
-                   + queries.numel() * queries.element_size()
-                   + queries.shape[0] * kw["k"] * 8)
-    return {"visited_nodes": visited, "bound_bytes": nbytes,
+            fk, midx = {}, None
+        _, _, st = hnsw_torch.beam_f32(
+            vectors, ids, level0, entry, gidx, queries, stats=True,
+            max_iter=kw.get("max_iter"), **fk,
+            **{k: kw[k] for k in ("k", "ef", "metric")})
+        b = beam_bytes(ids, level0, gidx, queries, kw["k"], st, midx)
+        nbytes += b["bytes"]
+        visited += b["visited"]
+        unique += b["visited_unique"]
+        steps_max = max(steps_max, int(st["steps"].max()))
+    return {"visited_nodes": visited, "visited_unique": unique,
+            "steps_max": steps_max, "bound_bytes": nbytes,
             "bound_ms": nbytes / PEAK_BYTES * 1e3}
+
+
+def beam_bytes(ids, level0, gidx, queries, k, stats, midx=None) -> dict:
+    """The bytes one beam call must move, each input read once however
+    many pairs need it: the vector of every global id that some pair
+    visited, the ``ids`` entry of every visited (graph, slot), the mask
+    byte of every visited (mask row, global id), the level-0 row of every
+    expanded (graph, slot), each searched graph's entry, the queries, the
+    pairs' graph (and mask) indices and the results.  ``stats``:
+    ``beam_f32(stats=True)``'s; also returns the visited slots summed
+    over pairs and over unique (graph, slot)."""
+    p, d = queries.shape
+    n, m2 = ids.shape[1], level0.shape[2]
+    g = gidx.long()
+    pair, slot = stats["visited"].nonzero(as_tuple=True)
+    gid = ids[g[pair], slot].long()
+    nodes = int(torch.unique(g[pair] * n + slot).numel())
+    ex_pair, ex_step = (stats["expanded"] >= 0).nonzero(as_tuple=True)
+    rows = int(torch.unique(
+        g[ex_pair] * n + stats["expanded"][ex_pair, ex_step]).numel())
+    nbytes = (int(torch.unique(gid).numel()) * 4 * d + nodes * 4
+              + rows * m2 * 4 + int(torch.unique(g).numel()) * 4
+              + p * (4 * d + 4) + p * k * 8)
+    if midx is not None:
+        v_n = int(ids.max()) + 1
+        nbytes += int(torch.unique(midx.long()[pair] * v_n + gid).numel()) \
+            + 4 * p
+    return {"bytes": nbytes, "visited": int(pair.numel()),
+            "visited_unique": nodes}
+
+
+# --------------------------------------------------------------------- #
+# the beam kernel at the main path's table size
+# --------------------------------------------------------------------- #
+
+BEAM_GRAPHS, BEAM_NODES = 8, 131_072    # one bucket covering the table
+BEAM_QUERIES, BEAM_M2, BEAM_EF = 64, 32, 64     # the paper's M = 16, ef 64
+BEAM_MASKS, BEAM_DENSITY = 4, (0.1, 0.5)
+BEAM_BITMAP = {"bucket": "shared", "graph_1m": "global"}
+
+
+def beam_graphs(table: torch.Tensor, seed: int):
+    """{"bucket": (ids, level0, entry) of BEAM_GRAPHS graphs, each over
+    BEAM_NODES consecutive rows of ``table``, every node joined to its
+    BEAM_M2 exact nearest neighbours within its graph (``ops.topk``,
+    i.e. ``topk_f32``), "graph_1m": the one graph over the whole table:
+    the same lists at global slots, each node's last edge sent to a
+    seeded random node of another of the eight}."""
+    from repro_torch.kernels import ops
+    dev, n = table.device, BEAM_NODES
+    rows = torch.arange(n, device=dev)
+    lists = []
+    for g in range(BEAM_GRAPHS):
+        part = table[g * n:(g + 1) * n]
+        _, nn = ops.topk(part, part, BEAM_M2 + 1)
+        nn = nn.long()
+        keep = nn != rows[:, None]
+        keep[:, -1] &= ~keep.all(1)         # no self in the list: drop last
+        lists.append(nn[keep].view(n, BEAM_M2))
+    level0 = torch.stack(lists)
+    rng = np.random.default_rng(seed)
+    g_of = np.repeat(np.arange(BEAM_GRAPHS), n)
+    other = (g_of + rng.integers(1, BEAM_GRAPHS, g_of.size)) % BEAM_GRAPHS
+    big = (level0 + n * torch.arange(BEAM_GRAPHS, device=dev)[:, None, None]
+           ).view(BEAM_GRAPHS * n, BEAM_M2)
+    big[:, -1] = torch.from_numpy(other * n + rng.integers(0, n, g_of.size)
+                                  ).to(dev)
+    ids = torch.arange(BEAM_GRAPHS * n, dtype=torch.int32, device=dev)
+    entry = torch.from_numpy(rng.integers(0, n, BEAM_GRAPHS).astype(
+        np.int32)).to(dev)
+    return {"bucket": (ids.view(BEAM_GRAPHS, n),
+                       level0.to(torch.int32).contiguous(), entry),
+            "graph_1m": (ids[None], big.to(torch.int32)[None].contiguous(),
+                         entry[:1].clone())}
+
+
+def phase_beam(table: torch.Tensor = None) -> dict:
+    """``beam_f32`` against ``hnsw_torch._beam`` on the main path's table
+    (``make_scale_corpus(1_048_576, 128)``; made here when no table is
+    given): one bucket of BEAM_GRAPHS graphs of BEAM_NODES nodes, each of
+    the 64 queries against each graph (P = 512, shared-memory bitmaps),
+    and the one graph of 1,048,576 nodes (P = 64, global bitmaps); M = 16
+    (2M = 32), ef = 64, k = 10; l2 and ip; unfiltered and under 4 masks
+    at 10 % and 50 % of ids allowed; on integer-valued vectors and
+    queries in [-8, 8] (every distance exact in fp32: bit-equal to
+    ``_beam`` on every pair, the kernel's visited slots, which the bound
+    reads, equal to ``_beam``'s, the bitmaps where ``BEAM_BITMAP`` says)
+    and on the table's float vectors (≥ 99 % of pairs the same ids,
+    recall@10 against ``_beam`` ≥ 0.995); every
+    returned distance within 1e-5 of its fp32 recomputation relative to
+    the sum of its terms' magnitudes, every returned id allowed by its
+    mask.  The float cases are timed (CUDA events) beside ``_beam`` and
+    the bound; returns the ``kernels`` line's record."""
+    from repro_torch.core import hnsw_torch
+    if table is None:
+        from repro_torch.data.corpora import make_scale_corpus
+        table = torch.from_numpy(make_scale_corpus(1_048_576, 128)[0]).cuda()
+    dev = table.device
+    v_n, d = table.shape
+    t0 = time.perf_counter()
+    graphs = beam_graphs(table, seed=5)
+    torch.cuda.synchronize()
+    graphs_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    rng = np.random.default_rng(6)
+    rows = torch.from_numpy(rng.integers(0, v_n, BEAM_QUERIES)).to(dev)
+    noise = torch.from_numpy(0.3 * rng.standard_normal(
+        (BEAM_QUERIES, d)).astype(np.float32)).to(dev)
+    data = {"int": (torch.randint(-8, 9, (v_n, d), generator=gen,
+                                  device=dev).float(),
+                    torch.randint(-8, 9, (BEAM_QUERIES, d), generator=gen,
+                                  device=dev).float()),
+            "float": (table, (table[rows] + noise).contiguous())}
+    masks = {f: torch.rand((BEAM_MASKS, v_n), generator=gen, device=dev) < f
+             for f in BEAM_DENSITY}
+    cases, max_err = {}, 0.0
+    for size, (ids, level0, entry) in graphs.items():
+        g_n, n = ids.shape
+        gidx = torch.arange(g_n, dtype=torch.int32,
+                            device=dev).repeat_interleave(BEAM_QUERIES)
+        p = int(gidx.shape[0])
+        midx = torch.arange(p, dtype=torch.int32, device=dev) % BEAM_MASKS
+        for kind, (vecs, q) in data.items():
+            queries = q.repeat(g_n, 1).contiguous()
+            for metric in ("l2", "ip"):
+                for frac in (None,) + BEAM_DENSITY:
+                    tag = f"{size}/{kind}/{metric}/{frac or 'unfiltered'}"
+                    fk = ({} if frac is None
+                          else dict(masks=masks[frac], midx=midx))
+                    args = (vecs, ids, level0, entry, gidx, queries)
+                    kw = dict(k=K, ef=BEAM_EF, metric=metric, **fk)
+                    kd, ki, st = hnsw_torch.beam_f32(*args, stats=True, **kw)
+                    check(st["bitmap"] == BEAM_BITMAP[size],
+                          f"beam {tag}: {st['bitmap']} bitmaps, not "
+                          f"{BEAM_BITMAP[size]}")
+                    plain_visited = []
+                    pd, pi = hnsw_torch._beam(*args, max_iter=None, **kw,
+                                              visited_out=plain_visited)
+                    found, steps = ki >= 0, st["steps"]
+                    line = {"bitmap": st["bitmap"], "pairs": p, "nodes": n,
+                            "steps_max": int(steps.max()),
+                            "steps_mean": float(steps.float().mean()),
+                            "visited_mean": float(
+                                st["visited"].sum(1).float().mean()),
+                            "found_mean": float(found.float().sum(1).mean())}
+                    if kind == "int":
+                        check(torch.equal(ki, pi) and torch.equal(
+                            kd.view(torch.int32), pd.view(torch.int32)),
+                            f"beam {tag}: the kernel differs from _beam")
+                        check(torch.equal(st["visited"], plain_visited[0]),
+                              f"beam {tag}: visited slots differ")
+                    else:
+                        same = float((ki == pi).all(1).float().mean())
+                        hit = ((pi[:, :, None] == ki[:, None, :]).any(2)
+                               & (pi >= 0))
+                        rec = float(hit.sum()) / max(int((pi >= 0).sum()), 1)
+                        check(same >= 0.99 and rec >= 0.995,
+                              f"beam {tag}: {same} of pairs the same ids, "
+                              f"recall {rec} against _beam")
+                        both = (ki == pi) & found
+                        if bool(both.any()):
+                            max_err = max(max_err, float(
+                                (kd - pd)[both].abs().max()))
+                        line.update(same_ids_share=same, recall=rec)
+                    v = vecs[ki.clamp_min(0).long()]
+                    terms = (v - queries[:, None, :]) ** 2 if metric == "l2" \
+                        else -v * queries[:, None, :]
+                    true, scale = terms.sum(-1), terms.abs().sum(-1)
+                    off = (kd - true).abs()
+                    check(bool((off <= 1e-5 * scale)[found].all()),
+                          f"beam {tag}: a distance off its recomputation")
+                    line["max_rel_err"] = float(
+                        (off / scale.clamp_min(1e-30))[found].max()) \
+                        if bool(found.any()) else 0.0
+                    if frac is not None:
+                        ok = masks[frac][midx.long()[:, None],
+                                         ki.clamp_min(0).long()]
+                        check(bool((ok | ~found).all()),
+                              f"beam {tag}: an id its mask does not allow")
+                    if kind == "float":
+                        line["ms"] = cuda_ms(lambda: hnsw_torch.beam_f32(
+                            *args, **kw))
+                        line["plain_ms"] = cuda_ms(
+                            lambda: hnsw_torch._beam(*args, max_iter=None,
+                                                     **kw), reps=1, warmup=0)
+                        b = beam_bytes(ids, level0, gidx, queries, K, st,
+                                       None if frac is None else midx)
+                        line.update(bound_bytes=b["bytes"],
+                                    bound_ms=b["bytes"] / PEAK_BYTES * 1e3,
+                                    visited_unique=b["visited_unique"],
+                                    us_per_step=line["ms"] * 1e3
+                                    / max(line["steps_max"], 1))
+                    cases[tag] = line
+                    emit(phase="beam", case=tag, **line)
+    main = cases["bucket/float/l2/unfiltered"]
+    record = {"name": "beam_f32", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/beam.cu",
+              "replaces": "src/repro/core/hnsw_jax.py:233",
+              "launches": 0, "max_abs_err": max_err, "ms": main["ms"],
+              "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+              "bound_by": "bytes", "library_ms": None,
+              "shape": {"pairs": main["pairs"], "nodes": BEAM_NODES,
+                        "graphs": BEAM_GRAPHS, "d": d, "m2": BEAM_M2,
+                        "ef": BEAM_EF, "k": K},
+              "steps_max": main["steps_max"],
+              "us_per_step": main["us_per_step"],
+              "cases": {t: {k: c[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "steps_max", "us_per_step",
+                                              "bitmap")}
+                        for t, c in cases.items() if "ms" in c}}
+    emit(phase="beam_done", graphs_s=graphs_s, cases=len(cases),
+         max_abs_err=max_err)
+    del graphs, data, masks
+    torch.cuda.empty_cache()
+    return record
 
 
 # --------------------------------------------------------------------- #
@@ -2629,6 +2907,7 @@ def phase_lm_serve(card: str, run: "LMRun"):
     child's checkpoint, serves the three request sets under ``sq8`` and
     ``none``; returns kernel A's and B's launches and their measurements
     at this shape."""
+    from repro_torch.core import hnsw_torch
     from repro_torch.core.baselines import ground_truth, recall
     from repro_torch.core.predicate import parse_predicate
     from repro_torch.core.vectormaton import VectorMatonConfig
@@ -2649,12 +2928,15 @@ def phase_lm_serve(card: str, run: "LMRun"):
          graph_states=len(rt.graphs), restore_s=restore_s, **build)
 
     seqs, attrs = run.seqs, run.attributes
+    # every beam call of this phase, all on the card, launches beam_f32
+    beams0, calls0 = hnsw_torch.beam_f32.launches, graph_beam_calls()
     for mode in ("sq8", "none"):              # warm-up wave per mode
         rt.quantize = mode
         engine.serve_batch(run.requests["contains"][:8])
     distance_topk.topk_seg_f32.launches = 0
     quant.qtopk_seg_sq8.launches = 0
     distance_topk.reset_tile_stats()
+    waves0 = hnsw_torch.beam_f32.launches
     answers, wave_ms = {}, {}
     with Capture(distance_topk, "topk_seg_f32") as cap_a, \
             Capture(quant, "qtopk_seg_sq8") as cap_b:
@@ -2668,6 +2950,7 @@ def phase_lm_serve(card: str, run: "LMRun"):
                 wave_ms[f"{mode}/{name}"] = (time.perf_counter() - t0) * 1e3
     launches_a = distance_topk.topk_seg_f32.launches
     launches_b = quant.qtopk_seg_sq8.launches
+    launches_beam = hnsw_torch.beam_f32.launches - waves0
     tiles_a = distance_topk.tile_stats()
     tiles_b = distance_topk.tile_stats("qtopk_seg_sq8")
     check(launches_a > 0, "kernel A never launched on the LM path")
@@ -2717,6 +3000,11 @@ def phase_lm_serve(card: str, run: "LMRun"):
                       and np.array_equal(x.distances, y.distances)
                       for x, y in zip(a, b)),
                   f"{name}: the restored engine answers differently")
+    beams = hnsw_torch.beam_f32.launches - beams0
+    calls = graph_beam_calls() - calls0
+    check(beams == calls > 0 and launches_beam > 0,
+          f"beam_f32 launched {beams} times for {calls} beam calls "
+          f"({launches_beam} in the timed waves)")
     emit(phase="lm_serve", card=card, k=K,
          requests={n: len(r) for n, r in run.requests.items()},
          graph_free=free_total, ids_checked=checked,
@@ -2726,7 +3014,9 @@ def phase_lm_serve(card: str, run: "LMRun"):
                                            if graph_recalls else None),
          wave_ms=wave_ms,
          kernel_launches={"topk_seg_f32": launches_a,
-                          "qtopk_seg_sq8": launches_b},
+                          "qtopk_seg_sq8": launches_b,
+                          "beam_f32": launches_beam},
+         beam_calls_in_phase=calls,
          kernel_a_tiles=tiles_a, kernel_b_tiles=tiles_b,
          sq8_stats=dict(rt.sq8_stats), checkpoint_save_s=save_s,
          restored_answers_equal=True)
@@ -2736,7 +3026,8 @@ def phase_lm_serve(card: str, run: "LMRun"):
             "composition_ms", "shape", "tiles_one_call")
     emit(phase="lm_kernels", card=card,
          kernels={m["name"]: {k: m[k] for k in keep} for m in (a, b)})
-    return ({"topk_seg_f32": launches_a, "qtopk_seg_sq8": launches_b},
+    return ({"topk_seg_f32": launches_a, "qtopk_seg_sq8": launches_b,
+             "beam_f32": launches_beam},
             {m["name"]: {k: m[k] for k in keep} for m in (a, b)})
 
 
@@ -2749,7 +3040,7 @@ TRAIN_WARM = 2          # steps 1-2 warm cuBLAS and the allocator
 GRAD_TOL = 2 ** -5       # 4 bf16 ulps of a leaf's largest gradient
 EMBEDDER = dict(name="mamba2-100m", num_layers=12, ssm_chunk=64,
                 vocab_size=8192, dtype="float32")
-EMBEDDER_STEPS, EMBEDDER_CKPT_EVERY = 300, 100
+EMBEDDER_STEPS, EMBEDDER_CKPT_EVERY = 150, 50
 
 
 def _grads(model, batch):
@@ -3010,9 +3301,9 @@ def phase_train_full(card: str) -> None:
 
 def phase_train_embedder(card: str) -> None:
     """``examples/train_embedder.py`` on the card at its own size:
-    mamba2-370m cut to 12 layers, vocab 8,192, fp32, SSD chunk 64, 300
+    mamba2-370m cut to 12 layers, vocab 8,192, fp32, SSD chunk 64, 150
     steps of 8 × 128 with AdamW (lr 3e-3, warmup 20); async checkpoints
-    at steps 100 and 200 and a final one (keep 2); the loss must drop;
+    at steps 50 and 100 and a final one (keep 2); the loss must drop;
     a restore into a fresh model and one more step.  Then 3 steps, a
     checkpoint, a restore and 3 more against 6 uninterrupted steps."""
     import tempfile
@@ -4473,6 +4764,8 @@ def main() -> int:
     if PHASES is not None:
         if "edges" in PHASES:
             phase_edges()
+        if "beam" in PHASES:
+            phase_beam()
         for name, phase in {**TRAIN_PHASES, **DP_PHASES, **FSDP_PHASES,
                             **TP_PHASES, **SERVE_TP_PHASES,
                             **POD_PHASES}.items():
@@ -4510,10 +4803,10 @@ def main() -> int:
 
 
 def run_index_phases(card, lm_run):
-    """The main path, unfiltered, serving, sharded and graphs phases,
-    the last of them while the LM index builds in its child process,
-    then the LM requests on that index; the ``kernels`` line's
-    entries."""
+    """The main path, unfiltered, beam, serving, sharded and graphs
+    phases, the last of them while the LM index builds in its child
+    process, then the LM requests on that index; the ``kernels`` line's
+    entries (``beam_f32``'s launches are the graphs phase's)."""
     (args_a, launches_a, tiles_a), (args_b, launches_b, tiles_b), call, \
         table, serving_inputs = phase_main_path()
     kernels = [measure_kernel_a(*args_a, launches_a, tiles_a),
@@ -4524,6 +4817,7 @@ def run_index_phases(card, lm_run):
     del call
     torch.cuda.empty_cache()
     kernels += phase_unfiltered(table)
+    kernels.append(phase_beam(table))
     del table
     torch.cuda.empty_cache()
     phase_serving(*serving_inputs)
@@ -4539,7 +4833,7 @@ def run_index_phases(card, lm_run):
             line["sharded_shape"] = shapes[line["name"]]
     del serving_inputs
     torch.cuda.empty_cache()
-    phase_graphs()
+    kernels[-1]["launches"] = phase_graphs()     # beam_f32's path
     torch.cuda.empty_cache()
     # while the LM index builds in its child (one host core): the FSDP
     # phases report no parent-process host time but their own child's
@@ -4573,15 +4867,16 @@ SERVE_TP_PHASES = {"serve_tp_parity": phase_serve_tp_parity,
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phases":
         PHASES = set(sys.argv[2].split(","))
-        check(PHASES <= {"build", "edges", *TRAIN_PHASES, *DP_PHASES,
+        check(PHASES <= {"build", "edges", "beam", *TRAIN_PHASES,
+                         *DP_PHASES,
                          *FSDP_PHASES, *TP_PHASES, *SERVE_TP_PHASES,
                          *POD_PHASES},
-              f"--phases takes build, edges, {sorted(TRAIN_PHASES)}, "
+              f"--phases takes build, edges, beam, {sorted(TRAIN_PHASES)}, "
               f"{sorted(DP_PHASES)}, {sorted(FSDP_PHASES)}, "
               f"{sorted(TP_PHASES)}, {sorted(SERVE_TP_PHASES)} and "
               f"{sorted(POD_PHASES)}, not {sorted(PHASES)}")
     elif len(sys.argv) != 1:
-        sys.exit("usage: chip_smoke.py [--phases build,edges,"
+        sys.exit("usage: chip_smoke.py [--phases build,edges,beam,"
                  + ",".join([*TRAIN_PHASES, *DP_PHASES, *FSDP_PHASES,
                              *TP_PHASES, *SERVE_TP_PHASES, *POD_PHASES])
                  + "]")

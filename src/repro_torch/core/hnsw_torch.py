@@ -1,23 +1,26 @@
-"""Batched level-0 HNSW beam search over (graph, query) pairs, in PyTorch.
+"""Batched level-0 HNSW beam search over (graph, query) pairs.
 
 Port of ``hnsw_search_fused`` / ``hnsw_search_fused_filtered`` and
 ``_check_beam_capacity`` (``src/repro/core/hnsw_jax.py:219-270``).  The
-reference vmaps a ``lax.while_loop`` over pairs; a vmapped while loop
-runs the body on every lane and freezes each lane whose condition is
-false, so this port keeps the whole batch in tensors of shape (P, ...)
-and runs at most ``max_iter = 4·ef + 16`` steps, applying each step only
-where the lane is still ``active``.  The host checks ``active.any()``
-every 16 steps — one sync per 16 steps, not per step.
+reference vmaps a ``lax.while_loop`` over pairs and runs it as one
+device program a size bucket.  On CUDA tensors the two entry points
+launch ``beam_f32`` (``kernels/csrc/beam.cu``): one block a pair runs
+the whole loop, one launch a bucket, no host round trip.  On CPU
+tensors they run ``_beam``, the plain PyTorch version and the tests'
+oracle.
 
-The reference's tie rules are kept: the expanded node is the first
-minimum (``torch.argmin``, like ``jnp.argmin``), and each fold sorts
-``[candidates, neighbours]`` with a stable sort, so on equal distance
-the lower position wins as in ``lax.top_k``.  The visited update keeps
-the reference's scatter semantics on the CPU: for repeated indices in
-one neighbour row (padding ``-1`` clips to slot 0) the last write wins.
+``_beam`` keeps the whole batch in tensors of shape (P, ...): a vmapped
+while loop runs the body on every lane and freezes each lane whose
+condition is false, so it runs at most ``max_iter = 4·ef + 16`` steps,
+applying each step only where the lane is still ``active``, and checks
+``active.any()`` every 16 steps.
 
-This is XLA code in the reference, not a Pallas kernel, so plain
-PyTorch is a faithful port; a hand-written CUDA beam is queued.
+The reference's tie rules are kept by both: the expanded node is the
+first minimum (``torch.argmin``, like ``jnp.argmin``), and each fold
+orders ``[candidates, neighbours]`` stably, so on equal distance the
+lower position wins as in ``lax.top_k``.  The visited update keeps the
+reference's scatter semantics on the CPU: for repeated indices in one
+neighbour row (padding ``-1`` clips to slot 0) the last write wins.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ..kernels import _build
+from ..kernels.distance_topk import (_METRICS, _require, check_inputs,
+                                      vec_loads_ok)
 
 _INF = float("inf")
 _CHECK_EVERY = 16
@@ -51,8 +58,8 @@ def _beam(vectors, ids, level0, entry, gidx, queries, *, k: int, ef: int,
           masks: Optional[torch.Tensor] = None,
           midx: Optional[torch.Tensor] = None,
           visited_out: Optional[list] = None):
-    """``visited_out``: receives each pair's count of visited nodes (the
-    vectors the search read), for a measurement of its bytes."""
+    """``visited_out``: receives each pair's visited slots, (P, n_max)
+    bool (``beam_f32(stats=True)`` reports the same)."""
     p_n = int(gidx.shape[0])
     n = int(ids.shape[1])
     dev = queries.device
@@ -143,7 +150,7 @@ def _beam(vectors, ids, level0, entry, gidx, queries, *, k: int, ef: int,
             break
 
     if visited_out is not None:
-        visited_out.append(visited.sum(1))
+        visited_out.append(visited)
     if filtered:
         out_d, out_s = res_d, res_s
     else:
@@ -159,6 +166,113 @@ def _beam(vectors, ids, level0, entry, gidx, queries, *, k: int, ef: int,
     return out_d, out_g.to(torch.int32)
 
 
+EF_MAX = 1024          # the kernel's largest ef-list
+M2_MAX = 128           # its widest neighbour row
+_SMEM_MAX = 232_448    # dynamic shared memory a block may use
+_SMEM_TWO_BLOCKS = 113 * 1024   # the most that leaves two blocks an SM
+
+
+def _beam_smem_bytes(d: int, ef: int, kr: int, m2: int, n: int,
+                    smem_bitmap: bool) -> int:
+    """Dynamic shared memory of one ``beam_f32`` block: the query, the
+    double-buffered ef-list and k-slot result list (``kr`` = k when
+    filtered, else 0), a step's neighbours and, with ``smem_bitmap``,
+    the visited bitmap of ``n`` slots.  Mirrors ``Layout`` in
+    ``csrc/beam.cu``."""
+    def r16(b):
+        return (b + 15) // 16 * 16
+    rs = r16(16 + 4 * d) + 16 * ef + 8 * kr
+    bits = r16(r16(rs + 8 * kr) + 13 * m2 + 2 * ef)
+    return bits + (4 * (-(-n // 32)) if smem_bitmap else 0)
+
+
+def beam_f32(vectors, ids, level0, entry, gidx, queries, *, k: int, ef: int,
+             max_iter: Optional[int] = None, metric: str = "l2",
+             masks: Optional[torch.Tensor] = None,
+             midx: Optional[torch.Tensor] = None, stats: bool = False):
+    """Launch ``csrc/beam.cu`` on CUDA tensors: the fused beam of every
+    pair, ``_beam``'s contract (filtered when ``masks`` and ``midx`` are
+    given).  The visited bitmaps live in shared memory when the block
+    still leaves two blocks an SM, else in a global scratch.  ``stats``
+    also returns a dict: ``bitmap`` (``"shared"`` or ``"global"``, the
+    placement taken), ``steps`` (P,) int32, ``expanded`` (P, max_iter)
+    int32, the slot each step expanded (-1 after the last), and
+    ``visited`` (P, n_max) bool, each pair's visited slots.  ``launches``
+    counts the launches; there is no fallback: what the kernel does not
+    take raises."""
+    _check_beam_capacity(k, ef)
+    _require(metric in _METRICS, f"unknown metric {metric!r}")
+    dev = queries.device
+    p, d = queries.shape
+    v_n = vectors.shape[0]
+    g_n, n = ids.shape
+    m2 = level0.shape[2]
+    filtered = masks is not None
+    _require(filtered == (midx is not None), "masks and midx go together")
+    gidx = gidx.to(torch.int32)
+    specs = [("vectors", vectors, torch.float32, (v_n, d)),
+             ("ids", ids, torch.int32, (g_n, n)),
+             ("level0", level0, torch.int32, (g_n, n, m2)),
+             ("entry", entry, torch.int32, (g_n,)),
+             ("gidx", gidx, torch.int32, (p,)),
+             ("queries", queries, torch.float32, (p, d))]
+    if filtered:
+        midx = midx.to(torch.int32)
+        specs += [("masks", masks, torch.bool, tuple(masks.shape)),
+                  ("midx", midx, torch.int32, (p,))]
+        _require(masks.dim() == 2 and masks.shape[0] > 0
+                 and masks.shape[1] >= v_n,
+                 f"masks must be a (Mn, V) bitmap over the {v_n} rows of "
+                 f"vectors, got {tuple(masks.shape)}")
+    check_inputs(dev, specs)
+    _require(min(p, d, v_n, g_n, n, k) > 0, "empty beam input")
+    _require(ef <= EF_MAX, f"ef={ef} above the kernel's {EF_MAX}")
+    _require(1 <= m2 <= M2_MAX, f"2M={m2} outside the kernel's 1..{M2_MAX}")
+    if max_iter is None:
+        max_iter = 4 * ef + 16
+    kr = k if filtered else 0
+    smem_bitmap = (_beam_smem_bytes(d, ef, kr, m2, n, True)
+                   <= _SMEM_TWO_BLOCKS)
+    _require(_beam_smem_bytes(d, ef, kr, m2, n, smem_bitmap) <= _SMEM_MAX,
+             f"a beam_f32 block needs more than {_SMEM_MAX} bytes of shared "
+             f"memory (d={d}, ef={ef})")
+    _require(dev.type == "cuda", f"beam_f32 runs on CUDA tensors, not {dev}")
+    words = -(-n // 32)
+    bits = (torch.empty((p, words), dtype=torch.int32, device=dev)
+            if stats or not smem_bitmap else None)
+    out_d = torch.empty((p, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((p, k), dtype=torch.int32, device=dev)
+    steps = torch.empty(p, dtype=torch.int32, device=dev) if stats else None
+    expanded = (torch.empty((p, max_iter), dtype=torch.int32, device=dev)
+                if stats else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check("beam_f32", lib.beam_f32(
+        ptr(vectors), ptr(ids), ptr(level0), ptr(entry), ptr(gidx),
+        ptr(queries), ptr(masks), ptr(midx), p, d, n, m2, v_n, g_n,
+        masks.shape[0] if filtered else 0, masks.shape[1] if filtered else 0,
+        k, ef, max_iter, int(metric == "ip"),
+        int(vec_loads_ok(queries, vectors)), int(smem_bitmap),
+        None if smem_bitmap else ptr(bits), ptr(out_d), ptr(out_i),
+        ptr(steps), ptr(expanded), ptr(bits) if smem_bitmap else None,
+        stream))
+    beam_f32.launches += 1
+    if not stats:
+        return out_d, out_i
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    visited = ((bits[:, :, None] >> shifts) & 1).bool().view(p, -1)[:, :n]
+    return out_d, out_i, {"bitmap": "shared" if smem_bitmap else "global",
+                          "steps": steps, "expanded": expanded,
+                          "visited": visited}
+
+
+beam_f32.launches = 0
+
+
 def hnsw_search_fused(vectors, ids, level0, entry, gidx, queries, *, k: int,
                       ef: int, max_iter: Optional[int] = None,
                       metric: str = "l2"):
@@ -168,10 +282,14 @@ def hnsw_search_fused(vectors, ids, level0, entry, gidx, queries, *, k: int,
     unreachable); ``level0`` (G, n_max, 2M) neighbour slots, -1 padded;
     ``entry`` (G,); ``gidx`` (P,) graph per pair; ``queries`` (P, d).
     Returns (P, k) ascending distances and global ids, (+inf, -1)
-    unfilled."""
+    unfilled.  CPU tensors run ``_beam``; CUDA tensors launch
+    ``beam_f32``."""
     _check_beam_capacity(k, ef)
-    return _beam(vectors, ids, level0, entry, gidx, queries, k=k, ef=ef,
-                 max_iter=max_iter, metric=metric)
+    if queries.device.type == "cpu":
+        return _beam(vectors, ids, level0, entry, gidx, queries, k=k, ef=ef,
+                     max_iter=max_iter, metric=metric)
+    return beam_f32(vectors, ids, level0, entry, gidx, queries, k=k, ef=ef,
+                    max_iter=max_iter, metric=metric)
 
 
 def hnsw_search_fused_filtered(vectors, ids, level0, entry, masks, midx,
@@ -183,9 +301,13 @@ def hnsw_search_fused_filtered(vectors, ids, level0, entry, masks, midx,
     traversal beam is unfiltered; a separate k-slot result list folds in
     allowed nodes only."""
     _check_beam_capacity(k, ef)
-    return _beam(vectors, ids, level0, entry, gidx, queries, k=k, ef=ef,
-                 max_iter=max_iter, metric=metric, masks=masks, midx=midx)
+    if queries.device.type == "cpu":
+        return _beam(vectors, ids, level0, entry, gidx, queries, k=k, ef=ef,
+                     max_iter=max_iter, metric=metric, masks=masks,
+                     midx=midx)
+    return beam_f32(vectors, ids, level0, entry, gidx, queries, k=k, ef=ef,
+                    max_iter=max_iter, metric=metric, masks=masks, midx=midx)
 
 
-__all__ = ["hnsw_search_fused", "hnsw_search_fused_filtered",
+__all__ = ["hnsw_search_fused", "hnsw_search_fused_filtered", "beam_f32",
            "_check_beam_capacity"]
