@@ -78,9 +78,17 @@ Phases:
      allowing 10 % and 50 % of ids; integer-valued vectors bit-equal to
      the plain version, float vectors ≥ 99 % of pairs the same ids and
      recall@10 ≥ 0.995 against it; distances within 1e-5 of an fp32
-     recomputation, ids allowed by their masks; the float cases timed
-     beside the plain version and the byte bound (visited nodes and
-     steps from the kernel's optional outputs);
+     recomputation, ids allowed by their masks;
+     the float cases timed beside the plain version and the byte bound
+     (visited nodes and steps from the kernel's optional outputs), the
+     longest pair's steps, µs a step and its clock64() cycles by phase,
+     and the neighbour tables' bytes; then the shapes past the old
+     kernel's limits on a graph of 4,096 nodes (ef = 1,040 with 2M = 33,
+     2M = 130 with ef = 64), integer-valued, bit-equal to the plain
+     version, with the ef-list in shared and in device memory, timed;
+     with a parent checkout unpacked at ``build/parent`` every timed case
+     also times the parent's ``beam_f32`` (parent, change, change,
+     parent), built from its own sources;
   6. serving, on the main path's index (not rebuilt): (a) checkpoint it
      to a temporary directory (bytes, save time) and restore it as a
      ``RetrievalEngine`` (time to the first answered wave; the answers
@@ -124,7 +132,11 @@ Phases:
      the executor's fused, filtered and per-state beam calls); then one
      profiled wave (``graphs_profile``: one ``beam_f32`` kernel a beam
      call, no blocking host call inside the beam's range, and the bound
-     from the kernel's visited and step counts);
+     from the kernel's visited and step counts), and its beam calls
+     launched again and timed (``beam_replay``; beside the parent's
+     kernel when ``build/parent`` holds one), with each wrapper's host
+     work a call (time to return, aten ops, Python calls), and again on
+     integer data of their shapes, bit-equal to the plain version;
   9. the LM, second part: a child process builds the index of the
      embeddings on the host (``T=40, M=8, ef_con=50``, the example's tag
      and price attributes; about 4 minutes of Python HNSW work) from the
@@ -138,7 +150,10 @@ Phases:
      recall@10 of the graph-state CONTAINS requests against the host
      oracle, kernels A and B launched (counted), every beam call of the
      phase one ``beam_f32`` launch, and a checkpoint
-     restored with identical answers; ``lm_kernels`` — kernels A and B
+     restored with identical answers; the request sets' beam calls
+     recorded and run again on integer data of their shapes (d = 2,560,
+     float4 loads, the query in shared and in device memory; d = 2,559,
+     scalar loads), each bit-equal to the plain version; ``lm_kernels`` — kernels A and B
      held against their plain versions at this phase's shape (d = 2,560)
      and timed beside them and their bounds; ``lm_generate_profile`` —
      one decode step under ``torch.profiler`` (last: a traced process
@@ -258,7 +273,9 @@ training; no kernel of the port runs in them either) run last:
 ``--phases build`` or ``--phases build,edges`` runs only those phases
 and stops without the ``kernels`` and ``ok`` lines: a short check of new
 kernels on the card; ``--phases beam`` runs the beam phase on a table
-of its own; ``--phases`` also takes ``train_parity``,
+of its own and ``--phases graphs`` the graphs phase (both beside the
+parent's kernel when ``build/parent`` holds a parent checkout);
+``--phases`` also takes ``train_parity``,
 ``train_full``, ``train_embedder``, ``train_dp_parity``,
 ``train_dp_full`` (which runs ``train_full`` first), ``psum``,
 ``train_fsdp_parity``, ``train_fsdp_full`` (``train_full`` first),
@@ -2123,7 +2140,7 @@ def _graph_free_requests(vm, patterns):
     return sorted(free)
 
 
-def phase_graphs() -> None:
+def phase_graphs():
     import tempfile
 
     from repro_torch.core import hnsw_torch
@@ -2245,11 +2262,16 @@ def phase_graphs() -> None:
           "profiled wave")
     check(all(r["blocking"] == 0 for r in beams.values()),
           f"host syncs inside the beam's range: {beams}")
+    # the wave's beam calls again: this kernel beside the parent's
+    replay = _beam_replay([c for name in _BEAMS for c in calls[name]],
+                          parent_hnsw())
     emit(phase="graphs_profile", wall_ms=wall_ms, device_busy_ms=busy,
          top=top[:4], host_blocked=blocked, beam_kernel=got,
          beam={name: {**beams[name], **_beam_bound(calls[name])}
-               for name in calls})
-    return launches
+               for name in calls}, beam_replay=replay,
+         beam_integer_checks=beam_int_check(
+             [c for name in _BEAMS for c in calls[name]], seed=12))
+    return launches, {"profiled_ms": got["ms"], **replay}
 
 
 GRAPH_BEAMS = ("graph_fused", "graph_fused_filt", "graph_state",
@@ -2292,6 +2314,31 @@ def _beam_ranges(restore: bool = False):
     return {name: {} for name in _BEAMS}, calls
 
 
+def _beam_call(args, kw):
+    """An entry point's recorded call as ``beam_f32``'s arguments:
+    (positional with ``level0``, keywords without ``nbr``, ``nbr``, built
+    from ``level0`` when the call passed none)."""
+    if len(args) == 8:                              # the filtered variant
+        vectors, ids, level0, entry, masks, midx, gidx, queries = args
+        fk = dict(masks=masks, midx=midx)
+    else:
+        vectors, ids, level0, entry, gidx, queries = args
+        fk = {}
+    fk.update({k: kw[k] for k in ("k", "ef", "metric")},
+              max_iter=kw.get("max_iter"))
+    nbr = kw.get("nbr")
+    if nbr is None:
+        from repro_torch.core import hnsw_torch
+        nbr = hnsw_torch.neighbour_table(ids, level0)
+    return (vectors, ids, level0, entry, gidx, queries), fk, nbr
+
+
+def _on_table(args, nbr):
+    """``beam_f32``'s positional arguments: ``args`` (as ``_beam_call``
+    gives them) with ``nbr`` in place of ``level0``."""
+    return args[:2] + (nbr,) + args[3:]
+
+
 def _beam_bound(calls):
     """The least time the beam calls could take: ``beam_bytes`` of each
     call, with the pairs' visited and expanded slots from the kernel's
@@ -2300,17 +2347,12 @@ def _beam_bound(calls):
     from repro_torch.core import hnsw_torch
     nbytes, visited, unique, steps_max = 0, 0, 0, 0
     for args, kw in calls:
-        if len(args) == 8:                          # the filtered variant
-            vectors, ids, level0, entry, masks, midx, gidx, queries = args
-            fk = dict(masks=masks, midx=midx)
-        else:
-            vectors, ids, level0, entry, gidx, queries = args
-            fk, midx = {}, None
-        _, _, st = hnsw_torch.beam_f32(
-            vectors, ids, level0, entry, gidx, queries, stats=True,
-            max_iter=kw.get("max_iter"), **fk,
-            **{k: kw[k] for k in ("k", "ef", "metric")})
-        b = beam_bytes(ids, level0, gidx, queries, kw["k"], st, midx)
+        args, fk, nbr = _beam_call(args, kw)
+        _, ids, level0, _, gidx, queries = args
+        _, _, st = hnsw_torch.beam_f32(*_on_table(args, nbr), stats=True,
+                                       **fk)
+        b = beam_bytes(ids, level0, gidx, queries, kw["k"], st,
+                       fk.get("midx"))
         nbytes += b["bytes"]
         visited += b["visited"]
         unique += b["visited_unique"]
@@ -2318,6 +2360,189 @@ def _beam_bound(calls):
     return {"visited_nodes": visited, "visited_unique": unique,
             "steps_max": steps_max, "bound_bytes": nbytes,
             "bound_ms": nbytes / PEAK_BYTES * 1e3}
+
+
+def _beam_replay(calls, parent) -> dict:
+    """The recorded beam calls of a wave launched again, in their order,
+    by this checkout's ``beam_f32`` and, with ``parent``, the parent
+    checkout's (its kernel reads a contiguous level0 and ids, not the
+    neighbour table), in turns (parent, change, change, parent): ``ms``,
+    all of them from CUDA events (the host's launch gaps included),
+    ``kernel_ms``, their kernels' device time (``torch.profiler``), and
+    each wrapper's host work a call (``host_work``, also in turns)."""
+    from repro_torch.core import hnsw_torch
+    runs = []
+    for args, kw in calls:
+        args, fk, nbr = _beam_call(args, kw)
+        runs.append((_on_table(args, nbr),
+                     args[:2] + (args[2].contiguous(),) + args[3:], fk))
+
+    def change():
+        for args, _, fk in runs:
+            hnsw_torch.beam_f32(*args, **fk)
+
+    def old():
+        for _, args, fk in runs:
+            parent.beam_f32(*args, **fk)
+
+    def kernel_ms(fn, reps=5):
+        # a kernel's mean device time times the calls: a trace of this
+        # length can lose some of its events
+        fn()
+        found = {"beam_f32_kernel": None}
+        device_profile(lambda: [fn() for _ in range(reps)], None, None,
+                       found)
+        got = found["beam_f32_kernel"]
+        return got["ms"] / got["count"] * len(runs)
+    if parent is None:
+        return {"calls": len(runs), "ms": cuda_ms(change, reps=10),
+                "kernel_ms": kernel_ms(change),
+                "host_work": {"change": beam_host_work(change, len(runs))}}
+    host = {"parent": [], "change": []}
+    for name, fn in (("parent", old), ("change", change),
+                     ("change", change), ("parent", old)):
+        host[name].append(beam_host_work(fn, len(runs)))
+    host = {name: {k: (a[k] + b[k]) / 2 for k in a}
+            for name, (a, b) in host.items()}
+    ms, parent_ms = ab_ms(change, old, reps=10)
+    first = kernel_ms(old)
+    kms = (kernel_ms(change) + kernel_ms(change)) / 2
+    return {"calls": len(runs), "ms": ms, "parent_ms": parent_ms,
+            "kernel_ms": kms,
+            "parent_kernel_ms": (first + kernel_ms(old)) / 2,
+            "host_work": host}
+
+
+def beam_host_work(fn, calls: int, reps: int = 50) -> dict:
+    """The host's work a beam call when ``fn`` makes ``calls`` of them:
+    ``host_us``, the mean time ``fn`` takes to return (the card
+    synchronized between repetitions, so no launch waits for room in its
+    queue), and the aten ops (a ``TorchDispatchMode``) and Python calls
+    (``sys.setprofile``) it makes, each a call."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            Ops.n += 1
+            return func(*a, **(kw or {}))
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    py = [0]
+
+    def count(frame, event, arg):
+        if event in ("call", "c_call"):
+            py[0] += 1
+    sys.setprofile(count)
+    fn()
+    sys.setprofile(None)
+    with Ops():
+        fn()
+    torch.cuda.synchronize()
+    return {"host_us": total / reps / calls * 1e6,
+            "aten_ops": Ops.n / calls, "python_calls": py[0] / calls}
+
+
+def beam_int_check(calls, seed: int, most: int = 6) -> dict:
+    """Recorded beam calls (``_beam_ranges``'s), the first of each of up
+    to ``most`` shapes, again on integer-valued vectors and queries in
+    [-3, 3] of the calls' own shapes (every distance exact in fp32):
+    ``beam_f32`` bit-equal to ``_beam`` with the query in shared memory,
+    with the query (and ef-list) in device memory by budgets of 0 bytes,
+    and at d - 1 (float4 loads where d or d - 1 is a multiple of 4,
+    scalar ones at the other).  Returns the checks made and the shapes."""
+    from repro_torch.core import hnsw_torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes, ints, made, found = [], {}, 0, 0
+    for args, kw in calls:
+        args, fk, nbr = _beam_call(args, kw)
+        vectors, ids, level0, entry, gidx, queries = args
+        key = (tuple(nbr.shape), tuple(queries.shape), fk["k"], fk["ef"],
+               fk["metric"], "masks" in fk)
+        if key in shapes:
+            continue
+        if len(shapes) == most:
+            break
+        shapes.append(key)
+        if vectors.shape not in ints:
+            ints[vectors.shape] = torch.randint(
+                -3, 4, vectors.shape, generator=gen, device="cuda").float()
+        iv = ints[vectors.shape]
+        iq = torch.randint(-3, 4, queries.shape, generator=gen,
+                           device="cuda").float()
+        d = iv.shape[1]
+        runs = ((iv, iq, "shared"), (iv, iq, "global"),
+                (iv[:, :d - 1].contiguous(), iq[:, :d - 1].contiguous(),
+                 "shared"))
+        for v, q, place in runs:
+            loads = "float4" if v.shape[1] % 4 == 0 else "scalar"
+            pd, pi = hnsw_torch._beam(v, ids, level0, entry, gidx, q, **fk)
+            saved = hnsw_torch._SMEM_LIST, hnsw_torch._SMEM_QUERY
+            if place == "global":
+                hnsw_torch._SMEM_LIST = hnsw_torch._SMEM_QUERY = 0
+            try:
+                kd, ki, st = hnsw_torch.beam_f32(v, ids, nbr, entry, gidx, q,
+                                                 stats=True, **fk)
+            finally:
+                hnsw_torch._SMEM_LIST, hnsw_torch._SMEM_QUERY = saved
+            tag = f"beam at {key}, d {v.shape[1]}, {loads} loads, " \
+                f"query {place}"
+            check(st["query"] == place, f"{tag}: query {st['query']}")
+            check(torch.equal(ki, pi) and torch.equal(
+                kd.view(torch.int32), pd.view(torch.int32)),
+                f"{tag}: the kernel differs from _beam")
+            found += int((ki >= 0).sum())
+            made += 1
+    check(made > 0, "no beam call to check on integer data")
+    return {"checks": made, "d": d, "ids_found": found,
+            "shapes": [list(map(str, k)) for k in shapes]}
+
+
+def ab_ms(change, parent, reps: int = 5):
+    """Mean ms of ``change`` and of ``parent`` (CUDA events), timed in
+    turns: parent, change, change, parent."""
+    first = cuda_ms(parent, reps)
+    a, b = cuda_ms(change, reps), cuda_ms(change, reps)
+    return (a + b) / 2, (first + cuda_ms(parent, reps)) / 2
+
+
+BEAM_PARENT = ROOT / "build" / "parent"
+
+
+def parent_hnsw():
+    """The parent checkout's ``core.hnsw_torch`` when one is unpacked at
+    ``build/parent`` (``git archive <parent> | tar -x -C build/parent``),
+    imported as package ``repro_torch_parent`` with its kernels built from
+    its own sources into its own tree; None without one.  The beam and
+    graphs phases time its ``beam_f32`` beside this checkout's."""
+    import importlib
+    import importlib.util
+    src = BEAM_PARENT / "src" / "repro_torch"
+    if not (src / "core" / "hnsw_torch.py").exists():
+        return None
+    name = "repro_torch_parent"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, src / "__init__.py", submodule_search_locations=[str(src)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        build = importlib.import_module(name + ".kernels._build")
+        t0 = time.perf_counter()
+        build.library()
+        ptxas, spills = ptxas_summary(build.build_log())
+        emit(phase="beam_parent", root=str(BEAM_PARENT),
+             build_s=time.perf_counter() - t0,
+             ptxas=[ln for ln in ptxas if ln.startswith("beam")],
+             spilling_kernels=[n for n in spills if n.startswith("beam")])
+    return importlib.import_module(name + ".core.hnsw_torch")
 
 
 def beam_bytes(ids, level0, gidx, queries, k, stats, midx=None) -> dict:
@@ -2394,6 +2619,41 @@ def beam_graphs(table: torch.Tensor, seed: int):
                          entry[:1].clone())}
 
 
+BEAM_WIDE = {"ef_1040": (33, 1040), "m2_130": (130, 64)}   # (2M, ef)
+BEAM_WIDE_NODES = 4096
+
+
+def beam_wide_graph(m2: int, seed: int):
+    """(ids, level0, entry) of one graph of BEAM_WIDE_NODES nodes over the
+    table's first rows, each row m2 seeded random neighbours; past 128
+    positions (two chunks of the kernel's row) every eleventh row a real
+    0 at position 127 then pads, the next that row's neighbour at
+    position 3 again at 129."""
+    n = BEAM_WIDE_NODES
+    rng = np.random.default_rng(seed)
+    lvl = rng.integers(1, n, (n, m2)).astype(np.int32)
+    if m2 > 129:
+        lvl[::11, 127] = 0
+        lvl[::11, 128:] = -1
+        lvl[1::11, 129] = lvl[1::11, 3]
+    ids = np.arange(n, dtype=np.int32)[None]
+    entry = np.array([n // 3], np.int32)
+    return tuple(torch.from_numpy(a).cuda() for a in (ids, lvl[None], entry))
+
+
+def beam_split(stats) -> dict:
+    """The longest pair's steps and its clock64() cycles a step by phase
+    (``hnsw_torch._PROF``), from ``beam_f32(stats=True)``."""
+    from repro_torch.core import hnsw_torch
+    steps = stats["steps"]
+    i = int(steps.argmax())
+    n = max(int(steps[i]), 1)
+    cyc = stats["cycles"][i].tolist()
+    return {"steps": int(steps[i]),
+            "cycles_per_step": {name: c / n for name, c in
+                                zip(hnsw_torch._PROF, cyc)}}
+
+
 def phase_beam(table: torch.Tensor = None) -> dict:
     """``beam_f32`` against ``hnsw_torch._beam`` on the main path's table
     (``make_scale_corpus(1_048_576, 128)``; made here when no table is
@@ -2409,16 +2669,23 @@ def phase_beam(table: torch.Tensor = None) -> dict:
     recall@10 against ``_beam`` ≥ 0.995); every
     returned distance within 1e-5 of its fp32 recomputation relative to
     the sum of its terms' magnitudes, every returned id allowed by its
-    mask.  The float cases are timed (CUDA events) beside ``_beam`` and
-    the bound; returns the ``kernels`` line's record."""
+    mask.  The float cases are timed (CUDA events) beside ``_beam``, the
+    bound and, with a parent checkout, the parent's
+    kernel; then the BEAM_WIDE shapes on integer data, bit-equal to
+    ``_beam`` with the ef-list in shared and in device memory, timed.
+    Returns the ``kernels`` line's record."""
     from repro_torch.core import hnsw_torch
+    from repro_torch.kernels import _build
     if table is None:
         from repro_torch.data.corpora import make_scale_corpus
         table = torch.from_numpy(make_scale_corpus(1_048_576, 128)[0]).cuda()
+    parent = parent_hnsw()
     dev = table.device
     v_n, d = table.shape
     t0 = time.perf_counter()
     graphs = beam_graphs(table, seed=5)
+    nbrs = {size: hnsw_torch.neighbour_table(ids, level0)
+            for size, (ids, level0, _) in graphs.items()}
     torch.cuda.synchronize()
     graphs_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev)
@@ -2449,11 +2716,15 @@ def phase_beam(table: torch.Tensor = None) -> dict:
                     fk = ({} if frac is None
                           else dict(masks=masks[frac], midx=midx))
                     args = (vecs, ids, level0, entry, gidx, queries)
+                    targs = _on_table(args, nbrs[size])
                     kw = dict(k=K, ef=BEAM_EF, metric=metric, **fk)
-                    kd, ki, st = hnsw_torch.beam_f32(*args, stats=True, **kw)
-                    check(st["bitmap"] == BEAM_BITMAP[size],
-                          f"beam {tag}: {st['bitmap']} bitmaps, not "
-                          f"{BEAM_BITMAP[size]}")
+                    kd, ki, st = hnsw_torch.beam_f32(*targs, stats=True,
+                                                     **kw)
+                    check((st["bitmap"], st["list"])
+                          == (BEAM_BITMAP[size], "shared"),
+                          f"beam {tag}: {st['bitmap']} bitmaps and "
+                          f"{st['list']} lists, not {BEAM_BITMAP[size]} "
+                          "and shared")
                     plain_visited = []
                     pd, pi = hnsw_torch._beam(*args, max_iter=None, **kw,
                                               visited_out=plain_visited)
@@ -2463,7 +2734,8 @@ def phase_beam(table: torch.Tensor = None) -> dict:
                             "steps_mean": float(steps.float().mean()),
                             "visited_mean": float(
                                 st["visited"].sum(1).float().mean()),
-                            "found_mean": float(found.float().sum(1).mean())}
+                            "found_mean": float(found.float().sum(1).mean()),
+                            "split": beam_split(st)}
                     if kind == "int":
                         check(torch.equal(ki, pi) and torch.equal(
                             kd.view(torch.int32), pd.view(torch.int32)),
@@ -2499,8 +2771,20 @@ def phase_beam(table: torch.Tensor = None) -> dict:
                         check(bool((ok | ~found).all()),
                               f"beam {tag}: an id its mask does not allow")
                     if kind == "float":
-                        line["ms"] = cuda_ms(lambda: hnsw_torch.beam_f32(
-                            *args, **kw))
+                        def change():
+                            hnsw_torch.beam_f32(*targs, **kw)
+                        if parent is None:
+                            line["ms"] = cuda_ms(change, reps=20)
+                        else:
+                            line["ms"], line["parent_ms"] = ab_ms(
+                                change, lambda: parent.beam_f32(*args, **kw),
+                                reps=20)
+                            _, _, pst = parent.beam_f32(*args, stats=True,
+                                                        **kw)
+                            line["parent_steps_max"] = int(pst["steps"].max())
+                            line["parent_us_per_step"] = (
+                                line["parent_ms"] * 1e3
+                                / max(line["parent_steps_max"], 1))
                         line["plain_ms"] = cuda_ms(
                             lambda: hnsw_torch._beam(*args, max_iter=None,
                                                      **kw), reps=1, warmup=0)
@@ -2513,7 +2797,13 @@ def phase_beam(table: torch.Tensor = None) -> dict:
                                     / max(line["steps_max"], 1))
                     cases[tag] = line
                     emit(phase="beam", case=tag, **line)
+    nbr_bytes = {size: t.numel() * t.element_size()
+                 for size, t in nbrs.items()}
+    del graphs, nbrs, masks
+    torch.cuda.empty_cache()
+    wide = phase_beam_wide(data["int"])
     main = cases["bucket/float/l2/unfiltered"]
+    ptxas, spills = ptxas_summary(_build.build_log())
     record = {"name": "beam_f32", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/beam.cu",
               "replaces": "src/repro/core/hnsw_jax.py:233",
@@ -2524,16 +2814,81 @@ def phase_beam(table: torch.Tensor = None) -> dict:
                         "graphs": BEAM_GRAPHS, "d": d, "m2": BEAM_M2,
                         "ef": BEAM_EF, "k": K},
               "steps_max": main["steps_max"],
-              "us_per_step": main["us_per_step"],
-              "cases": {t: {k: c[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "steps_max", "us_per_step",
-                                              "bitmap")}
-                        for t, c in cases.items() if "ms" in c}}
+              "us_per_step": main["us_per_step"], "split": main["split"],
+              "nbr_bytes": nbr_bytes,
+              "ptxas": [ln for ln in ptxas if ln.startswith("beam")],
+              "spilling": [n for n in spills if n.startswith("beam")],
+              "cases": {t: {k: c[k] for k in (
+                  "ms", "parent_ms", "plain_ms", "bound_ms", "steps_max",
+                  "us_per_step", "parent_us_per_step", "bitmap")
+                  if k in c} for t, c in cases.items() if "ms" in c},
+              "wide": wide}
+    if "parent_ms" in main:
+        record["parent_ms"] = main["parent_ms"]
     emit(phase="beam_done", graphs_s=graphs_s, cases=len(cases),
-         max_abs_err=max_err)
-    del graphs, data, masks
+         max_abs_err=max_err, nbr_bytes=nbr_bytes)
+    del data
     torch.cuda.empty_cache()
     return record
+
+
+def phase_beam_wide(data) -> dict:
+    """The BEAM_WIDE shapes (past the earlier kernel's limits of ef 1,024
+    and 2M 128) through the entry points on integer data (``data``:
+    vectors and 64 queries): each bit-equal to ``_beam`` with the
+    kernel's ef-list in shared memory and, by a budget of 0 bytes, in
+    device memory, l2 unfiltered and filtered (half the ids allowed),
+    ``beam_f32`` launched each time; each launch timed."""
+    from repro_torch.core import hnsw_torch
+    vecs, q = data
+    p = int(q.shape[0])
+    gidx = torch.zeros(p, dtype=torch.int32, device=q.device)
+    masks = torch.rand((2, vecs.shape[0]), device=q.device,
+                       generator=torch.Generator(device=q.device)
+                       .manual_seed(9)) < 0.5
+    midx = torch.arange(p, dtype=torch.int32, device=q.device) % 2
+    out = {}
+    for name, (m2, ef) in BEAM_WIDE.items():
+        ids, level0, entry = beam_wide_graph(m2, seed=m2)
+        args = (vecs, ids, level0, entry, gidx, q)
+        targs = _on_table(args, hnsw_torch.neighbour_table(ids, level0))
+        for filt in (False, True):
+            fk = dict(masks=masks, midx=midx) if filt else {}
+            kw = dict(k=K, ef=ef, metric="l2", **fk)
+            pd, pi = hnsw_torch._beam(*args, max_iter=None, **kw)
+            for budget, place in ((hnsw_torch._SMEM_MAX, "shared"),
+                                  (0, "global")):
+                saved = hnsw_torch._SMEM_LIST
+                hnsw_torch._SMEM_LIST = budget
+                try:
+                    before = hnsw_torch.beam_f32.launches
+                    entry_point = (hnsw_torch.hnsw_search_fused_filtered
+                                   if filt else hnsw_torch.hnsw_search_fused)
+                    call_args = ((vecs, ids, level0, entry, masks, midx,
+                                  gidx, q) if filt else args)
+                    kd, ki = entry_point(*call_args, k=K, ef=ef,
+                                         metric="l2")
+                    torch.cuda.synchronize()
+                    check(hnsw_torch.beam_f32.launches == before + 1,
+                          f"beam {name}: beam_f32 was not launched")
+                    _, _, st = hnsw_torch.beam_f32(*targs, stats=True,
+                                                   **kw)
+                    ms = cuda_ms(lambda: hnsw_torch.beam_f32(*targs, **kw),
+                                 reps=3)
+                finally:
+                    hnsw_torch._SMEM_LIST = saved
+                tag = f"{name}/{'filtered' if filt else 'unfiltered'}/{place}"
+                check(torch.equal(ki, pi) and torch.equal(
+                    kd.view(torch.int32), pd.view(torch.int32)),
+                    f"beam {tag}: the kernel differs from _beam")
+                check(st["list"] == place,
+                      f"beam {tag}: {st['list']} list, not {place}")
+                out[tag] = {"m2": m2, "ef": ef, "pairs": p,
+                            "nodes": BEAM_WIDE_NODES, "ms": ms,
+                            "steps_max": int(st["steps"].max()),
+                            "bitmap": st["bitmap"], "list": st["list"]}
+                emit(phase="beam_wide", case=tag, **out[tag])
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -3005,6 +3360,16 @@ def phase_lm_serve(card: str, run: "LMRun"):
     check(beams == calls > 0 and launches_beam > 0,
           f"beam_f32 launched {beams} times for {calls} beam calls "
           f"({launches_beam} in the timed waves)")
+    # the beam at the LM's width: the request sets' beam calls again, on
+    # integer data of their shapes, bit-equal to _beam
+    _, recorded = _beam_ranges()
+    try:
+        for reqs in run.requests.values():
+            engine.serve_batch(reqs)
+    finally:
+        _beam_ranges(restore=True)
+    beam_int = beam_int_check([c for n in _BEAMS for c in recorded[n]],
+                              seed=11)
     emit(phase="lm_serve", card=card, k=K,
          requests={n: len(r) for n, r in run.requests.items()},
          graph_free=free_total, ids_checked=checked,
@@ -3019,7 +3384,7 @@ def phase_lm_serve(card: str, run: "LMRun"):
          beam_calls_in_phase=calls,
          kernel_a_tiles=tiles_a, kernel_b_tiles=tiles_b,
          sq8_stats=dict(rt.sq8_stats), checkpoint_save_s=save_s,
-         restored_answers_equal=True)
+         restored_answers_equal=True, beam_integer_checks=beam_int)
     a = measure_kernel_a(*cap_a.args, launches_a, tiles_a)
     b = measure_kernel_b(cap_b.args[0], launches_b, tiles_b)
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -4766,6 +5131,8 @@ def main() -> int:
             phase_edges()
         if "beam" in PHASES:
             phase_beam()
+        if "graphs" in PHASES:
+            phase_graphs()
         for name, phase in {**TRAIN_PHASES, **DP_PHASES, **FSDP_PHASES,
                             **TP_PHASES, **SERVE_TP_PHASES,
                             **POD_PHASES}.items():
@@ -4833,7 +5200,8 @@ def run_index_phases(card, lm_run):
             line["sharded_shape"] = shapes[line["name"]]
     del serving_inputs
     torch.cuda.empty_cache()
-    kernels[-1]["launches"] = phase_graphs()     # beam_f32's path
+    launches, wave = phase_graphs()              # beam_f32's path
+    kernels[-1].update(launches=launches, code_wave=wave)
     torch.cuda.empty_cache()
     # while the LM index builds in its child (one host core): the FSDP
     # phases report no parent-process host time but their own child's
@@ -4867,16 +5235,17 @@ SERVE_TP_PHASES = {"serve_tp_parity": phase_serve_tp_parity,
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phases":
         PHASES = set(sys.argv[2].split(","))
-        check(PHASES <= {"build", "edges", "beam", *TRAIN_PHASES,
+        check(PHASES <= {"build", "edges", "beam", "graphs", *TRAIN_PHASES,
                          *DP_PHASES,
                          *FSDP_PHASES, *TP_PHASES, *SERVE_TP_PHASES,
                          *POD_PHASES},
-              f"--phases takes build, edges, beam, {sorted(TRAIN_PHASES)}, "
+              f"--phases takes build, edges, beam, graphs, "
+              f"{sorted(TRAIN_PHASES)}, "
               f"{sorted(DP_PHASES)}, {sorted(FSDP_PHASES)}, "
               f"{sorted(TP_PHASES)}, {sorted(SERVE_TP_PHASES)} and "
               f"{sorted(POD_PHASES)}, not {sorted(PHASES)}")
     elif len(sys.argv) != 1:
-        sys.exit("usage: chip_smoke.py [--phases build,edges,beam,"
+        sys.exit("usage: chip_smoke.py [--phases build,edges,beam,graphs,"
                  + ",".join([*TRAIN_PHASES, *DP_PHASES, *FSDP_PHASES,
                              *TP_PHASES, *SERVE_TP_PHASES, *POD_PHASES])
                  + "]")

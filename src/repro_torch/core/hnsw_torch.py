@@ -5,9 +5,22 @@ Port of ``hnsw_search_fused`` / ``hnsw_search_fused_filtered`` and
 reference vmaps a ``lax.while_loop`` over pairs and runs it as one
 device program a size bucket.  On CUDA tensors the two entry points
 launch ``beam_f32`` (``kernels/csrc/beam.cu``): one block a pair runs
-the whole loop, one launch a bucket, no host round trip.  On CPU
-tensors they run ``_beam``, the plain PyTorch version and the tests'
-oracle.
+the whole loop, one launch a bucket, no host round trip, at every shape
+the reference takes (any ef >= k, 2M and d; no limit refuses a beam).
+On CPU tensors they run ``_beam``, the plain PyTorch version and the
+tests' oracle.
+
+The kernel reads each neighbour row as (slot, global id) pairs, the
+``neighbour_table`` of ``ids`` and ``level0``: ``beam_f32`` takes it in
+place of ``level0``.  A CUDA runtime builds it once at upload
+(``PackedRuntime.to_device``), keeps ``level0`` only as its slot plane
+and passes it as the entry points' ``nbr``; they build it when a caller
+passes none.  Placements follow from the shapes (``_beam_placement``,
+cached a shape): the visited bitmaps in shared memory when a pair's
+block stays within ``_SMEM_TWO_BLOCKS``, else in a global scratch; the
+ef-list and result list in shared memory when they fit ``_SMEM_LIST``,
+else in a per-pair global scratch, and then the query too when it does
+not fit ``_SMEM_QUERY``.
 
 ``_beam`` keeps the whole batch in tensors of shape (P, ...): a vmapped
 while loop runs the body on every lane and freezes each lane whose
@@ -25,6 +38,7 @@ neighbour row (padding ``-1`` clips to slot 0) the last write wins.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -166,53 +180,93 @@ def _beam(vectors, ids, level0, entry, gidx, queries, *, k: int, ef: int,
     return out_d, out_g.to(torch.int32)
 
 
-EF_MAX = 1024          # the kernel's largest ef-list
-M2_MAX = 128           # its widest neighbour row
 _SMEM_MAX = 232_448    # dynamic shared memory a block may use
-_SMEM_TWO_BLOCKS = 113 * 1024   # the most that leaves two blocks an SM
+_SMEM_TWO_BLOCKS = 113 * 1024   # the most with the bitmap in shared memory
+_SMEM_LIST = _SMEM_MAX          # the most with the ef-list in shared memory
+_SMEM_QUERY = _SMEM_MAX         # the most with the query in shared memory
+_CH = 128                       # the kernel's neighbour chunk
+_PROF = ("row", "dist", "fold", "barrier")
+
+
+def neighbour_table(ids: torch.Tensor, level0: torch.Tensor) -> torch.Tensor:
+    """(G, n_max, 2M, 2) int32: each neighbour's (slot, global id), the
+    slot as in ``level0`` and its id ``ids[g, slot]`` (-1 where the slot
+    is negative).  ``beam_f32`` reads a step's vectors straight from the
+    row; a CUDA runtime builds it once at upload."""
+    g_n, n = ids.shape
+    slots = level0.to(torch.int32)
+    gid = torch.gather(ids.to(torch.int32), 1,
+                       slots.clamp(0, n - 1).reshape(g_n, -1).long())
+    gid = torch.where(slots >= 0, gid.view(slots.shape), -1)
+    return torch.stack([slots, gid], -1).contiguous()
 
 
 def _beam_smem_bytes(d: int, ef: int, kr: int, m2: int, n: int,
-                    smem_bitmap: bool) -> int:
-    """Dynamic shared memory of one ``beam_f32`` block: the query, the
-    double-buffered ef-list and k-slot result list (``kr`` = k when
-    filtered, else 0), a step's neighbours and, with ``smem_bitmap``,
-    the visited bitmap of ``n`` slots.  Mirrors ``Layout`` in
-    ``csrc/beam.cu``."""
+                     smem_bitmap: bool, list_shared: bool = True,
+                     query_shared: bool = True) -> int:
+    """Dynamic shared memory of one ``beam_f32`` block (one pair): scalars
+    and cycle counters, the query, the double-buffered ef-list and k-slot
+    result list (``kr`` = k when filtered, else 0; 8 bytes an entry), a
+    row chunk's valid neighbours and their keys (min(2M, 128) each) and,
+    with ``smem_bitmap``, the visited bitmap of ``n`` slots.  Mirrors
+    ``Layout`` in ``csrc/beam.cu``."""
     def r16(b):
         return (b + 15) // 16 * 16
-    rs = r16(16 + 4 * d) + 16 * ef + 8 * kr
-    bits = r16(r16(rs + 8 * kr) + 13 * m2 + 2 * ef)
-    return bits + (4 * (-(-n // 32)) if smem_bitmap else 0)
+    o = 96 + (r16(4 * d) if query_shared else 0)
+    o += 16 * (ef + kr) if list_shared else 0
+    o += 16 * min(m2, _CH)
+    return r16(o) + (4 * (-(-n // 32)) if smem_bitmap else 0)
 
 
-def beam_f32(vectors, ids, level0, entry, gidx, queries, *, k: int, ef: int,
+def _beam_placement(d: int, ef: int, kr: int, m2: int, n: int):
+    """(bitmap, list, query) in shared memory, each True or False: the
+    visited bitmap when the whole block fits ``_SMEM_TWO_BLOCKS`` (two
+    blocks an SM), the ef-list and result list when the rest fits
+    ``_SMEM_LIST``, else the query when what stays fits ``_SMEM_QUERY``.
+    Each budget is at most ``_SMEM_MAX``."""
+    return _placement(d, ef, kr, m2, n, _SMEM_TWO_BLOCKS, _SMEM_LIST,
+                      _SMEM_QUERY)
+
+
+@functools.lru_cache(maxsize=1024)
+def _placement(d, ef, kr, m2, n, two_blocks, list_most, query_most):
+    sbm = _beam_smem_bytes(d, ef, kr, m2, n, True) <= two_blocks
+    ls = _beam_smem_bytes(d, ef, kr, m2, n, sbm) <= list_most
+    qs = ls or _beam_smem_bytes(d, ef, kr, m2, n, sbm, False) <= query_most
+    return sbm, ls, qs
+
+
+def beam_f32(vectors, ids, nbr, entry, gidx, queries, *, k: int, ef: int,
              max_iter: Optional[int] = None, metric: str = "l2",
              masks: Optional[torch.Tensor] = None,
              midx: Optional[torch.Tensor] = None, stats: bool = False):
     """Launch ``csrc/beam.cu`` on CUDA tensors: the fused beam of every
     pair, ``_beam``'s contract (filtered when ``masks`` and ``midx`` are
-    given).  The visited bitmaps live in shared memory when the block
-    still leaves two blocks an SM, else in a global scratch.  ``stats``
-    also returns a dict: ``bitmap`` (``"shared"`` or ``"global"``, the
-    placement taken), ``steps`` (P,) int32, ``expanded`` (P, max_iter)
-    int32, the slot each step expanded (-1 after the last), and
-    ``visited`` (P, n_max) bool, each pair's visited slots.  ``launches``
-    counts the launches; there is no fallback: what the kernel does not
-    take raises."""
+    given) at any ef >= k, 2M and d.  ``nbr``: ``neighbour_table(ids,
+    level0)`` in place of ``level0``.  Placements as
+    ``_beam_placement`` says.  ``stats`` also returns a dict: ``bitmap``,
+    ``list`` and ``query`` (``"shared"`` or ``"global"``, the placements
+    taken), ``steps`` (P,) int32, ``expanded`` (P, max_iter) int32, the
+    slot each step expanded (-1 after the last), ``visited`` (P, n_max)
+    bool, each pair's visited slots, and ``cycles`` (P, 4) int64, the
+    clock64() cycles of the first thread of each block's row warp by
+    phase (``_PROF``: the step's start and its row's load, test and
+    compaction; distances; fold, with the visited bits; waits at the
+    block barriers).  ``launches`` counts the launches; there is no
+    fallback: what the kernel does not take raises."""
     _check_beam_capacity(k, ef)
     _require(metric in _METRICS, f"unknown metric {metric!r}")
     dev = queries.device
     p, d = queries.shape
     v_n = vectors.shape[0]
     g_n, n = ids.shape
-    m2 = level0.shape[2]
+    m2 = nbr.shape[2]
     filtered = masks is not None
     _require(filtered == (midx is not None), "masks and midx go together")
     gidx = gidx.to(torch.int32)
     specs = [("vectors", vectors, torch.float32, (v_n, d)),
              ("ids", ids, torch.int32, (g_n, n)),
-             ("level0", level0, torch.int32, (g_n, n, m2)),
+             ("nbr", nbr, torch.int32, (g_n, n, m2, 2)),
              ("entry", entry, torch.int32, (g_n,)),
              ("gidx", gidx, torch.int32, (p,)),
              ("queries", queries, torch.float32, (p, d))]
@@ -225,26 +279,27 @@ def beam_f32(vectors, ids, level0, entry, gidx, queries, *, k: int, ef: int,
                  f"masks must be a (Mn, V) bitmap over the {v_n} rows of "
                  f"vectors, got {tuple(masks.shape)}")
     check_inputs(dev, specs)
-    _require(min(p, d, v_n, g_n, n, k) > 0, "empty beam input")
-    _require(ef <= EF_MAX, f"ef={ef} above the kernel's {EF_MAX}")
-    _require(1 <= m2 <= M2_MAX, f"2M={m2} outside the kernel's 1..{M2_MAX}")
+    _require(min(p, d, v_n, g_n, n, m2, k) > 0, "empty beam input")
+    _require(dev.type == "cuda", f"beam_f32 runs on CUDA tensors, not {dev}")
     if max_iter is None:
         max_iter = 4 * ef + 16
     kr = k if filtered else 0
-    smem_bitmap = (_beam_smem_bytes(d, ef, kr, m2, n, True)
-                   <= _SMEM_TWO_BLOCKS)
-    _require(_beam_smem_bytes(d, ef, kr, m2, n, smem_bitmap) <= _SMEM_MAX,
-             f"a beam_f32 block needs more than {_SMEM_MAX} bytes of shared "
-             f"memory (d={d}, ef={ef})")
-    _require(dev.type == "cuda", f"beam_f32 runs on CUDA tensors, not {dev}")
+    smem_bitmap, list_shared, query_shared = _beam_placement(d, ef, kr, m2,
+                                                             n)
+    vec = vec_loads_ok(queries, vectors)
     words = -(-n // 32)
     bits = (torch.empty((p, words), dtype=torch.int32, device=dev)
             if stats or not smem_bitmap else None)
+    lists = (None if list_shared else
+             torch.empty((p, 2 * (ef + kr), 2), dtype=torch.int32,
+                         device=dev))
     out_d = torch.empty((p, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((p, k), dtype=torch.int32, device=dev)
     steps = torch.empty(p, dtype=torch.int32, device=dev) if stats else None
     expanded = (torch.empty((p, max_iter), dtype=torch.int32, device=dev)
                 if stats else None)
+    prof = (torch.empty((p, len(_PROF)), dtype=torch.int64, device=dev)
+            if stats else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -252,22 +307,25 @@ def beam_f32(vectors, ids, level0, entry, gidx, queries, *, k: int, ef: int,
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check("beam_f32", lib.beam_f32(
-        ptr(vectors), ptr(ids), ptr(level0), ptr(entry), ptr(gidx),
+        ptr(vectors), ptr(ids), ptr(nbr), ptr(entry), ptr(gidx),
         ptr(queries), ptr(masks), ptr(midx), p, d, n, m2, v_n, g_n,
         masks.shape[0] if filtered else 0, masks.shape[1] if filtered else 0,
-        k, ef, max_iter, int(metric == "ip"),
-        int(vec_loads_ok(queries, vectors)), int(smem_bitmap),
-        None if smem_bitmap else ptr(bits), ptr(out_d), ptr(out_i),
-        ptr(steps), ptr(expanded), ptr(bits) if smem_bitmap else None,
-        stream))
+        k, ef, max_iter, int(metric == "ip"), int(vec), int(smem_bitmap),
+        int(list_shared), int(query_shared),
+        None if smem_bitmap else ptr(bits), ptr(lists),
+        ptr(out_d), ptr(out_i), ptr(steps), ptr(expanded), ptr(prof),
+        ptr(bits) if smem_bitmap else None, stream))
     beam_f32.launches += 1
     if not stats:
         return out_d, out_i
     shifts = torch.arange(32, dtype=torch.int32, device=dev)
     visited = ((bits[:, :, None] >> shifts) & 1).bool().view(p, -1)[:, :n]
-    return out_d, out_i, {"bitmap": "shared" if smem_bitmap else "global",
+    place = {True: "shared", False: "global"}
+    return out_d, out_i, {"bitmap": place[smem_bitmap],
+                          "list": place[list_shared],
+                          "query": place[query_shared],
                           "steps": steps, "expanded": expanded,
-                          "visited": visited}
+                          "visited": visited, "cycles": prof}
 
 
 beam_f32.launches = 0
@@ -275,7 +333,7 @@ beam_f32.launches = 0
 
 def hnsw_search_fused(vectors, ids, level0, entry, gidx, queries, *, k: int,
                       ef: int, max_iter: Optional[int] = None,
-                      metric: str = "l2"):
+                      metric: str = "l2", nbr: Optional[torch.Tensor] = None):
     """Beam search over (graph, query) PAIRS of one size bucket.
 
     ``ids`` (G, n_max) local slot → global id (0-padded: padded slots are
@@ -283,19 +341,23 @@ def hnsw_search_fused(vectors, ids, level0, entry, gidx, queries, *, k: int,
     ``entry`` (G,); ``gidx`` (P,) graph per pair; ``queries`` (P, d).
     Returns (P, k) ascending distances and global ids, (+inf, -1)
     unfilled.  CPU tensors run ``_beam``; CUDA tensors launch
-    ``beam_f32``."""
+    ``beam_f32`` on ``nbr`` (``neighbour_table(ids, level0)``, built
+    here when not given)."""
     _check_beam_capacity(k, ef)
     if queries.device.type == "cpu":
         return _beam(vectors, ids, level0, entry, gidx, queries, k=k, ef=ef,
                      max_iter=max_iter, metric=metric)
-    return beam_f32(vectors, ids, level0, entry, gidx, queries, k=k, ef=ef,
+    if nbr is None:
+        nbr = neighbour_table(ids, level0)
+    return beam_f32(vectors, ids, nbr, entry, gidx, queries, k=k, ef=ef,
                     max_iter=max_iter, metric=metric)
 
 
 def hnsw_search_fused_filtered(vectors, ids, level0, entry, masks, midx,
                                gidx, queries, *, k: int, ef: int,
                                max_iter: Optional[int] = None,
-                               metric: str = "l2"):
+                               metric: str = "l2",
+                               nbr: Optional[torch.Tensor] = None):
     """Filtered variant: pair p searches graph ``gidx[p]`` under the
     bitmap ``masks[midx[p]]`` ((Mn, V) bool over global ids).  The
     traversal beam is unfiltered; a separate k-slot result list folds in
@@ -305,9 +367,11 @@ def hnsw_search_fused_filtered(vectors, ids, level0, entry, masks, midx,
         return _beam(vectors, ids, level0, entry, gidx, queries, k=k, ef=ef,
                      max_iter=max_iter, metric=metric, masks=masks,
                      midx=midx)
-    return beam_f32(vectors, ids, level0, entry, gidx, queries, k=k, ef=ef,
+    if nbr is None:
+        nbr = neighbour_table(ids, level0)
+    return beam_f32(vectors, ids, nbr, entry, gidx, queries, k=k, ef=ef,
                     max_iter=max_iter, metric=metric, masks=masks, midx=midx)
 
 
 __all__ = ["hnsw_search_fused", "hnsw_search_fused_filtered", "beam_f32",
-           "_check_beam_capacity"]
+           "neighbour_table", "_check_beam_capacity"]

@@ -95,7 +95,8 @@ import torch
 from ..kernels import ops
 from ..kernels.quant import (quantize_sq8_ext, sq8_supported,
                              topk_sq8_segmented_desc)
-from .hnsw_torch import hnsw_search_fused, hnsw_search_fused_filtered
+from .hnsw_torch import (hnsw_search_fused, hnsw_search_fused_filtered,
+                         neighbour_table)
 from .predicate import CompiledPredicate, CompiledSource
 
 KIND_NONE = -1
@@ -104,6 +105,21 @@ KIND_GRAPH = 1
 
 _EMPTY_F = np.empty(0, np.float32)
 _EMPTY_I = np.empty(0, np.int64)
+
+
+def _graph_arrays(ids, level0, entry, dev,
+                  table: bool) -> Dict[str, torch.Tensor]:
+    """One graph stack on ``dev``: ids (G, n), level0 (G, n, 2M) and entry
+    (G,) as int32; with ``table`` (what the card's beam reads) their
+    neighbour table ``nbr`` (G, n, 2M, 2) too, and level0 then only its
+    slot plane, held in no memory of its own."""
+    out = {name: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+           for name, a in (("ids", ids), ("level0", level0),
+                           ("entry", entry))}
+    if table:
+        out["nbr"] = neighbour_table(out["ids"], out["level0"])
+        out["level0"] = out["nbr"][..., 0]
+    return out
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -524,9 +540,13 @@ class PackedRuntime:
         launch over per bucket.  ``graph_slot`` maps a state to its
         (bucket key, stack row).  Stack padding: ids 0 / neighbours -1 —
         padded slots are unreachable (no entry point or edge leads to
-        them), asserted by the fused-vs-per-graph parity test."""
+        them), asserted by the fused-vs-per-graph parity test.  On CUDA
+        each graph also carries ``nbr``, its neighbour table
+        (``hnsw_torch.neighbour_table``: (slot, global id) pairs), which
+        the card's beam reads in place of level0."""
         if self._dev is None:
             dev = self.device
+            table = dev.type == "cuda"
             self._dev_n = len(self.vectors)
             dmask = np.zeros(self._dev_n, dtype=bool)
             if self.deleted:
@@ -551,11 +571,7 @@ class PackedRuntime:
                     lvl[j, :len(pk["level0"])] = pk["level0"]
                     ent[j] = pk["entry"][0]
                     slots[u] = (bkey, j)
-                buckets[bkey] = {
-                    "ids": torch.from_numpy(ids).to(dev),
-                    "level0": torch.from_numpy(lvl).to(dev),
-                    "entry": torch.from_numpy(ent).to(dev),
-                }
+                buckets[bkey] = _graph_arrays(ids, lvl, ent, dev, table)
             self._dev = {
                 "vectors": torch.from_numpy(
                     np.ascontiguousarray(self.vectors, np.float32)).to(dev),
@@ -563,12 +579,8 @@ class PackedRuntime:
                     self.base_ids.astype(np.int32)).to(dev),
                 "deleted": torch.from_numpy(dmask).to(dev),
                 "graphs": {
-                    u: {"ids": torch.from_numpy(
-                            pk["ids"].astype(np.int32))[None].to(dev),
-                        "level0": torch.from_numpy(
-                            pk["level0"].astype(np.int32))[None].to(dev),
-                        "entry": torch.from_numpy(
-                            pk["entry"][:1].astype(np.int32)).to(dev)}
+                    u: _graph_arrays(pk["ids"][None], pk["level0"][None],
+                                     pk["entry"][:1], dev, table)
                     for u, pk in self.graphs.items()},
                 "graph_buckets": buckets,
                 "graph_slot": slots,
@@ -1391,12 +1403,13 @@ class PackedRuntime:
                 if al is None:
                     d, i = hnsw_search_fused(
                         dev["vectors"], h["ids"], h["level0"], h["entry"],
-                        zero, qd, k=kk, ef=ef_cap, metric=self.metric)
+                        zero, qd, k=kk, ef=ef_cap, metric=self.metric,
+                        nbr=h.get("nbr"))
                 else:
                     d, i = hnsw_search_fused_filtered(
                         dev["vectors"], h["ids"], h["level0"], h["entry"],
                         al, zero, zero, qd, k=k, ef=ef_cap,
-                        metric=self.metric)
+                        metric=self.metric, nbr=h.get("nbr"))
                 ops.record_launch(
                     "graph_state", (u, len(reqs), kk, ef_cap, bitmap_tombs))
                 emit(d, i, reqs)
@@ -1409,7 +1422,7 @@ class PackedRuntime:
                     dev["vectors"], h["ids"], h["level0"], h["entry"],
                     to_dev(compose_mask(allowed))[None], zero, zero,
                     self._rows(queries, reqs), k=k,
-                    ef=ef_cap, metric=self.metric)
+                    ef=ef_cap, metric=self.metric, nbr=h.get("nbr"))
                 self._observe("filtered_graph", len(reqs) * ef_cap,
                               time.perf_counter() - t0)
                 ops.record_launch(
@@ -1460,7 +1473,7 @@ class PackedRuntime:
             d, i = hnsw_search_fused(
                 dev["vectors"], b["ids"], b["level0"], b["entry"],
                 to_dev(gi), qm, k=kk, ef=ef_cap,
-                metric=self.metric)
+                metric=self.metric, nbr=b.get("nbr"))
             ops.record_launch("graph_fused",
                               (bkey, p_pad, kk, ef_cap, self.metric))
             self.traffic["query_bytes"] += p_pad * (d_dim * 4 + 4)
@@ -1485,7 +1498,7 @@ class PackedRuntime:
             d, i = hnsw_search_fused_filtered(
                 dev["vectors"], b["ids"], b["level0"], b["entry"],
                 to_dev(mm), to_dev(mi_arr), to_dev(gi),
-                qm, k=k, ef=ef_cap, metric=self.metric)
+                qm, k=k, ef=ef_cap, metric=self.metric, nbr=b.get("nbr"))
             self._observe("filtered_graph", p * ef_cap,
                           time.perf_counter() - t0)
             ops.record_launch("graph_fused_filt",

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "topk_f32": [_P] * 5 + [_I] * 11 + [_P] * 4,
     "qtopk_sq8": [_P] * 8 + [_I] * 7 + [_P] * 4,
     "pairwise_f32": [_P] * 2 + [_I] * 8 + [_P] * 2,
-    "beam_f32": [_P] * 8 + [_I] * 14 + [_P] * 7,
+    "beam_f32": [_P] * 8 + [_I] * 16 + [_P] * 9,
 }
 
 _lock = threading.Lock()
