@@ -98,6 +98,7 @@ from ..kernels.quant import (quantize_sq8_ext, sq8_supported,
 from .hnsw_torch import (hnsw_search_fused, hnsw_search_fused_filtered,
                          neighbour_table)
 from .predicate import CompiledPredicate, CompiledSource
+from .trace import Trace
 
 KIND_NONE = -1
 KIND_RAW = 0
@@ -426,12 +427,21 @@ class PackedRuntime:
         self.sq8_escalate = True
         self._sq8_bad_streak = 0
         self.SQ8_MAX_STREAK = 3
-        # cumulative per-wave wall-clock (ms), surfaced by
-        # maintenance_stats as time_*_ms.  Device dispatch is async, so
-        # launch_ms is trace+dispatch cost and merge_ms absorbs the sync.
-        self.wave_times: Dict[str, float] = {
-            "plan_ms": 0.0, "upload_ms": 0.0, "launch_ms": 0.0,
-            "merge_ms": 0.0}
+        # host spans of the query path; ``build`` hands over the owning
+        # index's, whose totals outlive this generation
+        self.trace = Trace()
+
+    @property
+    def wave_times(self) -> Dict[str, float]:
+        """Cumulative host ms by stage, read from the span totals
+        (``trace.STAGE_MS``; ``maintenance_stats``' ``time_*_ms``):
+        ``plan_ms``, ``upload_ms`` (scan assembly), ``launch_ms`` (scan and
+        beam launches; dispatch is asynchronous, so launch cost, not
+        device time), ``merge_ms`` (the host merge at dispatch and fetch)
+        and ``wait_ms`` (fetch's wait for the device); then every span's
+        ``span.<name>.n`` / ``.ms`` / ``.self_ms``.  A snapshot: writing
+        to it changes nothing."""
+        return self.trace.wave_times()
 
     # ------------------------------------------------------------------ #
     # construction
@@ -520,8 +530,9 @@ class PackedRuntime:
         # live view for the same reason as sequences: attribute leaves
         # evaluate post-freeze inserts host-side at compile time
         rt.attributes = getattr(vm, "attributes", rt.attributes)
-        # the index-owned planner: feedback outlives this generation
+        # the index-owned planner and trace: both outlive this generation
         rt.planner = getattr(vm, "planner", None)
+        rt.trace = getattr(vm, "trace", None) or rt.trace
         return rt
 
     # ------------------------------------------------------------------ #
@@ -795,6 +806,12 @@ class PackedRuntime:
         ``serve.step`` staging slot), which uploads asynchronously; on the
         torch backend the wave's queries upload once and every stage
         gathers its rows on the device."""
+        with self.trace.span("executor.dispatch"):
+            return self._dispatch(queries, plan, k, ef_search)
+
+    def _dispatch(self, queries, plan: QueryPlan, k: int,
+                  ef_search: int) -> PendingExecution:
+        tr = self.trace
         if plan.generation != self.generation:
             raise ValueError(
                 f"stale plan: compiled against generation "
@@ -809,7 +826,8 @@ class PackedRuntime:
                 f"{self.delta.version} — an insert landed between plan "
                 "and execute, so the plan's delta id lists are "
                 "incomplete; re-plan (query_batch does this per batch)")
-        queries, qdev = self._wave_queries(queries)
+        with tr.span("executor.queries"):
+            queries, qdev = self._wave_queries(queries)
         out: List[Tuple[np.ndarray, np.ndarray]] = [
             (_EMPTY_F, _EMPTY_I)] * plan.n_requests
         parts: List[List[Tuple[np.ndarray, np.ndarray]]] = [
@@ -823,8 +841,9 @@ class PackedRuntime:
         if not plan.entries:
             pending.fetched = True
             return pending
-        scan_items, graph_shared, graph_filtered, residual_items = (
-            self._gather_work(plan))
+        with tr.span("executor.gather"):
+            scan_items, graph_shared, graph_filtered, residual_items = (
+                self._gather_work(plan))
         if self.backend == "torch":
             self.traffic["batches"] += 1
             if self.quantize == "sq8":
@@ -833,31 +852,32 @@ class PackedRuntime:
             else:
                 self._execute_scan_device(qdev, scan_items, k, launches,
                                           dev_parts)
-            t0 = time.perf_counter()
-            self._execute_graphs_device(qdev, graph_shared, graph_filtered,
-                                        k, ef_search, launches, dev_parts)
-            self.wave_times["launch_ms"] += (time.perf_counter() - t0) * 1e3
+            with tr.span("executor.graphs"):
+                self._execute_graphs_device(qdev, graph_shared,
+                                            graph_filtered, k, ef_search,
+                                            launches, dev_parts)
         else:
             self._execute_scan_host(queries, scan_items, k, parts)
             self._execute_graphs_host(queries, graph_shared, graph_filtered,
                                       k, ef_search, parts)
         for e, s in residual_items:
-            self._execute_residual(queries if qdev is None else qdev, e, s,
-                                   k, parts)
+            with tr.span("executor.residual"):
+                self._execute_residual(queries if qdev is None else qdev,
+                                       e, s, k, parts)
         # device-merge half that can be DISPATCHED now: requests whose
         # parts are all launch rows fold on device; the (R, k) result
         # stays a device future until fetch
-        t0 = time.perf_counter()
-        n = plan.n_requests
-        if launches and self.device_merge:
-            pending.dev_only = [r for r in range(n)
-                                if dev_parts[r] and not parts[r]]
-        if pending.dev_only:
-            pending.merged = self._merge_device_launch(
-                pending.dev_only, launches, dev_parts, k)
+        with tr.span("executor.merge_dispatch"):
+            n = plan.n_requests
+            if launches and self.device_merge:
+                pending.dev_only = [r for r in range(n)
+                                    if dev_parts[r] and not parts[r]]
+            if pending.dev_only:
+                pending.merged = self._merge_device_launch(
+                    pending.dev_only, launches, dev_parts, k)
         if self.backend == "torch":
-            self._queue_host_copies(pending)
-        self.wave_times["merge_ms"] += (time.perf_counter() - t0) * 1e3
+            with tr.span("executor.host_copies"):
+                self._queue_host_copies(pending)
         return pending
 
     def _wave_queries(self, queries):
@@ -917,9 +937,13 @@ class PackedRuntime:
         fetches wave N while wave N+1 is already executing."""
         if pending.fetched:
             return pending.out
-        t0 = time.perf_counter()
-        self._merge_fetch(pending)
-        self.wave_times["merge_ms"] += (time.perf_counter() - t0) * 1e3
+        tr = self.trace
+        with tr.span("executor.fetch"):
+            if pending.ready is not None:
+                with tr.span("executor.device_wait"):
+                    pending.ready.synchronize()   # this wave's copies only
+            with tr.span("executor.assemble"):
+                self._merge_fetch(pending)
         pending.fetched = True
         return pending.out
 
@@ -930,14 +954,13 @@ class PackedRuntime:
         dispatch (``merge_topk_device``) — here their (R, k) rows cross
         to the host; the rest — host backend, or residual parts present —
         run the NumPy merge, which is the bit-exactness oracle
-        (``device_merge=False`` forces it everywhere)."""
+        (``device_merge=False`` forces it everywhere).  On the card the
+        caller has waited on ``pending.ready``."""
         plan, launches, dev_parts, parts, k, out = (
             pending.plan, pending.launches, pending.dev_parts,
             pending.parts, pending.k, pending.out)
         n = plan.n_requests
         dev_only = pending.dev_only
-        if pending.ready is not None:
-            pending.ready.synchronize()       # this wave's copies only
         if pending.host_merged is not None:
             md, mi = (pending.host_merged[0].numpy(),
                       pending.host_merged[1].numpy())
@@ -1217,23 +1240,20 @@ class PackedRuntime:
         OR-union scans, masked conjunction scans alike.  Entries with
         several sources expand into one query row per (request, source)
         pair; outputs stay on device for the merge fold."""
-        t0 = time.perf_counter()
-        flat = self._assemble_scan_batch(queries, scan_items)
-        self.wave_times["upload_ms"] += (time.perf_counter() - t0) * 1e3
+        with self.trace.span("executor.scan_assemble"):
+            flat = self._assemble_scan_batch(queries, scan_items)
         if flat is None:
             return
         (q_rows, q_owner, dstarts, dlens, downers, tres_i, tres_ow,
          tship_i, tship_ow, rows) = flat
         dev = self.to_device()
-        t0 = time.perf_counter()
-        v, g = ops.topk_segmented_desc(
-            dev["vectors"], dev["base_ids"], dev["deleted"],
-            self._rows(queries, q_rows), q_owner, dstarts, dlens, downers,
-            tres_i, tres_ow, tship_i, rows, tship_ow, k,
-            metric=self.metric, accum=self.accum)
-        dt = time.perf_counter() - t0
-        self.wave_times["launch_ms"] += dt * 1e3
-        self._observe("scan", self._scan_units(scan_items), dt)
+        with self.trace.span("executor.scan_launch") as launch:
+            v, g = ops.topk_segmented_desc(
+                dev["vectors"], dev["base_ids"], dev["deleted"],
+                self._rows(queries, q_rows), q_owner, dstarts, dlens,
+                downers, tres_i, tres_ow, tship_i, rows, tship_ow, k,
+                metric=self.metric, accum=self.accum)
+        self._observe("scan", self._scan_units(scan_items), launch.seconds)
         li = len(launches)
         launches.append((v, g))
         for row, r in enumerate(q_rows):
@@ -1272,42 +1292,43 @@ class PackedRuntime:
                                       dev_parts)
             return
         overfetch = max(1, min(4, 128 // max(k, 1)))
-        t0 = time.perf_counter()
-        flat = self._assemble_scan_batch(queries, scan_items)
-        self.wave_times["upload_ms"] += (time.perf_counter() - t0) * 1e3
+        tr = self.trace
+        with tr.span("executor.scan_assemble"):
+            flat = self._assemble_scan_batch(queries, scan_items)
         if flat is None:
             return
         (q_rows, q_owner, dstarts, dlens, downers, tres_i, tres_ow,
          tship_i, tship_ow, rows) = flat
         dev = self.to_device()
         self.sq8_stats["batches"] += 1
-        t0 = time.perf_counter()
-        x = self._rows(queries, q_rows)
-        v, g, cert = topk_sq8_segmented_desc(
-            dev["vectors"], dev["quant"], dev["base_ids"], dev["deleted"],
-            x, q_owner, dstarts, dlens, downers,
-            tres_i, tres_ow, tship_i, rows, tship_ow, k,
-            overfetch=overfetch)
-        if not self.sq8_escalate:
-            # approximate operating point: trust the rerank, never read
-            # the certificate back (no device sync on the hot path)
-            pass
-        elif bool(cert.all()):                      # device sync
-            self.sq8_stats["certified"] += 1
-            self._sq8_bad_streak = 0
-        else:
-            # quantization noise could have pushed a true top-k candidate
-            # out of the over-fetched set: redo the whole batch exactly
-            v, g = ops.topk_segmented_desc(
-                dev["vectors"], dev["base_ids"], dev["deleted"],
-                x, q_owner, dstarts, dlens, downers,
+        with tr.span("executor.scan_launch") as launch:
+            x = self._rows(queries, q_rows)
+            v, g, cert = topk_sq8_segmented_desc(
+                dev["vectors"], dev["quant"], dev["base_ids"],
+                dev["deleted"], x, q_owner, dstarts, dlens, downers,
                 tres_i, tres_ow, tship_i, rows, tship_ow, k,
-                metric=self.metric, accum=self.accum)
-            self.sq8_stats["escalations"] += 1
-            self._sq8_bad_streak += 1
-        dt = time.perf_counter() - t0
-        self.wave_times["launch_ms"] += dt * 1e3
-        self._observe("scan", self._scan_units(scan_items), dt)
+                overfetch=overfetch)
+            # with sq8_escalate off (the approximate operating point) the
+            # rerank is trusted and the certificate never read back: no
+            # device sync on the hot path
+            if self.sq8_escalate:
+                with tr.span("executor.sq8_certificate"):
+                    certified = bool(cert.all())       # device sync
+                if certified:
+                    self.sq8_stats["certified"] += 1
+                    self._sq8_bad_streak = 0
+                else:
+                    # quantization noise could have pushed a true top-k
+                    # candidate out of the over-fetched set: redo the
+                    # whole batch exactly
+                    v, g = ops.topk_segmented_desc(
+                        dev["vectors"], dev["base_ids"], dev["deleted"],
+                        x, q_owner, dstarts, dlens, downers,
+                        tres_i, tres_ow, tship_i, rows, tship_ow, k,
+                        metric=self.metric, accum=self.accum)
+                    self.sq8_stats["escalations"] += 1
+                    self._sq8_bad_streak += 1
+        self._observe("scan", self._scan_units(scan_items), launch.seconds)
         li = len(launches)
         launches.append((v, g))
         for row, r in enumerate(q_rows):
@@ -1362,6 +1383,7 @@ class PackedRuntime:
         one launch per state (the parity oracle)."""
         if not graph_shared and not graph_filtered:
             return
+        tr = self.trace
         dev = self.to_device()
         dn = self._dev_n
         kk, ef_cap, bitmap_tombs = self._graph_fetch_width(k, ef_search)
@@ -1400,16 +1422,17 @@ class PackedRuntime:
                 zero = torch.zeros(len(reqs), dtype=torch.int64,
                                    device=self.device)
                 qd = self._rows(queries, reqs)
-                if al is None:
-                    d, i = hnsw_search_fused(
-                        dev["vectors"], h["ids"], h["level0"], h["entry"],
-                        zero, qd, k=kk, ef=ef_cap, metric=self.metric,
-                        nbr=h.get("nbr"))
-                else:
-                    d, i = hnsw_search_fused_filtered(
-                        dev["vectors"], h["ids"], h["level0"], h["entry"],
-                        al, zero, zero, qd, k=k, ef=ef_cap,
-                        metric=self.metric, nbr=h.get("nbr"))
+                with tr.span("executor.graph_launch"):
+                    if al is None:
+                        d, i = hnsw_search_fused(
+                            dev["vectors"], h["ids"], h["level0"],
+                            h["entry"], zero, qd, k=kk, ef=ef_cap,
+                            metric=self.metric, nbr=h.get("nbr"))
+                    else:
+                        d, i = hnsw_search_fused_filtered(
+                            dev["vectors"], h["ids"], h["level0"],
+                            h["entry"], al, zero, zero, qd, k=k, ef=ef_cap,
+                            metric=self.metric, nbr=h.get("nbr"))
                 ops.record_launch(
                     "graph_state", (u, len(reqs), kk, ef_cap, bitmap_tombs))
                 emit(d, i, reqs)
@@ -1417,14 +1440,14 @@ class PackedRuntime:
                 h = dev["graphs"][u]
                 zero = torch.zeros(len(reqs), dtype=torch.int64,
                                    device=self.device)
-                t0 = time.perf_counter()
-                d, i = hnsw_search_fused_filtered(
-                    dev["vectors"], h["ids"], h["level0"], h["entry"],
-                    to_dev(compose_mask(allowed))[None], zero, zero,
-                    self._rows(queries, reqs), k=k,
-                    ef=ef_cap, metric=self.metric, nbr=h.get("nbr"))
+                with tr.span("executor.graph_launch") as launch:
+                    d, i = hnsw_search_fused_filtered(
+                        dev["vectors"], h["ids"], h["level0"], h["entry"],
+                        to_dev(compose_mask(allowed))[None], zero, zero,
+                        self._rows(queries, reqs), k=k,
+                        ef=ef_cap, metric=self.metric, nbr=h.get("nbr"))
                 self._observe("filtered_graph", len(reqs) * ef_cap,
-                              time.perf_counter() - t0)
+                              launch.seconds)
                 ops.record_launch(
                     "graph_state_filt", (u, len(reqs), k, ef_cap))
                 emit(d, i, reqs)
@@ -1449,31 +1472,34 @@ class PackedRuntime:
                 fr["midx"].append(mi)
                 fr["reqs"].append(r)
 
-        for u, reqs in graph_shared.items():
-            if bitmap_tombs:
-                add_filtered(u, "tombstones", None, reqs)
-                continue
-            bkey, slot = dev["graph_slot"][u]
-            sl, rq = plain.setdefault(bkey, ([], []))
-            for r in reqs:
-                sl.append(slot)
-                rq.append(r)
-        for u, allowed, reqs in graph_filtered:
-            add_filtered(u, id(allowed), allowed, reqs)
+        with tr.span("executor.graph_masks"):
+            for u, reqs in graph_shared.items():
+                if bitmap_tombs:
+                    add_filtered(u, "tombstones", None, reqs)
+                    continue
+                bkey, slot = dev["graph_slot"][u]
+                sl, rq = plain.setdefault(bkey, ([], []))
+                for r in reqs:
+                    sl.append(slot)
+                    rq.append(r)
+            for u, allowed, reqs in graph_filtered:
+                add_filtered(u, id(allowed), allowed, reqs)
 
         for bkey, (slots, reqs) in plain.items():
             b = dev["graph_buckets"][bkey]
             p = len(reqs)
             p_pad = ops.bucket(p, 8)
-            gi = np.zeros(p_pad, np.int32)
-            gi[:p] = slots
-            qm = torch.zeros((p_pad, d_dim), dtype=torch.float32,
-                             device=self.device)
-            qm[:p] = self._rows(queries, reqs)
-            d, i = hnsw_search_fused(
-                dev["vectors"], b["ids"], b["level0"], b["entry"],
-                to_dev(gi), qm, k=kk, ef=ef_cap,
-                metric=self.metric, nbr=b.get("nbr"))
+            with tr.span("executor.graph_assemble"):
+                gi = np.zeros(p_pad, np.int32)
+                gi[:p] = slots
+                qm = torch.zeros((p_pad, d_dim), dtype=torch.float32,
+                                 device=self.device)
+                qm[:p] = self._rows(queries, reqs)
+            with tr.span("executor.graph_launch"):
+                d, i = hnsw_search_fused(
+                    dev["vectors"], b["ids"], b["level0"], b["entry"],
+                    to_dev(gi), qm, k=kk, ef=ef_cap,
+                    metric=self.metric, nbr=b.get("nbr"))
             ops.record_launch("graph_fused",
                               (bkey, p_pad, kk, ef_cap, self.metric))
             self.traffic["query_bytes"] += p_pad * (d_dim * 4 + 4)
@@ -1483,24 +1509,25 @@ class PackedRuntime:
             b = dev["graph_buckets"][bkey]
             p = len(fr["reqs"])
             p_pad = ops.bucket(p, 8)
-            gi = np.zeros(p_pad, np.int32)
-            gi[:p] = fr["slots"]
-            mi_arr = np.zeros(p_pad, np.int32)
-            mi_arr[:p] = fr["midx"]
-            qm = torch.zeros((p_pad, d_dim), dtype=torch.float32,
-                             device=self.device)
-            qm[:p] = self._rows(queries, fr["reqs"])
             mn_pad = ops.bucket(len(fr["masks"]), 1)
-            mm = np.zeros((mn_pad, dn), dtype=bool)
-            for j, m in enumerate(fr["masks"]):
-                mm[j] = m
-            t0 = time.perf_counter()
-            d, i = hnsw_search_fused_filtered(
-                dev["vectors"], b["ids"], b["level0"], b["entry"],
-                to_dev(mm), to_dev(mi_arr), to_dev(gi),
-                qm, k=k, ef=ef_cap, metric=self.metric, nbr=b.get("nbr"))
-            self._observe("filtered_graph", p * ef_cap,
-                          time.perf_counter() - t0)
+            with tr.span("executor.graph_assemble"):
+                gi = np.zeros(p_pad, np.int32)
+                gi[:p] = fr["slots"]
+                mi_arr = np.zeros(p_pad, np.int32)
+                mi_arr[:p] = fr["midx"]
+                qm = torch.zeros((p_pad, d_dim), dtype=torch.float32,
+                                 device=self.device)
+                qm[:p] = self._rows(queries, fr["reqs"])
+                mm = np.zeros((mn_pad, dn), dtype=bool)
+                for j, m in enumerate(fr["masks"]):
+                    mm[j] = m
+            with tr.span("executor.graph_launch") as launch:
+                d, i = hnsw_search_fused_filtered(
+                    dev["vectors"], b["ids"], b["level0"], b["entry"],
+                    to_dev(mm), to_dev(mi_arr), to_dev(gi),
+                    qm, k=k, ef=ef_cap, metric=self.metric,
+                    nbr=b.get("nbr"))
+            self._observe("filtered_graph", p * ef_cap, launch.seconds)
             ops.record_launch("graph_fused_filt",
                               (bkey, p_pad, mn_pad, k, ef_cap, self.metric))
             self.traffic["mask_bytes"] += mn_pad * dn

@@ -50,7 +50,6 @@ from __future__ import annotations
 
 import queue as queue_mod
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -62,6 +61,7 @@ from .esam import ESAM, ROOT
 from .hnsw import HNSW
 from .packed import PackedRuntime, QueryPlan, VectorStore
 from .planner import AdaptivePlanner
+from .trace import STAGE_MS, Trace
 from .predicate import CompiledPredicate, Predicate, as_predicate, \
     compile_predicate
 
@@ -180,6 +180,8 @@ class VectorMaton:
         # measured winners survive compactions (DESIGN.md §11).  Raises
         # on an unknown plan_mode before any build work happens.
         self.planner = AdaptivePlanner(self.config.plan_mode)
+        # host spans of the query path, index-owned for the same reason
+        self.trace = Trace()
         for s in sequences:
             self.esam.add_sequence(s)
         self.esam.finalize()
@@ -430,9 +432,8 @@ class VectorMaton:
         runtime snapshot, so a mid-batch compaction swap cannot mix
         generations."""
         rt = self.snapshot()
-        t0 = time.perf_counter()
-        plan = self.plan(patterns, rt)
-        rt.wave_times["plan_ms"] += (time.perf_counter() - t0) * 1e3
+        with rt.trace.span("planner.plan"):
+            plan = self.plan(patterns, rt)
         return rt.execute(queries, plan, k, ef_search=ef_search)
 
     # ------------------------------------------------------------------ #
@@ -623,13 +624,17 @@ class VectorMaton:
             for key, val in rt.traffic.items():
                 out[f"traffic_{key}"] = val
             # SQ8 scan-path accounting (certified vs escalated vs
-            # fell-back batches) and the per-wave wall-clock breakdown.
-            # Launch time is trace+dispatch (device dispatch is async);
-            # the merge wave absorbs the device sync.
+            # fell-back batches) and the per-wave wall-clock breakdown by
+            # stage (``PackedRuntime.wave_times``: launch time is launch
+            # cost, device dispatch being async; wait_ms is the fetch's
+            # wait for the device)
             for key, val in rt.sq8_stats.items():
                 out[f"sq8_{key}"] = val
-            for key, val in rt.wave_times.items():
-                out[f"time_{key}"] = val
+            times = rt.wave_times
+            for key in STAGE_MS:
+                out[f"time_{key}"] = times[key]
+        # every host span that ran: count, total and self ms
+        out["spans"] = self.trace.table()
         # adaptive-planner trace (DESIGN.md §11): estimates vs observed,
         # strategy switches, cache-replayed winners
         out.update(self.planner.stats())

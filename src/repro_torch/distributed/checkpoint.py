@@ -165,6 +165,7 @@ def load_vectormaton(cls, path: str, config=None, device: str = "cuda"):
     from ..core.esam import ESAM
     from ..core.hnsw import HNSW
     from ..core.planner import AdaptivePlanner
+    from ..core.trace import Trace
     from ..core.vectormaton import (VectorMatonConfig, _HNSW, _RAW,
                                     _StateIndex, check_config)
     states = np.load(os.path.join(path, "states.npz"))
@@ -194,6 +195,7 @@ def load_vectormaton(cls, path: str, config=None, device: str = "cuda"):
     # measurements — deliberately not persisted; calibration defaults
     # re-seed it and feedback re-accumulates on the restored host)
     vm.planner = AdaptivePlanner(config.plan_mode)
+    vm.trace = Trace()
     # write-path counters: resume generation numbering past the saved one
     # (the restored runtime is a fresh generation — the saved delta's
     # inserts are already embedded in the state indexes / vector table)

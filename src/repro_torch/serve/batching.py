@@ -142,6 +142,9 @@ class ContinuousBatcher:
         self.request_timeout_s = request_timeout_s
         self.tenant_weights: Dict[str, float] = dict(tenant_weights or {})
         self._queue: List[_Queued] = []
+        # Σ t_arrival over the queue: admission reads a wave's queue wait
+        # from it with one clock reading, not a pass over the wave
+        self._arrivals = 0.0
         self._seq = 0
         self._deferred: Dict[int, int] = {}
         self._writes: Deque[Tuple] = deque()
@@ -169,16 +172,21 @@ class ContinuousBatcher:
         compiler's selectivity estimate (Σ|V_state| over the compiled
         sources) — boolean predicates are priced by the candidate rows
         their strategies will actually touch."""
+        t0 = time.perf_counter()
+        index = self.engine.index
         with self.engine._lock:              # pred-cache is shared state
-            cp = self.engine.index.compile(req.pattern)
-        t = time.perf_counter()
+            c0 = time.perf_counter()
+            cp = index.compile(req.pattern)
+        t = time.perf_counter()              # compile's end and arrival
         with self._lock:
             q = _Queued(sort_key=(t, self._seq), seq=self._seq,
                         request=req, key=cp.key, cost=cp.est, t_arrival=t)
             heapq.heappush(self._queue, q)
+            self._arrivals += t
             self._seq += 1
             self._tenants.setdefault(req.tenant, _TenantState())
-            return q.seq
+        index.trace.request(t0, c0, t, time.perf_counter(), q.seq)
+        return q.seq
 
     def pending(self) -> int:
         with self._lock:
@@ -269,14 +277,25 @@ class ContinuousBatcher:
         still opens the wave unconditionally, and a budget-blocked head
         ticks its deferral exactly once per wave, so the single-tenant
         invariants (head always admits; ≤1 new deferral per wave) carry
-        over."""
+        over.
+
+        The wave's queue wait, each request's arrival to this admission,
+        goes to the index's ``batcher.queue_wait`` total."""
+        t = time.perf_counter()
         with self._lock:
             if not self._queue:
                 return []
+            before = self._arrivals
             tenants = {q.request.tenant for q in self._queue}
             if len(tenants) <= 1:
-                return self._next_wave_fifo()
-            return self._next_wave_drr()
+                wave = self._next_wave_fifo()
+            else:
+                wave = self._next_wave_drr()
+            if not self._queue:
+                self._arrivals = 0.0        # drop the sum's rounding
+            waited = len(wave) * t - (before - self._arrivals)
+        self.engine.index.trace.add("batcher.queue_wait", len(wave), waited)
+        return wave
 
     def _next_wave_fifo(self) -> List[_Queued]:
         wave: List[_Queued] = []
@@ -288,6 +307,7 @@ class ContinuousBatcher:
                 self._deferred[q.seq] = self._deferred.get(q.seq, 0) + 1
                 break
             heapq.heappop(self._queue)
+            self._arrivals -= q.t_arrival
             self._deferred.pop(q.seq, None)      # admitted: counter done
             wave.append(q)
             spent += q.cost
@@ -367,6 +387,7 @@ class ContinuousBatcher:
         admitted = {q.seq for q in wave}
         self._queue = [q for q in self._queue if q.seq not in admitted]
         heapq.heapify(self._queue)
+        self._arrivals -= sum(q.t_arrival for q in wave)
         return wave
 
     # ------------------------------------------------------------------ #
@@ -407,49 +428,60 @@ class ContinuousBatcher:
                      jobs: Optional[List] = None) -> int:
         """Apply writes (barrier), form one wave, execute or enqueue it.
         Returns the number of admitted requests."""
-        if self.writes_pending():
-            if self._pipe is not None:
-                self._pipe.barrier(timeout=self.request_timeout_s)
-            if jobs:
-                self._collect_jobs(jobs, out)
-            self._apply_writes()
-        wave = self.next_wave()
-        if not wave:
-            return 0
-        for (k, ef), items in self._wave_groups(wave).items():
-            queries = np.stack([np.asarray(q.request.vector, np.float32)
-                                for q in items])
-            patterns = [q.request.pattern for q in items]
-            idx = self._wave_counter
-            self._wave_counter += 1
-            if self.pipeline:
-                hook = (None if self.on_wave_start is None else
-                        (lambda i=idx: self.on_wave_start(i)))
-                job = self._pipeline_executor().submit(
-                    queries, patterns, k, ef_search=ef,
-                    pre_dispatch=hook)
-                if jobs is not None and not collect:
-                    jobs.append((job, items))
+        trace = self.engine.index.trace
+        with trace.span("batcher.wave", wave=self._wave_counter):
+            if self.writes_pending():
+                if self._pipe is not None:
+                    self._pipe.barrier(timeout=self.request_timeout_s)
+                if jobs:
+                    self._collect_jobs(jobs, out)
+                self._apply_writes()
+            with trace.span("batcher.admit"):
+                wave = self.next_wave()
+            if not wave:
+                return 0
+            for (k, ef), items in self._wave_groups(wave).items():
+                queries = np.stack([np.asarray(q.request.vector, np.float32)
+                                    for q in items])
+                patterns = [q.request.pattern for q in items]
+                idx = self._wave_counter
+                self._wave_counter += 1
+                if self.pipeline:
+                    hook = (None if self.on_wave_start is None else
+                            (lambda i=idx: self.on_wave_start(i)))
+                    job = self._pipeline_executor().submit(
+                        queries, patterns, k, ef_search=ef,
+                        pre_dispatch=hook)
+                    if jobs is not None and not collect:
+                        jobs.append((job, items))
+                    else:
+                        self._collect_jobs([(job, items)], out)
                 else:
-                    self._collect_jobs([(job, items)], out)
-            else:
-                if self.on_wave_start is not None:
-                    self.on_wave_start(idx)
-                results = self.engine.query_batch(queries, patterns, k,
-                                                  ef_search=ef)
-                t1 = time.perf_counter()
-                for q, (d, i) in zip(items, results):
-                    resp = Response(ids=i, distances=d,
-                                    latency_s=t1 - q.t_arrival)
-                    out[q.seq] = resp
-                    self._record(q, resp)
-                    self._deferred.pop(q.seq, None)
-        return len(wave)
+                    if self.on_wave_start is not None:
+                        self.on_wave_start(idx)
+                    results = self.engine.query_batch(queries, patterns, k,
+                                                      ef_search=ef)
+                    self._respond(items, results, out)
+            return len(wave)
+
+    def _respond(self, items: List[_Queued], results,
+                 out: Dict[int, Response]) -> None:
+        """The wave's ``Response``s (latency to now) and tenant records."""
+        with self.engine.index.trace.span("batcher.respond"):
+            t1 = time.perf_counter()
+            for q, (d, i) in zip(items, results):
+                resp = Response(ids=i, distances=d,
+                                latency_s=t1 - q.t_arrival)
+                out[q.seq] = resp
+                self._record(q, resp)
+                self._deferred.pop(q.seq, None)
 
     def _collect_jobs(self, jobs: List, out: Dict[int, Response]) -> None:
+        trace = self.engine.index.trace
         for job, items in jobs:
             try:
-                results = job.wait(timeout=self.request_timeout_s)
+                with trace.span("batcher.wait"):
+                    results = job.wait(timeout=self.request_timeout_s)
             except TimeoutError:
                 # deadline blown: record the loss per tenant and surface
                 # a typed error instead of hanging the submitter on a
@@ -464,13 +496,7 @@ class ContinuousBatcher:
                     f"{self.request_timeout_s:.1f}s "
                     f"(request_timeout_s deadline)",
                     tickets=[q.seq for q in items]) from None
-            t1 = time.perf_counter()
-            for q, (d, i) in zip(items, results):
-                resp = Response(ids=i, distances=d,
-                                latency_s=t1 - q.t_arrival)
-                out[q.seq] = resp
-                self._record(q, resp)
-                self._deferred.pop(q.seq, None)
+            self._respond(items, results, out)
         jobs.clear()
 
     def drain(self, max_waves: Optional[int] = None,

@@ -127,9 +127,8 @@ class RetrievalEngine:
         dispatched plan is never re-decided mid-flight."""
         with self._lock:
             rt = self.index.snapshot()
-            t0 = time.perf_counter()
-            plan = self.index.plan(patterns, rt)
-            rt.wave_times["plan_ms"] += (time.perf_counter() - t0) * 1e3
+            with rt.trace.span("planner.plan"):
+                plan = self.index.plan(patterns, rt)
         return WavePlan(
             queries=np.ascontiguousarray(queries, dtype=np.float32),
             patterns=list(patterns), k=k, ef_search=ef_search,

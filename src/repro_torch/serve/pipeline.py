@@ -200,6 +200,8 @@ class PipelinedExecutor:
                 self._planned.put(None)
                 return
             try:
+                # this thread's spans carry the wave's index
+                self.engine.index.trace.set_wave(job.index)
                 wave = self.engine.plan_batch(job.queries, job.patterns,
                                               job.k,
                                               ef_search=job.ef_search)
@@ -236,6 +238,7 @@ class PipelinedExecutor:
             try:
                 if job.pre_dispatch is not None:
                     job.pre_dispatch()
+                self.engine.index.trace.set_wave(job.index)
                 pending = self._dispatch(job, wave)
                 inflight.append((job, pending))
                 self.stats["pipeline_depth"] = len(inflight)
@@ -283,6 +286,7 @@ class PipelinedExecutor:
                     ef_search=job.ef_search)
 
     def _fetch(self, job: WaveJob, pending) -> None:
+        self.engine.index.trace.set_wave(job.index)
         try:
             job.results = self.engine.fetch_batch(pending)
         except BaseException as e:
